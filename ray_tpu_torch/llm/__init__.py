@@ -1,0 +1,56 @@
+"""ray_tpu_torch.llm — continuous-batching LLM inference on a paged KV cache.
+
+  * cache.py — refcounted, content-addressed block allocator over the
+    preallocated paged KV pools (automatic prefix caching)
+  * model_runner.py — prefill / partial-prefill / decode / block-copy
+    step programs for the GPT model, over in-place device pools
+  * scheduler.py — iteration-level prefix-aware admission, continuation,
+    preemption
+  * engine.py — LLMEngine core + LLMServer (in-process background loop)
+  * observability.py — per-request lifecycle spans, latency-histogram
+    boundaries, and the engine flight recorder
+"""
+
+from ray_tpu_torch.llm.cache import (
+    EVICTION_POLICIES,
+    NULL_BLOCK,
+    BlockAllocator,
+    CacheOutOfBlocks,
+    blocks_for_tokens,
+    hash_block_tokens,
+    prefix_block_hashes,
+)
+from ray_tpu_torch.llm.config import EngineConfig, KVFabricConfig
+from ray_tpu_torch.llm.engine import LLMEngine, LLMServer
+from ray_tpu_torch.llm.model_runner import GPTRunner
+from ray_tpu_torch.llm.scheduler import (
+    FINISH_ABORTED,
+    FINISH_EOS,
+    FINISH_ERROR,
+    FINISH_LENGTH,
+    Request,
+    Scheduler,
+    Sequence,
+)
+
+__all__ = [
+    "BlockAllocator",
+    "CacheOutOfBlocks",
+    "EVICTION_POLICIES",
+    "EngineConfig",
+    "FINISH_ABORTED",
+    "FINISH_EOS",
+    "FINISH_ERROR",
+    "FINISH_LENGTH",
+    "GPTRunner",
+    "KVFabricConfig",
+    "LLMEngine",
+    "LLMServer",
+    "NULL_BLOCK",
+    "Request",
+    "Scheduler",
+    "Sequence",
+    "blocks_for_tokens",
+    "hash_block_tokens",
+    "prefix_block_hashes",
+]

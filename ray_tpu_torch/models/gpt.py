@@ -1,0 +1,261 @@
+"""GPT-2-style decoder-only transformer (PyTorch).
+
+The port of the reference package's flax GPT with the same configuration
+fields and the same generation variants. Numerics follow the flax model:
+LayerNorm epsilon 1e-6 with f32 statistics, the tanh approximation of GELU,
+every dense product and the embeddings in ``GPTConfig.dtype`` (flax casts
+the f32 params at each use; the port stores them cast once, which gives the
+same numbers), and a tied LM head whose logits stay in that dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.ops.flash_attention import attention as attention_op
+from ray_tpu_torch.ops.paged_flash import paged_attention_impl
+
+LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50304  # 50257 padded to a multiple of 128
+    num_layers: int = 12
+    num_heads: int = 12
+    embed_dim: int = 768
+    mlp_ratio: int = 4
+    max_seq_len: int = 1024
+    dropout_rate: float = 0.0
+    dtype: Any = torch.bfloat16
+    # "flash" (the CUDA kernel for generation prefill; the plain forward's
+    # packed kernel is not ported yet), "reference", or "ring".
+    attention_impl: str = "flash"
+    # MoE: num_experts=0 keeps dense MLPs. MoE blocks are not ported yet.
+    num_experts: int = 0
+    moe_every: int = 2
+    num_experts_per_tok: int = 2
+    moe_capacity_factor: float = 1.25
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+
+def gpt2_125m(**overrides) -> "GPTConfig":
+    return GPTConfig(**overrides)
+
+
+def gpt2_350m(**overrides) -> "GPTConfig":
+    return GPTConfig(num_layers=24, num_heads=16, embed_dim=1024, **overrides)
+
+
+def gpt2_760m(**overrides) -> "GPTConfig":
+    return GPTConfig(num_layers=24, num_heads=20, embed_dim=1280, **overrides)
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm(dtype=...): f32 params and statistics, output in
+    the compute dtype."""
+
+    def __init__(self, dim: int, dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(
+            x.float(), self.weight.shape, self.weight, self.bias, LN_EPS
+        )
+        return y.to(self.dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, config: GPTConfig, device=None):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        e, dt = cfg.embed_dim, cfg.dtype
+        self.ln_1 = LayerNorm(e, dt, device)
+        self.attn_qkv = nn.Linear(e, 3 * e, dtype=dt, device=device)
+        self.attn_proj = nn.Linear(e, e, dtype=dt, device=device)
+        self.ln_2 = LayerNorm(e, dt, device)
+        self.mlp_in = nn.Linear(e, cfg.mlp_ratio * e, dtype=dt, device=device)
+        self.mlp_out = nn.Linear(cfg.mlp_ratio * e, e, dtype=dt, device=device)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        *,
+        return_kv: bool = False,
+        paged_state: Optional[tuple] = None,
+        paged_impl: str = "reference",
+    ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+        """Returns (x, kv): kv is this layer's (k, v) [B, S, H, D] for the
+        fed tokens on the generation paths, else None."""
+        cfg = self.config
+        h = self.ln_1(x)
+        b, s, _ = h.shape
+        qkv = self.attn_qkv(h)
+        q, k, v = (
+            t.view(b, s, cfg.num_heads, cfg.head_dim)
+            for t in qkv.split(cfg.embed_dim, dim=-1)
+        )
+        kv = None
+        if return_kv or paged_state is not None:
+            # Generation paths: full prefill returns the prompt's K/V for
+            # the caller to scatter into the paged cache; decode (s == 1)
+            # and partial prefill (s > 1) attend over the cache through the
+            # block table — paged over the cached prefix, causal among the
+            # fed tokens — and return the new K/V.
+            if paged_state is not None:
+                (k_cache_l, v_cache_l, block_tables, context_lens,
+                 k_scale_l, v_scale_l) = paged_state
+                # The paged kernel takes dense new-token K/V.
+                k, v = k.contiguous(), v.contiguous()
+                attn = paged_attention_impl(
+                    q, k_cache_l, v_cache_l, block_tables, context_lens,
+                    new_k=k, new_v=v, k_scale=k_scale_l, v_scale=v_scale_l,
+                    impl=paged_impl,
+                )
+            else:
+                impl = (
+                    "reference"
+                    if cfg.attention_impl == "ring"
+                    else cfg.attention_impl
+                )
+                attn = attention_op(q, k, v, causal=True, impl=impl)
+            kv = (k, v)
+        elif cfg.attention_impl == "flash" and s <= 2048:
+            raise NotImplementedError(
+                "GPT forward with attention_impl='flash' runs the packed "
+                "flash kernel, which is not ported yet (ROADMAP B5); use "
+                "attention_impl='reference' or a generation path"
+            )
+        elif cfg.attention_impl == "ring":
+            raise NotImplementedError(
+                "ring attention is not ported yet (ROADMAP: the parallel "
+                "layer and ring attention slice)"
+            )
+        else:
+            attn = attention_op(q, k, v, causal=True, impl=cfg.attention_impl)
+        attn = self.attn_proj(attn.reshape(b, s, cfg.embed_dim))
+        x = x + attn
+        h = self.ln_2(x)
+        h = F.gelu(self.mlp_in(h), approximate="tanh")
+        h = self.mlp_out(h)
+        return x + h, kv
+
+
+class GPT(nn.Module):
+    """GPT-2 decoder. ``device`` defaults to CUDA and raises without it;
+    tests pass ``device="cpu"``. Weights are seeded from a torch.Generator
+    (normal(0.02) for dense kernels and wte, normal(0.01) for wpe, zeros
+    for biases) — deterministic per seed, though not the reference's
+    jax.random numbers: parity tests load converted reference weights."""
+
+    def __init__(self, config: GPTConfig, device=None, seed: int = 0):
+        super().__init__()
+        if config.num_experts:
+            raise NotImplementedError(
+                "MoE blocks (num_experts > 0) are not ported yet (ROADMAP: "
+                "the ResNet/MoE slice)"
+            )
+        device = resolve_device(device)
+        self.config = cfg = config
+        self.wte = nn.Embedding(
+            cfg.vocab_size, cfg.embed_dim, dtype=cfg.dtype, device=device
+        )
+        self.wpe = nn.Embedding(
+            cfg.max_seq_len, cfg.embed_dim, dtype=cfg.dtype, device=device
+        )
+        self.h = nn.ModuleList(
+            Block(cfg, device) for _ in range(cfg.num_layers)
+        )
+        self.ln_f = LayerNorm(cfg.embed_dim, cfg.dtype, device)
+        self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0) -> None:
+        gen = torch.Generator().manual_seed(seed)
+        for name, p in self.named_parameters():
+            if isinstance(self.get_submodule(name.rsplit(".", 1)[0]), LayerNorm):
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                std = 0.01 if name.startswith("wpe") else 0.02
+                p.copy_(torch.randn(p.shape, generator=gen) * std)
+
+    def forward(
+        self,
+        tokens: torch.Tensor,
+        *,
+        positions: Optional[torch.Tensor] = None,
+        return_kv: bool = False,
+        paged_caches: Optional[tuple] = None,
+        paged_impl: str = "reference",
+    ):
+        """Forward pass: tokens [B, S] → bf16 (model dtype) logits [B, S, V].
+
+        Generation variants (same parameters):
+          * ``return_kv=True`` also returns each layer's (k, v) [B, S, H, D]
+            for the fed tokens: ``(logits, kvs)``.
+          * ``paged_caches=(k_cache, v_cache, block_tables, context_lens)``
+            or ``(..., k_scale, v_scale)``: k/v_cache are [L, N, bs, H, D]
+            paged pools (int8 pools carry [L, N, bs, H] scales); attention
+            reads the cached prefix through the block table and runs
+            causally over the fed tokens, through the CUDA kernel when
+            ``paged_impl`` resolves to it. ``positions`` [B, S] must carry
+            each token's absolute position.
+        """
+        cfg = self.config
+        b, s = tokens.shape
+        if positions is None:
+            positions = torch.arange(s, device=tokens.device)[None, :]
+        x = self.wte(tokens.long()) + self.wpe(positions.long())
+        if paged_caches is not None:
+            if len(paged_caches) == 4:  # no scale tensors
+                paged_caches = tuple(paged_caches) + (None, None)
+            (k_cache, v_cache, block_tables, context_lens,
+             k_scale, v_scale) = paged_caches
+        kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        for i, block in enumerate(self.h):
+            paged_state = None
+            if paged_caches is not None:
+                paged_state = (
+                    k_cache[i], v_cache[i], block_tables, context_lens,
+                    None if k_scale is None else k_scale[i],
+                    None if v_scale is None else v_scale[i],
+                )
+            x, kv = block(
+                x, return_kv=return_kv, paged_state=paged_state,
+                paged_impl=paged_impl,
+            )
+            kvs.append(kv)
+        x = self.ln_f(x)
+        # Tied LM head: logits through the embedding matrix in the model
+        # dtype (bf16 logits, as in the reference; argmax runs on these).
+        logits = F.linear(x, self.wte.weight)
+        if return_kv:
+            return logits, kvs
+        return logits
+
+
+def cross_entropy_loss(logits, targets, mask: Optional[torch.Tensor] = None):
+    """Token-level LM loss. logits [B,S,V], targets [B,S] int; computed as
+    logsumexp(logits) - logits[target] in f32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - tgt
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

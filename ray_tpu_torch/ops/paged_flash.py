@@ -1,0 +1,245 @@
+"""Fused paged attention for the serving hot path: a hand-written CUDA
+kernel (``csrc/paged_attention.cu``) walking each sequence's block table.
+
+The plain path (`ops.paged_attention`) gathers whole pages —
+``k_cache[block_tables]`` materializes [B, nb*bs, H, D] every step — and
+runs a full-matrix softmax over [B, H, Q, K] logits. The kernel reads each
+cache block through the table once, masks at the context length, and folds
+it into an f32 online softmax; neither the gathered pages nor the logits
+reach device memory. The new tokens' K/V (not yet scattered into the pool)
+are folded in last under a causal mask. Rows with no valid key come out as
+exact zeros, matching `finalize_partial`'s l == 0 hygiene.
+
+Covers both generation shapes of ray_tpu_torch.llm: decode (S == 1) and
+prefix-aware partial prefill (S > 1: the uncached suffix attends the cached
+prefix through the table and itself causally).
+
+int8 KV cache: the pools store int8 with per-token, per-head bf16 scales
+(written by `quantize_kv` at scatter time — per-token scales are the only
+granularity a one-token decode scatter can maintain). Dequantization is
+folded into the block loop: K's scale multiplies the score columns and V's
+scale the softmax weights, so no dequantized block is ever materialized.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.ops import _kernels
+from ray_tpu_torch.ops.attention import paged_attention, validate_kv_scales
+
+# Storage dtype for the KV-cache scale tensors. bf16 keeps the scale
+# overhead at 2 bytes per (token, head). All scale MATH is f32;
+# quantization divides by the bf16-rounded scale so the round trip is
+# consistent with what the kernel will dequantize with.
+KV_SCALE_DTYPE = torch.bfloat16
+
+_ARGTYPES = {
+    "paged_attention_launch": [ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_void_p] * 10
+    + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+}
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-token, per-head int8 quantization of K or V.
+
+    x: [..., H, D] (any leading shape) → (values int8 [..., H, D],
+    scales KV_SCALE_DTYPE [..., H]). Scales are amax/127 per (token, head)
+    so a single decode token's scatter writes its own scale slot and never
+    touches neighbors. Bit-identical to the reference: torch.round, like
+    jnp.round, rounds half to even.
+    """
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax / 127.0, min=1e-8).to(KV_SCALE_DTYPE)
+    # Quantize with the *stored* (bf16-rounded) scale; clip because the
+    # rounding can shrink the scale by ~0.4%, pushing x/scale past 127.
+    q = torch.clamp(
+        torch.round(xf / scale.float()[..., None]), -127.0, 127.0
+    ).to(torch.int8)
+    return q, scale
+
+
+def resolve_paged_impl(impl: str, device=None) -> str:
+    """Resolve the `impl` knob to a concrete implementation: 'auto' picks
+    the CUDA kernel when the pools live on a CUDA device and the plain
+    reference on the CPU. The single owner of that policy — the runner
+    (tagging metrics/flight records) and the dispatcher below both call
+    this, so they can never disagree."""
+    if impl not in ("auto", "cuda", "reference"):
+        raise ValueError(f"Unknown paged attention impl {impl!r}")
+    if impl == "auto":
+        device = torch.device(device if device is not None else "cpu")
+        return "cuda" if device.type == "cuda" else "reference"
+    return impl
+
+
+def _check_kernel_inputs(q, k_cache, v_cache, block_tables, context_lens,
+                         new_k, new_v, k_scale, v_scale) -> None:
+    b, s, h, d = q.shape
+    tensors = {
+        "q": q, "k_cache": k_cache, "v_cache": v_cache,
+        "block_tables": block_tables, "context_lens": context_lens,
+        "new_k": new_k, "new_v": new_v,
+    }
+    if k_scale is not None:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q dtype {q.dtype}: the kernel takes f32 or bf16")
+    if new_k.dtype != q.dtype or new_v.dtype != q.dtype:
+        raise ValueError("new_k/new_v must share q's dtype")
+    if k_cache.dtype not in (torch.float32, torch.bfloat16, torch.int8):
+        raise ValueError(f"pool dtype {k_cache.dtype} is not f32/bf16/int8")
+    if k_scale is not None and (
+        k_scale.dtype != KV_SCALE_DTYPE or v_scale.dtype != KV_SCALE_DTYPE
+    ):
+        raise ValueError(f"scales must be {KV_SCALE_DTYPE}")
+    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise ValueError("block_tables/context_lens must be int32")
+    if new_k.shape != q.shape or new_v.shape != q.shape:
+        raise ValueError("new_k/new_v must have q's shape [B, S, H, D]")
+    if k_cache.dim() != 4 or k_cache.shape[2:] != (h, d):
+        raise ValueError(f"pool shape {tuple(k_cache.shape)} != [N, bs, {h}, {d}]")
+    if v_cache.shape != k_cache.shape:
+        raise ValueError("k_cache/v_cache shapes differ")
+    if block_tables.shape[0] != b or context_lens.shape != (b,):
+        raise ValueError("block_tables [B, nb] / context_lens [B] mismatch q")
+    if d > 128:
+        raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
+    # The kernel stages rows in 16-byte units.
+    for name in ("q", "k_cache", "new_k"):
+        t = tensors[name]
+        if (d * t.element_size()) % 16:
+            raise ValueError(
+                f"{name}: rows of head_dim {d} x {t.element_size()} bytes are "
+                "not a multiple of 16 bytes, which the kernel's loads need"
+            )
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned")
+
+
+def paged_flash_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    *,
+    new_k: torch.Tensor,
+    new_v: torch.Tensor,
+    sm_scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Fused paged attention over the block-table KV cache.
+
+    Same contract as :func:`ray_tpu_torch.ops.paged_attention` — q
+    [B, S, H, D], k/v_cache [N, bs, H, D] pools, block_tables [B, nb]
+    (0-padded), context_lens [B] — except `new_k`/`new_v` are REQUIRED.
+    q is prescaled by sm_scale in its storage dtype before the launch (the
+    reference scales the f32 logits instead; the two round differently).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
+    version, `paged_attention`, on the same prescaled q.
+    """
+    if new_k is None or new_v is None:
+        raise ValueError(
+            "paged_flash_attention requires new_k/new_v (the engine always "
+            "carries the new tokens' K/V); use ops.paged_attention for "
+            "cache-only queries"
+        )
+    validate_kv_scales(k_cache, v_cache, k_scale, v_scale)
+    b, s, h, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    q = (q.float() * sm_scale).to(q.dtype)
+    if q.device.type == "cpu":
+        return paged_attention(
+            q, k_cache, v_cache, block_tables, context_lens,
+            new_k=new_k, new_v=new_v, sm_scale=1.0,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_attention: unsupported device {q.device}")
+    _check_kernel_inputs(q, k_cache, v_cache, block_tables, context_lens,
+                         new_k, new_v, k_scale, v_scale)
+    out = torch.empty_like(q)
+    if b * s == 0:
+        return out
+    lib = _kernels.library("paged_attention", _ARGTYPES)
+    err = lib.paged_attention_launch(
+        _kernels.dtype_code(q.dtype), _kernels.dtype_code(k_cache.dtype),
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        None if k_scale is None else k_scale.data_ptr(),
+        None if v_scale is None else v_scale.data_ptr(),
+        block_tables.data_ptr(), context_lens.data_ptr(),
+        new_k.data_ptr(), new_v.data_ptr(), out.data_ptr(),
+        b, s, h, d, k_cache.shape[1], block_tables.shape[1],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _kernels.check(err, "paged_attention")
+    paged_flash_attention.launches += 1
+    return out
+
+
+paged_flash_attention.launches = 0
+
+
+def paged_attention_impl(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    *,
+    new_k: Optional[torch.Tensor] = None,
+    new_v: Optional[torch.Tensor] = None,
+    sm_scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Dispatcher: the CUDA kernel for pools on a CUDA device, the plain
+    reference on the CPU (impl='auto'); 'cuda' forces the kernel wrapper
+    (its plain version on CPU tensors), 'reference' forces the gather +
+    softmax op. A cache-only query (new_k=None) is outside the kernel's
+    contract, so whenever the kernel is chosen it raises."""
+    resolved = resolve_paged_impl(impl, k_cache.device)
+    op = paged_attention if resolved == "reference" else paged_flash_attention
+    return op(
+        q, k_cache, v_cache, block_tables, context_lens,
+        new_k=new_k, new_v=new_v, sm_scale=sm_scale,
+        k_scale=k_scale, v_scale=v_scale,
+    )
+
+
+def kv_pool_bytes(
+    num_blocks: int, block_size: int, heads: int, head_dim: int,
+    kv_dtype, with_scales: bool,
+) -> int:
+    """Total bytes of one K or V pool (+ its scale tensor when int8):
+    the honest denominator for capacity-ratio claims. `kv_dtype` is a
+    torch or numpy dtype."""
+    values = num_blocks * block_size * heads * head_dim * _itemsize(kv_dtype)
+    if with_scales:
+        values += num_blocks * block_size * heads * _itemsize(KV_SCALE_DTYPE)
+    return values
+
+
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
+    return np.dtype(dtype).itemsize

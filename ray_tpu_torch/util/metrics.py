@@ -1,0 +1,226 @@
+"""Application metrics: Counter / Gauge / Histogram + Prometheus exposition.
+
+The serving engine's part of the reference package's metrics module:
+metrics write to one in-process registry and `prometheus_text()` renders
+the standard text exposition format.
+"""
+
+from __future__ import annotations
+
+import threading
+from bisect import bisect_left
+from typing import Dict, List, Optional, Sequence, Tuple
+
+_REGISTRY_LOCK = threading.Lock()
+_REGISTRY: Dict[str, "Metric"] = {}
+# Bumped by reset_registry(); metrics re-register lazily on their next write
+# when their registration generation is stale (see Metric._ensure_registered).
+_REGISTRY_GEN = 0
+
+DEFAULT_HISTOGRAM_BOUNDARIES = [
+    0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 50.0, 100.0,
+]
+
+
+def _tag_key(tags: Optional[dict]) -> Tuple[Tuple[str, str], ...]:
+    return tuple(sorted((tags or {}).items()))
+
+
+class Metric:
+    kind = "untyped"
+
+    def __init__(self, name: str, description: str = "", tag_keys: Sequence[str] = ()):
+        if not name or not name.replace("_", "").replace(":", "").isalnum():
+            raise ValueError(f"Invalid metric name {name!r}")
+        self.name = name
+        self.description = description
+        self.tag_keys = tuple(tag_keys)
+        self._lock = threading.Lock()
+        with _REGISTRY_LOCK:
+            existing = _REGISTRY.get(name)
+            if existing is not None and existing.kind != self.kind:
+                raise ValueError(
+                    f"Metric {name!r} already registered as {existing.kind}"
+                )
+            _REGISTRY[name] = self
+            self._reg_gen = _REGISTRY_GEN
+
+    def _ensure_registered(self) -> None:
+        """Re-register after reset_registry() wiped the exposition table, so
+        long-lived holders (an engine that outlives a test's reset) keep
+        exporting on their next write. First writer wins: if a FRESH metric
+        of this name registered since the reset (the common get_or_create
+        path in a new test), it keeps the name and this instance's writes
+        simply stop being exported — series never flip-flop between
+        instances. One int compare on the hot path."""
+        if self._reg_gen == _REGISTRY_GEN:
+            return
+        with _REGISTRY_LOCK:
+            _REGISTRY.setdefault(self.name, self)
+            self._reg_gen = _REGISTRY_GEN
+
+    def _merged(self, tags: Optional[dict]) -> Tuple[Tuple[str, str], ...]:
+        if tags and self.tag_keys:
+            unknown = set(tags) - set(self.tag_keys)
+            if unknown:
+                raise ValueError(f"Unknown tag keys {unknown} for {self.name}")
+        return _tag_key(tags)
+
+    def _series(self) -> dict:
+        raise NotImplementedError
+
+
+class Counter(Metric):
+    kind = "counter"
+
+    def __init__(self, name, description: str = "", tag_keys: Sequence[str] = ()):
+        super().__init__(name, description, tag_keys)
+        self._values: Dict[tuple, float] = {}
+
+    def inc(self, value: float = 1.0, tags: Optional[dict] = None) -> None:
+        if value < 0:
+            raise ValueError("Counters only increase")
+        self._ensure_registered()
+        key = self._merged(tags)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + value
+
+    def _series(self) -> dict:
+        with self._lock:
+            return dict(self._values)
+
+
+class Gauge(Metric):
+    kind = "gauge"
+
+    def __init__(self, name, description: str = "", tag_keys: Sequence[str] = ()):
+        super().__init__(name, description, tag_keys)
+        self._values: Dict[tuple, float] = {}
+
+    def set(self, value: float, tags: Optional[dict] = None) -> None:
+        self._ensure_registered()
+        with self._lock:
+            self._values[self._merged(tags)] = float(value)
+
+    def _series(self) -> dict:
+        with self._lock:
+            return dict(self._values)
+
+
+class Histogram(Metric):
+    kind = "histogram"
+
+    def __init__(
+        self,
+        name,
+        description: str = "",
+        boundaries: Optional[Sequence[float]] = None,
+        tag_keys: Sequence[str] = (),
+    ):
+        super().__init__(name, description, tag_keys)
+        self.boundaries = sorted(boundaries or DEFAULT_HISTOGRAM_BOUNDARIES)
+        self._buckets: Dict[tuple, List[int]] = {}
+        self._sums: Dict[tuple, float] = {}
+        self._counts: Dict[tuple, int] = {}
+
+    def observe(self, value: float, tags: Optional[dict] = None) -> None:
+        self._ensure_registered()
+        key = self._merged(tags)
+        with self._lock:
+            buckets = self._buckets.setdefault(
+                key, [0] * (len(self.boundaries) + 1)
+            )
+            # bisect_left: Prometheus `le` is inclusive, so a value equal to
+            # a boundary belongs in that boundary's bucket.
+            buckets[bisect_left(self.boundaries, value)] += 1
+            self._sums[key] = self._sums.get(key, 0.0) + value
+            self._counts[key] = self._counts.get(key, 0) + 1
+
+    def _series(self) -> dict:
+        with self._lock:
+            return {
+                key: {
+                    "buckets": list(self._buckets[key]),
+                    "sum": self._sums[key],
+                    "count": self._counts[key],
+                }
+                for key in self._buckets
+            }
+
+def _escape_label(value: str) -> str:
+    """Prometheus exposition label escaping: backslash, quote, newline."""
+    return (
+        str(value)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _fmt_tags(key: tuple) -> str:
+    if not key:
+        return ""
+    inner = ",".join(f'{k}="{_escape_label(v)}"' for k, v in key)
+    return "{" + inner + "}"
+
+
+def prometheus_text() -> str:
+    """Render every registered metric in Prometheus text exposition format."""
+    lines: List[str] = []
+    with _REGISTRY_LOCK:
+        metrics = list(_REGISTRY.values())
+    for m in metrics:
+        lines.append(f"# HELP {m.name} {m.description}")
+        lines.append(f"# TYPE {m.name} {m.kind}")
+        series = m._series()
+        if isinstance(m, Histogram):
+            for key, data in series.items():
+                cumulative = 0
+                for bound, n in zip(m.boundaries, data["buckets"]):
+                    cumulative += n
+                    tag = dict(key)
+                    tag["le"] = repr(bound)
+                    lines.append(
+                        f"{m.name}_bucket{_fmt_tags(_tag_key(tag))} {cumulative}"
+                    )
+                tag = dict(key)
+                tag["le"] = "+Inf"
+                lines.append(
+                    f"{m.name}_bucket{_fmt_tags(_tag_key(tag))} {data['count']}"
+                )
+                lines.append(f"{m.name}_sum{_fmt_tags(key)} {data['sum']}")
+                lines.append(f"{m.name}_count{_fmt_tags(key)} {data['count']}")
+        else:
+            for key, value in series.items():
+                lines.append(f"{m.name}{_fmt_tags(key)} {value}")
+    return "\n".join(lines) + "\n"
+
+
+def get_or_create(kind_cls, name: str, description: str = "", **kwargs):
+    """Return the already-registered metric of this name/kind, or create it.
+
+    Constructing a Metric always (re)binds the registry entry, so components
+    that may be instantiated several times per process (e.g. one engine per
+    Serve app) must share one instance — otherwise the newest instance
+    silently evicts the older ones' series from the exposition. Distinguish
+    instances with tags, not with separate metric objects."""
+    with _REGISTRY_LOCK:
+        existing = _REGISTRY.get(name)
+    if existing is not None and isinstance(existing, kind_cls):
+        return existing
+    return kind_cls(name, description, **kwargs)
+
+
+def reset_registry() -> None:
+    """Drop every registered metric — test isolation between tests that
+    construct multiple engines/routers in one process, so histogram
+    tag-sets and counter values don't bleed from one test's exposition
+    into the next. Surviving metric INSTANCES keep working: the first one
+    to write after a reset re-registers itself (Metric._ensure_registered),
+    while get_or_create() in later code sees an empty slot and builds a
+    fresh zero-valued metric."""
+    global _REGISTRY_GEN
+    with _REGISTRY_LOCK:
+        _REGISTRY.clear()
+        _REGISTRY_GEN += 1
+

@@ -1,0 +1,327 @@
+"""ray_tpu_torch.ops against the JAX reference package on the same inputs.
+
+Inputs are made from a numpy seed and handed to both packages. The JAX
+Pallas kernels run in interpret mode on the CPU (as the reference's own
+tests run them); the port's kernel wrappers run their plain versions on
+CPU tensors. The kernels themselves are tested on the card by
+tests/test_torch_kernels.py.
+"""
+
+import math
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops import attention as jax_attention_fn
+from ray_tpu.ops import flash_attention as jax_flash_attention
+from ray_tpu.ops import paged_attention as jax_paged_attention
+from ray_tpu.ops import paged_flash_attention as jax_paged_flash_attention
+from ray_tpu.ops import quantize_kv as jax_quantize_kv
+from ray_tpu.ops.attention import _chunk_attn_partial as jax_chunk_partial
+from ray_tpu.ops.attention import finalize_partial as jax_finalize
+from ray_tpu.ops.attention import merge_partials as jax_merge
+from ray_tpu.ops.flash_attention import _flash_fwd as jax_flash_fwd
+from ray_tpu.ops.paged_flash import kv_pool_bytes as jax_kv_pool_bytes
+from ray_tpu_torch.ops import (
+    attention,
+    dequantize_kv,
+    flash_attention,
+    flash_attention_fwd,
+    flash_attention_reference,
+    mha_reference,
+    paged_attention,
+    paged_attention_impl,
+    paged_flash_attention,
+    quantize_kv,
+)
+from ray_tpu_torch.ops.attention import (
+    _chunk_attn_partial,
+    finalize_partial,
+    merge_partials,
+    validate_tp_heads,
+)
+from ray_tpu_torch.ops.paged_flash import kv_pool_bytes, resolve_paged_impl
+
+# Tiny shapes: one intra-op thread, so the suite's parallel workers keep
+# their cores (several reference tests are timing-sensitive).
+torch.set_num_threads(1)
+
+F32_TOL = 1e-5  # same f32 math, different summation order
+
+
+def _paged_case(seed, b, s, h=4, d=16, bs=4, nb=4):
+    """Random paged-attention inputs as numpy: pools, 0-padded tables
+    (distinct non-null blocks per row), new K/V."""
+    num_blocks = b * nb + 1
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, s, h, d).astype(np.float32)
+    kc = rng.randn(num_blocks, bs, h, d).astype(np.float32)
+    vc = rng.randn(num_blocks, bs, h, d).astype(np.float32)
+    nk = rng.randn(b, s, h, d).astype(np.float32)
+    nv = rng.randn(b, s, h, d).astype(np.float32)
+    perm = rng.permutation(np.arange(1, num_blocks))
+    tables = perm[: b * nb].reshape(b, nb).astype(np.int32)
+    return q, kc, vc, tables, nk, nv
+
+
+def _null_pad(tables, lens, bs):
+    """Zero each row's table past its context (the engine's padding)."""
+    used = -(-np.asarray(lens) // bs)
+    return np.where(np.arange(tables.shape[1])[None] < used[:, None], tables, 0).astype(np.int32)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+# ---------------------------------------------------------------- paged
+
+
+PAGED_CASES = {
+    # name: (b, s, context lengths, null-padded tables)
+    "decode_ctx0_partial_max": (4, 1, (9, 2, 16, 0), False),
+    "decode_block_edges_full": (4, 1, (8, 4, 12, 16), False),
+    "decode_null_padded": (3, 1, (6, 0, 13), True),
+    "partial_prefill": (3, 5, (9, 0, 16), True),
+    "verify_shape": (4, 5, (0, 8, 16, 9), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+@pytest.mark.parametrize("with_new", [True, False])
+def test_paged_attention_matches_jax(case, with_new):
+    """The plain paged op equals the JAX oracle at f32 (tolerance: same
+    math, summation order) — ctx 0, block edges, the full table, null-
+    padded tables, the multi-query partial-prefill and verify shapes, and
+    cache-only queries whose empty rows must be exact zeros."""
+    b, s, lens, pad = PAGED_CASES[case]
+    q, kc, vc, tables, nk, nv = _paged_case(sorted(PAGED_CASES).index(case), b, s)
+    if pad:
+        tables = _null_pad(tables, lens, kc.shape[1])
+    lens = np.asarray(lens, np.int32)
+    kw_j = dict(new_k=jnp.asarray(nk), new_v=jnp.asarray(nv)) if with_new else {}
+    kw_t = dict(new_k=torch.from_numpy(nk), new_v=torch.from_numpy(nv)) if with_new else {}
+    want = jax_paged_attention(*_j(q, kc, vc, tables, lens), **kw_j)
+    got = paged_attention(*_t(q, kc, vc, tables, lens), **kw_t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL)
+    if not with_new:
+        empty = lens == 0
+        assert np.all(got.numpy()[empty] == 0.0)
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "mixed"])
+def test_paged_attention_dtypes_match_jax(variant):
+    """bf16 pools and queries (tolerance: bf16 rounding at different
+    places, 2e-2), int8 pools with bf16 scales (bit-identical inputs,
+    f32 math: 1e-5), and bf16 pools under f32 queries (promotion)."""
+    q, kc, vc, tables, nk, nv = _paged_case(8, b=4, s=5)
+    lens = np.asarray([0, 8, 16, 9], np.int32)
+    jq, jk, jv, jt, jl, jnk, jnv = _j(q, kc, vc, tables, lens, nk, nv)
+    tq, tk, tv, tt, tl, tnk, tnv = _t(q, kc, vc, tables, lens, nk, nv)
+    kw_j, kw_t, atol = {}, {}, F32_TOL
+    if variant == "bf16":
+        jq, jk, jv, jnk, jnv = (x.astype(jnp.bfloat16) for x in (jq, jk, jv, jnk, jnv))
+        tq, tk, tv, tnk, tnv = (x.bfloat16() for x in (tq, tk, tv, tnk, tnv))
+        atol = 2e-2
+    elif variant == "int8":
+        jk, jks = jax_quantize_kv(jk)
+        jv, jvs = jax_quantize_kv(jv)
+        tk, tks = quantize_kv(tk)
+        tv, tvs = quantize_kv(tv)
+        kw_j = dict(k_scale=jks, v_scale=jvs)
+        kw_t = dict(k_scale=tks, v_scale=tvs)
+    else:
+        jk, jv = jk.astype(jnp.bfloat16), jv.astype(jnp.bfloat16)
+        tk, tv = tk.bfloat16(), tv.bfloat16()
+    want = jax_paged_attention(jq, jk, jv, jt, jl, new_k=jnk, new_v=jnv, **kw_j)
+    got = paged_attention(tq, tk, tv, tt, tl, new_k=tnk, new_v=tnv, **kw_t)
+    assert got.dtype == {"bf16": torch.bfloat16}.get(variant, torch.float32)
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), atol=atol
+    )
+
+
+def test_quantize_kv_bit_identical_to_jax():
+    """Same values, same bf16 scales, same int8 codes: both round half to
+    even and divide by the bf16-rounded scale. Includes exact .5 ties and
+    all-zero rows; the round trip stays within half a step."""
+    rng = np.random.RandomState(5)
+    x = (rng.randn(7, 3, 4, 32) * 3.0).astype(np.float32)
+    x[0, 0, 0] = 0.0
+    x[1, 0, 0, :4] = [127.0, 63.5, -0.5, 1.5]  # amax 127 -> scale 1: ties
+    jq, js = jax_quantize_kv(jnp.asarray(x))
+    tq, ts = quantize_kv(torch.from_numpy(x))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.bfloat16
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(
+        ts.float().numpy(), np.asarray(js, np.float32)
+    )
+    back = dequantize_kv(tq, ts).numpy()
+    amax = np.abs(x).max(axis=-1, keepdims=True)
+    assert np.all(np.abs(back - x) <= amax / 127.0 + 1e-6)
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (4, 1, (9, 2, 16, 0), "f32"),   # decode: partial, tiny, max, empty
+        (3, 5, (9, 0, 16), "f32"),      # partial prefill
+        (3, 2, (9, 16, 0), "int8"),     # int8 pools
+    ],
+)
+def test_paged_flash_attention_wrapper_matches_jax_kernel(shape):
+    """The kernel wrapper on CPU tensors (its plain version on the
+    prescaled q) against JAX's Pallas kernel in interpret mode (narrow
+    tables keep the interpret-mode grid small). f32 tolerance; int8 has
+    identical quantized inputs."""
+    b, s, lens, variant = shape
+    q, kc, vc, tables, nk, nv = _paged_case(b * 10 + s, b, s)
+    lens = np.asarray(lens, np.int32)
+    jk, jv = jnp.asarray(kc), jnp.asarray(vc)
+    tk, tv = torch.from_numpy(kc), torch.from_numpy(vc)
+    kw_j, kw_t = {}, {}
+    if variant == "int8":
+        jk, jks = jax_quantize_kv(jk)
+        jv, jvs = jax_quantize_kv(jv)
+        tk, tks = quantize_kv(tk)
+        tv, tvs = quantize_kv(tv)
+        kw_j, kw_t = dict(k_scale=jks, v_scale=jvs), dict(k_scale=tks, v_scale=tvs)
+    want = jax_paged_flash_attention(
+        jnp.asarray(q), jk, jv, *_j(tables, lens),
+        new_k=jnp.asarray(nk), new_v=jnp.asarray(nv), **kw_j,
+    )
+    got = paged_flash_attention(
+        torch.from_numpy(q), tk, tv, *_t(tables, lens),
+        new_k=torch.from_numpy(nk), new_v=torch.from_numpy(nv), **kw_t,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_paged_wrapper_contract(monkeypatch):
+    """new_k/new_v are required; scale/pool dtype mismatches raise in both
+    implementations; the dispatcher resolves by device and rejects unknown
+    knobs; the wrapper's launch count does not move on the CPU."""
+    q, kc, vc, tables, nk, nv = _t(*_paged_case(6, b=1, s=1))
+    lens = torch.tensor([4], dtype=torch.int32)
+    with pytest.raises(ValueError, match="new_k/new_v"):
+        paged_flash_attention(q, kc, vc, tables, lens, new_k=None, new_v=None)
+    kq, ks = quantize_kv(kc)
+    vq, vs = quantize_kv(vc)
+    for op in (paged_flash_attention, paged_attention):
+        with pytest.raises(ValueError, match="non-int8"):
+            op(q, kc, vc, tables, lens, new_k=nk, new_v=nv, k_scale=ks, v_scale=vs)
+        with pytest.raises(ValueError, match="require k_scale/v_scale"):
+            op(q, kq, vq, tables, lens, new_k=nk, new_v=nv)
+    assert resolve_paged_impl("auto", "cpu") == "reference"
+    assert resolve_paged_impl("auto", torch.device("cuda")) == "cuda"
+    assert resolve_paged_impl("cuda", "cpu") == "cuda"
+    with pytest.raises(ValueError, match="Unknown"):
+        resolve_paged_impl("pallas")
+    before = paged_flash_attention.launches
+    auto = paged_attention_impl(q, kc, vc, tables, lens, new_k=nk, new_v=nv)
+    forced = paged_attention_impl(
+        q, kc, vc, tables, lens, new_k=nk, new_v=nv, impl="cuda"
+    )
+    np.testing.assert_allclose(auto.numpy(), forced.numpy(), atol=F32_TOL)
+    assert paged_flash_attention.launches == before
+    # A cache-only query goes to the kernel whenever the kernel is chosen,
+    # and the kernel refuses it: never a quiet fall back to the reference.
+    with pytest.raises(ValueError, match="new_k/new_v"):
+        paged_attention_impl(q, kc, vc, tables, lens, impl="cuda")
+    cache_only = paged_attention_impl(q, kc, vc, tables, lens)
+    assert cache_only.shape == q.shape
+    # 'auto' with pools on the card (resolution forced, as there is no card
+    # here) takes the kernel for a cache-only query too, which raises.
+    monkeypatch.setattr(
+        sys.modules["ray_tpu_torch.ops.paged_flash"], "resolve_paged_impl",
+        lambda impl, device=None: "cuda",
+    )
+    with pytest.raises(ValueError, match="new_k/new_v"):
+        paged_attention_impl(q, kc, vc, tables, lens)
+    with pytest.raises(ValueError, match="divisible"):
+        validate_tp_heads(12, 5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
+def test_kv_pool_bytes_matches_jax(dtype):
+    jax_dtype = {"float32": jnp.float32, "int8": jnp.int8, "bfloat16": jnp.bfloat16}[dtype]
+    want = jax_kv_pool_bytes(1024, 16, 12, 64, jax_dtype, dtype == "int8")
+    assert kv_pool_bytes(1024, 16, 12, 64, getattr(torch, dtype), dtype == "int8") == want
+
+
+# ---------------------------------------------------------------- dense
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [16, 64])
+def test_flash_attention_matches_jax_kernel(causal, s):
+    """O and lse of the flash wrapper (plain blockwise version on CPU)
+    against JAX's Pallas forward in interpret mode, f32."""
+    rng = np.random.RandomState(s + causal)
+    q, k, v = (rng.randn(2, s, 3, 16).astype(np.float32) for _ in range(3))
+    sm = 1.0 / math.sqrt(16)
+    want_o, res = jax_flash_fwd(*_j(q, k, v), sm, causal, s, s)
+    want_lse = np.asarray(res[-1])  # [B*H, S]
+    got_o, got_lse = flash_attention_fwd(*_t(q, k, v), causal=causal)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=F32_TOL)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, atol=F32_TOL)
+    out = jax_flash_attention(*_j(q, k, v), causal=causal)
+    np.testing.assert_allclose(
+        flash_attention(*_t(q, k, v), causal=causal).numpy(), np.asarray(out),
+        atol=F32_TOL,
+    )
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_mha_reference_and_dispatcher_match_jax(causal):
+    rng = np.random.RandomState(3)
+    q, k, v = (rng.randn(2, 24, 4, 8).astype(np.float32) for _ in range(3))
+    want = jax_attention_fn(*_j(q, k, v), causal=causal, impl="reference")
+    for impl in ("reference", "auto", "flash"):
+        got = attention(*_t(q, k, v), causal=causal, impl=impl)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL)
+    np.testing.assert_allclose(
+        mha_reference(*_t(q, k, v), causal=causal).numpy(), np.asarray(want),
+        atol=F32_TOL,
+    )
+    with pytest.raises(ValueError, match="Unknown attention impl"):
+        attention(*_t(q, k, v), impl="ring")
+
+
+def test_flash_reference_blockwise_across_tiles_and_grad_refusal():
+    """S past one key tile: the blockwise recurrence equals the full-
+    matrix reference; an input that requires grad is refused (the
+    backward kernels come with the training slice)."""
+    rng = np.random.RandomState(4)
+    q, k, v = _t(*(rng.randn(1, 300, 2, 8).astype(np.float32) for _ in range(3)))
+    o, lse = flash_attention_reference(q, k, v, causal=True)
+    np.testing.assert_allclose(
+        o.numpy(), mha_reference(q, k, v, causal=True).numpy(), atol=F32_TOL
+    )
+    assert lse.shape == (2, 300)
+    with pytest.raises(NotImplementedError, match="B3/B4"):
+        flash_attention_fwd(q.requires_grad_(), k, v, causal=True)
+
+
+def test_partials_merge_match_jax():
+    """Blockwise partials, their merge and finalization (the ring/flash
+    update rule) against JAX, including a fully-masked chunk."""
+    rng = np.random.RandomState(9)
+    q, k, v = (rng.randn(2, 6, 3, 8).astype(np.float32) for _ in range(3))
+    mask = np.ones((1, 1, 6, 3), bool)
+    mask[..., :3, :] = False  # rows 0-2 see nothing in chunk 1
+    jp1 = jax_chunk_partial(*_j(q, k[:, :3], v[:, :3]), 0.3, jnp.asarray(mask))
+    jp2 = jax_chunk_partial(*_j(q, k[:, 3:], v[:, 3:]), 0.3, None)
+    tp1 = _chunk_attn_partial(*_t(q, k[:, :3], v[:, :3]), 0.3, torch.from_numpy(mask))
+    tp2 = _chunk_attn_partial(*_t(q, k[:, 3:], v[:, 3:]), 0.3, None)
+    want = jax_finalize(*jax_merge(*jp1, *jp2))
+    got = finalize_partial(*merge_partials(*tp1, *tp2))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL)
+    assert np.all(tp1[2].numpy()[:, :, :3] == 0.0)
