@@ -9,10 +9,17 @@ Phases, each fatal on failure:
   1. device  — the card's name and power limit (nvidia-smi) and torch's name;
   2. build   — compile every CUDA kernel from ray_tpu_torch/ops/csrc;
   3. kernels — hold each kernel against its plain PyTorch version at the
-     serving path's GPT-2 125M shapes (H=12, D=64), with stated
-     tolerances; time kernel, plain version and, where one PyTorch call
-     computes the same function, that call (a yardstick only);
-  4. server  — LLMServer serves GPT-2 125M (random seeded weights) to 8
+     serving and training paths' GPT-2 125M shapes (H=12, D=64), with stated
+     tolerances; time kernel, plain version, the bound and, where one
+     PyTorch call computes the same function, that call (a yardstick only);
+  4. train   — GPT-2 125M (bf16 compute on f32 params) takes 5 fused_adamw
+     steps at B=8, S=1024 through the packed kernels (K6, K7): finite
+     losses that fall, both kernels launched 12 per step, step time,
+     tokens/s and the card's busy share under torch.profiler; then the
+     long-context branch at B=1, S=4096 (K2, K4, K5) for 2 steps; then f32
+     parity of one step (loss, every gradient, the parameters after the
+     update) between the kernels and the plain attention path;
+  5. server  — LLMServer serves GPT-2 125M (random seeded weights) to 8
      concurrent requests; asserts they all finish, the prefix cache hit,
      and both kernels launched on that run; then f32 on the kernels must
      be token-identical to f32 on the plain versions, one request at a
@@ -22,6 +29,7 @@ The last two lines are the kernels JSON and the {"ok": true, ...} contract.
 
 from __future__ import annotations
 
+import importlib
 import json
 import statistics
 import subprocess
@@ -34,9 +42,21 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Kernel against plain version, per output and by the output's dtype (see
+# `compare`): relative L2 error, and every element within `ulps` rounding
+# steps of its plain value plus `floor_rms` times the output's RMS.
+LIMITS = {
+    torch.float32: dict(ulps=4, floor_rms=1e-4, rel_l2=1e-5),
+    torch.bfloat16: dict(ulps=2, floor_rms=5e-2, rel_l2=1e-2),
+}
 H, D, BS, NB = 12, 64, 16, 64  # GPT-2 125M heads/width; the server's cache
 REPS = 20
+# Training shapes: the packed path (S <= 2048) and the long-context branch.
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 5
+LONG_B, LONG_S, LONG_STEPS = 1, 4096, 2
+PARITY_B, PARITY_S, PARITY_LONG_LAYERS = 2, 1024, 2
+LR = 3e-4
+GRAD_FLOOR = 10 * 1e-8  # 10 x fused_adamw's eps: see _f32_parity
 
 
 def log(msg: str) -> None:
@@ -88,6 +108,53 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_bwd_ms(q, k, v, do) -> float:
+    """Device time of SDPA's backward on the same inputs ([B, S, H, D],
+    viewed as [B, H, S, D]): one torch.autograd.grad call through the graph
+    of one SDPA forward, timed as the kernels are (time_ms). It computes
+    dQ, dK and dV together. A yardstick only."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    grad = do.transpose(1, 2)
+    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), grad, retain_graph=True))
+
+
+def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """One kernel output against its plain version: the largest absolute
+    error, the relative L2 error of the whole output, and how far the worst
+    element lies past ULPS rounding steps of its plain value, in units of
+    the output's RMS (elements near zero, where sums cancel, need that
+    floor; a zeroed or mis-masked element lies a whole value past)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    eps = torch.finfo(want.dtype).eps  # one rounding step relative to |w|
+    rms = w.pow(2).mean().sqrt().clamp_min(1e-30)
+    lim = LIMITS[want.dtype]
+    return dict(
+        max_abs_err=diff.max().item(),
+        rel_l2=(diff.norm() / w.norm().clamp_min(1e-30)).item(),
+        floor_rms=((diff - lim["ulps"] * eps * w.abs()).max() / rms).item(),
+        rms=rms.item(),
+    )
+
+
+def dtype_label(dtype) -> str:
+    return {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+
+
+def check_close(rows: list, name: str, got: dict, want: dict, label: str, **shape) -> None:
+    """Record a kernel-vs-plain row and fail if any output, each held on its
+    own, passes its dtype's LIMITS (lse is f32 whatever the inputs)."""
+    outs = {k: compare(got[k], want[k]) for k in want}
+    rows.append(dict(kernel=name, dtype=label, **shape,
+                     max_abs_err=max(o["max_abs_err"] for o in outs.values()),
+                     outputs=outs))
+    for k, o in outs.items():
+        lim = LIMITS[want[k].dtype]
+        if not (o["rel_l2"] <= lim["rel_l2"] and o["floor_rms"] <= lim["floor_rms"]):
+            fail(f"{name} {shape} {label} {k}: {o} past {lim}")
 
 
 # ---------------------------------------------------------------- phases
@@ -184,16 +251,8 @@ def phase_kernels() -> list:
                 qs, kc, vc, tables, lens, new_k=nk, new_v=nv, sm_scale=1.0,
                 k_scale=ks, v_scale=vs,
             )
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = TOL[dtype]
-            rows.append(dict(
-                kernel="K1 paged_attention", case=label, B=b, S=s, dtype=kv,
-                ctx_max=max(ctx), max_abs_err=err, tol=tol,
-            ))
-            if not err <= tol:
-                fail(f"K1 {label} {kv}: max_abs_err {err} > {tol}")
+            check_close(rows, "K1 paged_attention", {"o": kern()}, {"o": plain()},
+                        kv, case=label, B=b, S=s, ctx_max=max(ctx))
             ms, plain_ms = time_ms(kern), time_ms(plain, reps=10)
             qb = dtype.itemsize
             kvb = 1 if kv == "int8" else qb
@@ -215,20 +274,9 @@ def phase_kernels() -> list:
             q, k, v = (t.view(1, s, H, D) for t in qkv.split(H * D, dim=-1))
             kern = lambda: flash_attention_fwd(q, k, v, causal=True)
             plain = lambda: flash_attention_reference(q, k, v, causal=True)
-            (o, lse), (o_ref, lse_ref) = kern(), plain()
-            torch.cuda.synchronize()
-            err = max(
-                (o.float() - o_ref.float()).abs().max().item(),
-                (lse - lse_ref).abs().max().item(),
-            )
-            tol = TOL[dtype]
-            name = "bf16" if dtype == torch.bfloat16 else "f32"
-            rows.append(dict(
-                kernel="K2 flash_fwd", case="prefill", B=1, S=s, dtype=name,
-                max_abs_err=err, tol=tol,
-            ))
-            if not err <= tol:
-                fail(f"K2 S={s} {name}: max_abs_err {err} > {tol}")
+            got, want = (dict(zip(("o", "lse"), f())) for f in (kern, plain))
+            check_close(rows, "K2 flash_fwd", got, want, dtype_label(dtype),
+                        case="prefill", B=1, S=s)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             library = lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True
@@ -240,7 +288,282 @@ def phase_kernels() -> list:
             rows[-1].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
             log(json.dumps(rows[-1]))
+    training_kernel_rows(gen, rows)
     return rows
+
+
+def training_kernel_rows(gen, rows: list) -> None:
+    """K6 / K7 at the packed training shape, K4 / K5 there and at the long-
+    context shape, each against its plain version (same inputs: a packed
+    projection, its forward's O and lse, a random upstream gradient)."""
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    cases = [("train", TRAIN_B, TRAIN_S, dt) for dt in (torch.bfloat16, torch.float32)]
+    cases += [("long", LONG_B, LONG_S, dt) for dt in (torch.bfloat16, torch.float32)]
+    for case, b, s, dtype in cases:
+        e = H * D
+        qkv = torch.randn(b, s, 3 * e, generator=gen, device="cuda").to(dtype)
+        do = torch.randn(b, s, e, generator=gen, device="cuda").to(dtype)
+        q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(e, dim=-1))
+        do4 = do.unflatten(-1, (H, D))
+        shape = dict(case=case, B=b, S=s)
+        label = dtype_label(dtype)
+        itm = dtype.itemsize
+        bse, rows_f32 = b * s * e * itm, b * H * s * 4
+        pairs = b * H * s * (s + 1) // 2  # causal (query, key) pairs
+        timed = []
+        if case == "train":
+            kern = lambda: fa.flash_attention_packed_fwd(qkv, H, causal=True)
+            plain = lambda: fa.flash_attention_packed_reference(qkv, H, causal=True)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)
+            (o, lse), want = kern(), plain()
+            check_close(rows, "K6 flash_fwd_packed", {"o": o, "lse": lse},
+                        dict(zip(("o", "lse"), want)), label, **shape)
+            timed.append((kern, plain, time_ms(lib),
+                          bound(4 * bse + rows_f32, 4 * D * pairs, dtype)))
+            kern = lambda: fa.flash_attention_packed_bwd(qkv, o, do, lse, H, causal=True)
+            plain = lambda: fa.flash_attention_packed_bwd_reference(
+                qkv, o, do, lse, H, causal=True)
+            # dqkv held as its three column ranges: dq, dk, dv apart.
+            got, want = ({n: t for n, t in zip(("dq", "dk", "dv"), f().split(e, dim=-1))}
+                         for f in (kern, plain))
+            check_close(rows, "K7 flash_bwd_packed", got, want, label, **shape)
+            o4 = o.unflatten(-1, (H, D))
+            timed.append((kern, plain, sdpa_bwd_ms(q, k, v, do4),
+                          bound(8 * bse + rows_f32, 10 * D * pairs + 2 * b * s * e, dtype)))
+            lse4 = lse.view(b * H, s)
+        else:
+            o4, lse4 = fa.flash_attention_fwd(q, k, v, causal=True)
+        delta = fa.flash_bwd_delta(o4, do4)
+        args = (q, k, v, do4, lse4, delta)
+        kern = lambda: fa.flash_bwd_dq(*args, causal=True)
+        plain = lambda: fa.flash_bwd_dq_reference(*args, causal=True)
+        check_close(rows, "K4 flash_bwd_dq", {"dq": kern()}, {"dq": plain()}, label, **shape)
+        lib_ms = sdpa_bwd_ms(q, k, v, do4)  # dQ, dK and dV together
+        timed.append((kern, plain, lib_ms,
+                      bound(5 * bse + 2 * rows_f32, 6 * D * pairs, dtype)))
+        kern = lambda: fa.flash_bwd_dkv(*args, causal=True)
+        plain = lambda: fa.flash_bwd_dkv_reference(*args, causal=True)
+        got, want = (dict(zip(("dk", "dv"), f())) for f in (kern, plain))
+        check_close(rows, "K5 flash_bwd_dkv", got, want, label, **shape)
+        timed.append((kern, plain, lib_ms,
+                      bound(6 * bse + 2 * rows_f32, 8 * D * pairs, dtype)))
+        torch.cuda.synchronize()
+        for row, (kern, plain, lib_ms, (bms, by)) in zip(rows[-len(timed):], timed):
+            row.update(ms=time_ms(kern), plain_ms=time_ms(plain, reps=5),
+                       library_ms=lib_ms, bound_ms=bms, bound_us=bms * 1e3,
+                       bound_by=by)
+            log(json.dumps(row))
+        del qkv, do, q, k, v, do4, o4, lse4, delta, args
+        torch.cuda.empty_cache()
+
+
+def _train_step(model, opt, state, params, tokens):
+    """One training step as the reference's benchmark builds it: forward,
+    the shifted-token loss, every parameter's gradient, a fused_adamw
+    update (in place). Returns (loss, grads, state)."""
+    from ray_tpu_torch.models import cross_entropy_loss
+
+    logits = model(tokens)
+    loss = cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    _, state = opt.apply(grads, state, params)
+    return loss.detach(), grads, state
+
+
+def _tokens(b, s, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 50257, (b, s), generator=gen, device="cuda")
+
+
+def _run_steps(model, tokens, steps) -> tuple:
+    """`steps` fused_adamw steps on one batch: (losses, step seconds)."""
+    from ray_tpu_torch.ops import fused_adamw
+
+    params = dict(model.named_parameters())
+    opt = fused_adamw(LR)
+    state = opt.init(params)
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, _, state = _train_step(model, opt, state, params, tokens)
+        losses.append(loss.item())  # syncs
+        times.append(time.perf_counter() - t0)
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    return losses, times, (opt, state, params)
+
+
+def _rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def phase_train() -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models.gpt import GPT, gpt2_125m
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    counters = {
+        "K2 flash_fwd": fa.flash_attention_fwd,
+        "K4 flash_bwd_dq": fa.flash_bwd_dq,
+        "K5 flash_bwd_dkv": fa.flash_bwd_dkv,
+        "K6 flash_fwd_packed": fa.flash_attention_packed_fwd,
+        "K7 flash_bwd_packed": fa.flash_attention_packed_bwd,
+    }
+
+    def zero():
+        for f in counters.values():
+            f.launches = 0
+
+    def read():
+        return {k: f.launches for k, f in counters.items()}
+
+    cfg = gpt2_125m()  # bf16 compute, f32 params, attention_impl="flash"
+    model = GPT(cfg, seed=0)
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        fail("GPT parameters are not f32 masters")
+    tokens = _tokens(TRAIN_B, TRAIN_S)
+    layers = cfg.num_layers
+
+    # The main training path: counters from 0, 5 steps, counters read.
+    zero()
+    losses, times, (opt, state, params) = _run_steps(model, tokens, TRAIN_STEPS)
+    launches = read()
+    if not losses[-1] < losses[0]:
+        fail(f"training loss did not fall on one batch: {losses}")
+    for name in ("K6 flash_fwd_packed", "K7 flash_bwd_packed"):
+        if launches[name] != layers * TRAIN_STEPS:
+            fail(f"{name} launched {launches[name]} times, not {layers} x {TRAIN_STEPS}")
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        fail("a parameter left f32 after fused_adamw")
+    step_p50 = statistics.median(times)
+    summary = {
+        "model": "gpt2_125m bf16 (f32 params)", "B": TRAIN_B, "S": TRAIN_S,
+        "steps": TRAIN_STEPS, "losses": losses, "step_s": times,
+        "step_p50_s": step_p50, "tokens_per_s": TRAIN_B * TRAIN_S / step_p50,
+        "launches": dict(launches),
+    }
+    log("[train] " + json.dumps(summary))
+
+    # Where the time goes: one more step under torch.profiler (the wall is
+    # taken inside the profiled block: starting the profiler is not the
+    # step's time).
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, state = _train_step(model, opt, state, params, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                 if e.self_device_time_total > 0}
+    busy = sum(device_us.values()) / 1e6
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
+    summary.update(profiled_wall_s=wall, device_busy_s=busy, device_busy_share=busy / wall,
+                   top_kernels_ms={k[:70]: v / 1e3 for k, v in top})
+    log("[train] profiled step: " + json.dumps({
+        "wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+        "top_kernels_ms": summary["top_kernels_ms"],
+    }))
+    del model, opt, state, params, tokens
+    torch.cuda.empty_cache()
+
+    # The long-context branch (S > 2048): K2 forward, K4 / K5 backward.
+    long_cfg = gpt2_125m(max_seq_len=LONG_S)
+    model = GPT(long_cfg, seed=0)
+    tokens = _tokens(LONG_B, LONG_S, seed=1)
+    zero()
+    losses_l, times_l, _ = _run_steps(model, tokens, LONG_STEPS)
+    launches_l = read()
+    for name in ("K2 flash_fwd", "K4 flash_bwd_dq", "K5 flash_bwd_dkv"):
+        if launches_l[name] != layers * LONG_STEPS:
+            fail(f"long context: {name} launched {launches_l[name]} times, "
+                 f"not {layers} x {LONG_STEPS}")
+    summary["long"] = {
+        "B": LONG_B, "S": LONG_S, "steps": LONG_STEPS, "losses": losses_l,
+        "step_s": times_l, "tokens_per_s": LONG_B * LONG_S / statistics.median(times_l),
+        "launches": dict(launches_l),
+    }
+    log("[train] long context: " + json.dumps(summary["long"]))
+    del model, tokens
+    torch.cuda.empty_cache()
+
+    summary["parity"] = [
+        _f32_parity(gpt2_125m(dtype=torch.float32), PARITY_B, PARITY_S),
+        _f32_parity(gpt2_125m(dtype=torch.float32, max_seq_len=LONG_S,
+                              num_layers=PARITY_LONG_LAYERS), 1, LONG_S),
+    ]
+    summary["launches_main"] = {"K6 flash_fwd_packed": launches["K6 flash_fwd_packed"],
+                                "K7 flash_bwd_packed": launches["K7 flash_bwd_packed"],
+                                "K4 flash_bwd_dq": launches_l["K4 flash_bwd_dq"],
+                                "K5 flash_bwd_dkv": launches_l["K5 flash_bwd_dkv"]}
+    return summary
+
+
+def _f32_parity(cfg, b, s) -> dict:
+    """One f32 step through the kernels and through attention_impl=
+    'reference' on the same weights and batch: the loss within 1e-5
+    relative, every gradient within 1e-4 relative L2, and after a
+    fused_adamw step every parameter within 1e-4 relative L2. Adam's first
+    update is lr * g / (|g| + eps), a step of ±lr whose sign is the
+    gradient's. Where |g| is below the two sides' gradient difference,
+    rounding alone can flip that sign, so elements whose plain gradient is
+    below GRAD_FLOOR are left out of the parameter check: among them the key
+    third of each qkv bias, whose exact gradient is zero (q·b_k cancels in
+    the softmax). The floor lies above the largest gradient difference
+    measured on the H100 (8.0e-8); how many elements it leaves out, the
+    leaf it takes most from, and the largest gradient difference of this
+    run are printed."""
+    import dataclasses
+
+    from ray_tpu_torch.models.gpt import GPT
+    from ray_tpu_torch.ops import fused_adamw
+
+    kern = GPT(cfg, seed=0)
+    plain = GPT(dataclasses.replace(cfg, attention_impl="reference"), seed=0)
+    plain.load_state_dict(kern.state_dict())
+    tokens = _tokens(b, s, seed=2)
+    out = {}
+    for label, model in (("kernels", kern), ("plain", plain)):
+        params = dict(model.named_parameters())
+        opt = fused_adamw(LR)
+        loss, grads, _ = _train_step(model, opt, opt.init(params), params, tokens)
+        out[label] = (loss.item(), grads, params)
+        del grads
+    (lk, gk, pk), (lp, gp, pp) = out["kernels"], out["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    grad_rel = {n: _rel_l2(gk[n], gp[n]) for n in gk}
+    grad_diff = max((gk[n] - gp[n]).abs().max().item() for n in gk)
+    param_rel, left_out, dropped_g = {}, {}, 0.0
+    for n in pk:
+        keep = gp[n].abs() >= GRAD_FLOOR
+        param_rel[n] = _rel_l2(pk[n].detach()[keep], pp[n].detach()[keep])
+        left_out[n] = int((~keep).sum())
+        if left_out[n]:
+            dropped_g = max(dropped_g, gp[n][~keep].abs().max().item())
+    most_out = max(left_out, key=lambda n: left_out[n] / pk[n].numel())
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_p = max(param_rel, key=param_rel.get)
+    res = {"layers": cfg.num_layers, "B": b, "S": s, "loss_kernels": lk,
+           "loss_plain": lp, "loss_rel": loss_rel, "grad_rel_max": grad_rel[worst_g],
+           "grad_worst": worst_g, "grad_abs_diff_max": grad_diff,
+           "param_rel_max": param_rel[worst_p], "param_worst": worst_p,
+           "param_elements": sum(p.numel() for p in pk.values()),
+           "left_out": sum(left_out.values()), "left_out_grad_max": dropped_g,
+           "left_out_most": most_out,
+           "left_out_most_share": left_out[most_out] / pk[most_out].numel()}
+    log("[train] f32 parity: " + json.dumps(res))
+    if not loss_rel <= 1e-5:
+        fail(f"f32 loss: kernels {lk} vs plain {lp}")
+    if not grad_rel[worst_g] <= 1e-4:
+        fail(f"f32 gradient of {worst_g}: relative L2 {grad_rel[worst_g]}")
+    if not param_rel[worst_p] <= 1e-4:
+        fail(f"f32 parameter {worst_p} after the step: relative L2 {param_rel[worst_p]}")
+    del kern, plain, out
+    torch.cuda.empty_cache()
+    return res
 
 
 def _prompts(rng) -> list:
@@ -439,6 +762,26 @@ KERNELS = {
         replaces="ray_tpu/ops/flash_attention.py:66",
         main=dict(case="prefill", S=256, dtype="bf16"),
     ),
+    "K4 flash_bwd_dq": dict(
+        route="cuda", source="ray_tpu_torch/ops/csrc/flash_bwd.cu",
+        replaces="ray_tpu/ops/flash_attention.py:194",
+        main=dict(case="long", dtype="bf16"),
+    ),
+    "K5 flash_bwd_dkv": dict(
+        route="cuda", source="ray_tpu_torch/ops/csrc/flash_bwd.cu",
+        replaces="ray_tpu/ops/flash_attention.py:238",
+        main=dict(case="long", dtype="bf16"),
+    ),
+    "K6 flash_fwd_packed": dict(
+        route="cuda", source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
+        replaces="ray_tpu/ops/flash_attention.py:443",
+        main=dict(case="train", dtype="bf16"),
+    ),
+    "K7 flash_bwd_packed": dict(
+        route="cuda", source="ray_tpu_torch/ops/csrc/flash_bwd.cu",
+        replaces="ray_tpu/ops/flash_attention.py:473",
+        main=dict(case="train", dtype="bf16"),
+    ),
 }
 
 
@@ -474,7 +817,8 @@ def main() -> int:
     device = phase_device()
     phase_build()
     rows = phase_kernels()
-    launches = phase_server()["launches"]
+    launches = dict(phase_train()["launches_main"])
+    launches.update(phase_server()["launches"])
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches)))
     print(json.dumps({"ok": True, "device": {

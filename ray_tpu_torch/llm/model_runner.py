@@ -95,6 +95,10 @@ class GPTRunner:
             )
         self.model.requires_grad_(False)
         self.model.eval()
+        # Serving never updates the weights: one copy cast to the compute
+        # dtype (per-use casts of the f32 masters cost the server's decode
+        # step ~70% on an H100, PERF.md).
+        self.model.cast_for_inference()
         # Parameter count (the tied head counted once): feeds the fleet
         # ledger's MFU estimate — decode FLOPs ~= 2 * num_params per token.
         self.num_params = int(sum(p.numel() for p in self.model.parameters()))

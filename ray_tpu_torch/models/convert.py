@@ -44,7 +44,7 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         block = params[f"h_{i}"]
         if "moe_mlp" in block:
             raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP: the ResNet/MoE slice)"
+                "MoE blocks are not ported yet (ROADMAP §B: the ResNet/MoE slice)"
             )
         for name in _NORMS:
             out[f"h.{i}.{name}.weight"] = _tensor(block[name]["scale"])

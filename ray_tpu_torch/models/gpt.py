@@ -1,11 +1,15 @@
 """GPT-2-style decoder-only transformer (PyTorch).
 
 The port of the reference package's flax GPT with the same configuration
-fields and the same generation variants. Numerics follow the flax model:
-LayerNorm epsilon 1e-6 with f32 statistics, the tanh approximation of GELU,
-every dense product and the embeddings in ``GPTConfig.dtype`` (flax casts
-the f32 params at each use; the port stores them cast once, which gives the
-same numbers), and a tied LM head whose logits stay in that dtype.
+fields, the same generation variants and the same training forward.
+Numerics follow the flax model: LayerNorm epsilon 1e-6 with f32 statistics,
+the tanh approximation of GELU, every dense product and the embeddings in
+``GPTConfig.dtype``, and a tied LM head whose logits stay in that dtype.
+
+Every parameter is stored in f32 and cast to the compute dtype at each use,
+as flax's ``nn.Dense`` / ``nn.Embed`` do with their default f32
+``param_dtype``: gradients and optimizer updates land on f32 masters, where
+a bf16 weight would round most of a small update away.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from torch import nn
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.ops.flash_attention import attention as attention_op
+from ray_tpu_torch.ops.flash_attention import flash_attention_packed
 from ray_tpu_torch.ops.paged_flash import paged_attention_impl
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
@@ -34,8 +39,8 @@ class GPTConfig:
     max_seq_len: int = 1024
     dropout_rate: float = 0.0
     dtype: Any = torch.bfloat16
-    # "flash" (the CUDA kernel for generation prefill; the plain forward's
-    # packed kernel is not ported yet), "reference", or "ring".
+    # "flash" (the CUDA kernels: packed at S <= 2048, blockwise above, and
+    # the generation prefill), "reference", or "ring" (not ported yet).
     attention_impl: str = "flash"
     # MoE: num_experts=0 keeps dense MLPs. MoE blocks are not ported yet.
     num_experts: int = 0
@@ -77,6 +82,36 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class Dense(nn.Linear):
+    """flax nn.Dense(dtype=...): f32 params; input, kernel and bias cast to
+    the compute dtype at each use."""
+
+    def __init__(self, in_features: int, out_features: int, dtype, device=None):
+        super().__init__(in_features, out_features, device=device)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Embed(nn.Embedding):
+    """flax nn.Embed(dtype=...): an f32 table, rows cast to the compute
+    dtype (gathering first and casting the rows gives the same values as
+    casting the table)."""
+
+    def __init__(self, num: int, dim: int, dtype, device=None):
+        super().__init__(num, dim, device=device)
+        self.dtype = dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.dtype)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """The tied LM head: x @ table^T in the compute dtype."""
+        return F.linear(x, self.weight.to(self.dtype))
+
+
 class Block(nn.Module):
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
@@ -84,11 +119,20 @@ class Block(nn.Module):
         self.config = cfg
         e, dt = cfg.embed_dim, cfg.dtype
         self.ln_1 = LayerNorm(e, dt, device)
-        self.attn_qkv = nn.Linear(e, 3 * e, dtype=dt, device=device)
-        self.attn_proj = nn.Linear(e, e, dtype=dt, device=device)
+        self.attn_qkv = Dense(e, 3 * e, dt, device)
+        self.attn_proj = Dense(e, e, dt, device)
         self.ln_2 = LayerNorm(e, dt, device)
-        self.mlp_in = nn.Linear(e, cfg.mlp_ratio * e, dtype=dt, device=device)
-        self.mlp_out = nn.Linear(cfg.mlp_ratio * e, e, dtype=dt, device=device)
+        self.mlp_in = Dense(e, cfg.mlp_ratio * e, dt, device)
+        self.mlp_out = Dense(cfg.mlp_ratio * e, e, dt, device)
+
+    def _heads(self, qkv: torch.Tensor):
+        """q, k, v [B, S, H, D] views of the packed projection."""
+        b, s, _ = qkv.shape
+        cfg = self.config
+        return [
+            t.view(b, s, cfg.num_heads, cfg.head_dim)
+            for t in qkv.split(cfg.embed_dim, dim=-1)
+        ]
 
     def forward(
         self,
@@ -104,10 +148,6 @@ class Block(nn.Module):
         h = self.ln_1(x)
         b, s, _ = h.shape
         qkv = self.attn_qkv(h)
-        q, k, v = (
-            t.view(b, s, cfg.num_heads, cfg.head_dim)
-            for t in qkv.split(cfg.embed_dim, dim=-1)
-        )
         kv = None
         if return_kv or paged_state is not None:
             # Generation paths: full prefill returns the prompt's K/V for
@@ -115,6 +155,7 @@ class Block(nn.Module):
             # and partial prefill (s > 1) attend over the cache through the
             # block table — paged over the cached prefix, causal among the
             # fed tokens — and return the new K/V.
+            q, k, v = self._heads(qkv)
             if paged_state is not None:
                 (k_cache_l, v_cache_l, block_tables, context_lens,
                  k_scale_l, v_scale_l) = paged_state
@@ -133,18 +174,19 @@ class Block(nn.Module):
                 )
                 attn = attention_op(q, k, v, causal=True, impl=impl)
             kv = (k, v)
-        elif cfg.attention_impl == "flash" and s <= 2048:
-            raise NotImplementedError(
-                "GPT forward with attention_impl='flash' runs the packed "
-                "flash kernel, which is not ported yet (ROADMAP B5); use "
-                "attention_impl='reference' or a generation path"
-            )
         elif cfg.attention_impl == "ring":
             raise NotImplementedError(
-                "ring attention is not ported yet (ROADMAP: the parallel "
+                "ring attention is not ported yet (ROADMAP §B: the parallel "
                 "layer and ring attention slice)"
             )
+        elif cfg.attention_impl == "flash" and s <= 2048:
+            # The packed kernels (K6 forward, K7 backward) take the
+            # projection output as it is; dqkv comes back packed.
+            attn = flash_attention_packed(qkv, cfg.num_heads, causal=True)
         else:
+            # Long context: the blockwise kernels (K2 forward; K4 / K5
+            # backward), or the full-matrix reference.
+            q, k, v = self._heads(qkv)
             attn = attention_op(q, k, v, causal=True, impl=cfg.attention_impl)
         attn = self.attn_proj(attn.reshape(b, s, cfg.embed_dim))
         x = x + attn
@@ -165,17 +207,13 @@ class GPT(nn.Module):
         super().__init__()
         if config.num_experts:
             raise NotImplementedError(
-                "MoE blocks (num_experts > 0) are not ported yet (ROADMAP: "
+                "MoE blocks (num_experts > 0) are not ported yet (ROADMAP §B: "
                 "the ResNet/MoE slice)"
             )
         device = resolve_device(device)
         self.config = cfg = config
-        self.wte = nn.Embedding(
-            cfg.vocab_size, cfg.embed_dim, dtype=cfg.dtype, device=device
-        )
-        self.wpe = nn.Embedding(
-            cfg.max_seq_len, cfg.embed_dim, dtype=cfg.dtype, device=device
-        )
+        self.wte = Embed(cfg.vocab_size, cfg.embed_dim, cfg.dtype, device)
+        self.wpe = Embed(cfg.max_seq_len, cfg.embed_dim, cfg.dtype, device)
         self.h = nn.ModuleList(
             Block(cfg, device) for _ in range(cfg.num_layers)
         )
@@ -193,6 +231,17 @@ class GPT(nn.Module):
             else:
                 std = 0.01 if name.startswith("wpe") else 0.02
                 p.copy_(torch.randn(p.shape, generator=gen) * std)
+
+    @torch.no_grad()
+    def cast_for_inference(self) -> "GPT":
+        """Cast the dense layers and embeddings to the compute dtype once,
+        for a model that serves and is never updated: the per-use casts
+        become no-ops with the same values. LayerNorm parameters stay f32,
+        as its statistics are f32."""
+        for module in self.modules():
+            if isinstance(module, (Dense, Embed)):
+                module.to(self.config.dtype)
+        return self
 
     def forward(
         self,
@@ -243,7 +292,7 @@ class GPT(nn.Module):
         x = self.ln_f(x)
         # Tied LM head: logits through the embedding matrix in the model
         # dtype (bf16 logits, as in the reference; argmax runs on these).
-        logits = F.linear(x, self.wte.weight)
+        logits = self.wte.attend(x)
         if return_kv:
             return logits, kvs
         return logits

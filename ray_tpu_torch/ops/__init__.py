@@ -6,9 +6,17 @@ from ray_tpu_torch.ops.attention import (
 from ray_tpu_torch.ops.flash_attention import (
     attention,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
     flash_attention_fwd,
+    flash_attention_packed,
+    flash_attention_packed_bwd,
+    flash_attention_packed_bwd_reference,
+    flash_attention_packed_fwd,
+    flash_attention_packed_reference,
     flash_attention_reference,
 )
+from ray_tpu_torch.ops.fused_optim import FusedAdamWState, fused_adamw
 from ray_tpu_torch.ops.paged_flash import (
     paged_attention_impl,
     paged_flash_attention,
@@ -16,11 +24,20 @@ from ray_tpu_torch.ops.paged_flash import (
 )
 
 __all__ = [
+    "FusedAdamWState",
     "attention",
     "dequantize_kv",
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_reference",
     "flash_attention_fwd",
+    "flash_attention_packed",
+    "flash_attention_packed_bwd",
+    "flash_attention_packed_bwd_reference",
+    "flash_attention_packed_fwd",
+    "flash_attention_packed_reference",
     "flash_attention_reference",
+    "fused_adamw",
     "mha_reference",
     "paged_attention",
     "paged_attention_impl",

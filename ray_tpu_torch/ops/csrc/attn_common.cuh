@@ -34,6 +34,25 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);  // round to nearest even
 }
 
+// Staging conversions: the plain one, and q's prescale by sm_scale rounded to
+// its storage type, (q.f32 * scale).to(T), the reference's order.
+struct ToF32 {
+  template <typename KV>
+  __device__ __forceinline__ float operator()(KV x) const { return to_f32(x); }
+};
+template <typename T>
+struct Prescale {
+  float scale;
+  __device__ __forceinline__ float operator()(T x) const {
+    return to_f32(from_f32<T>(to_f32(x) * scale));
+  }
+};
+
+// Round an f32 value to storage type T and back (the reference rounds P and
+// dS to the input type before the backward's products; exact for f32).
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
@@ -53,13 +72,14 @@ __device__ __forceinline__ float warp_sum(float x) {
 // them, so a chunk costs a few memory latencies, not one per element.
 // row_off(j) is the element offset of row j, or -1 for a row past the end
 // (staged as zeros); every thread calls it for every slot, so it may shuffle.
+// cvt turns each staged element into f32 (ToF32, or Prescale for queries).
 // The wrappers check that D * sizeof(KV) is a multiple of 16 and that every
 // row starts 16-byte aligned.
-template <int G, typename KV, typename F>
+template <int G, typename KV, typename F, typename C = ToF32>
 __device__ __forceinline__ void stage_rows(const KV* __restrict__ src,
                                            F row_off, int D, int t,
                                            float* __restrict__ dst,
-                                           int dst_stride) {
+                                           int dst_stride, C cvt = C()) {
   constexpr int EPU = 16 / sizeof(KV);  // elements per 16-byte unit
   const int upr = D / EPU;              // units per row
   const int total = KC * upr;
@@ -80,7 +100,7 @@ __device__ __forceinline__ void stage_rows(const KV* __restrict__ src,
         const KV* e = reinterpret_cast<const KV*>(&buf[i]);
         float* o = dst + (u / upr) * dst_stride + (u % upr) * EPU;
 #pragma unroll
-        for (int x = 0; x < EPU; ++x) o[x] = to_f32(e[x]);
+        for (int x = 0; x < EPU; ++x) o[x] = cvt(e[x]);
       }
     }
   }

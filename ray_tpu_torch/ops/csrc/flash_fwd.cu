@@ -1,8 +1,11 @@
 // Flash attention forward: blockwise online-softmax attention, causal or not,
-// for the full-prefill program (the first chunk of every prompt).
+// for the full-prefill program (the first chunk of every prompt), the
+// long-context training forward, and the packed training forward.
 //
 // Replaces: ray_tpu/ops/flash_attention.py::_fwd_kernel (pallas_call at :149,
-// reached through _flash_fwd_pallas :125).
+// reached through _flash_fwd_pallas :125) through flash_fwd_launch, and
+// ::_packed_fwd_kernel (pallas_call at :560) through flash_fwd_packed_launch,
+// which runs the same device code on the strides of a packed [B, S, 3E] qkv.
 //
 // Bound on this card: operations. At S >= 128 and D = 64 the kernel does
 // ~2 * S * D flops per query row against 2 * D bytes of K/V per key, well
@@ -13,6 +16,8 @@
 //   * one thread block per (tile of 64 query rows, batch * head); the block
 //     reads q / k / v [B, S, H, D] through their strides, so the head split
 //     of the packed qkv projection needs no transpose;
+//   * q is prescaled by sm_scale as it is staged, rounded to its storage
+//     type as the reference rounds it, so no prescale pass runs before;
 //   * the key loop stops at the causal diagonal (tiles above it are never
 //     read, not just skipped), staging 32 keys of K and V at a time in
 //     shared memory with 16-byte loads; each warp folds every staged key
@@ -38,7 +43,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, float* __restrict__ lse, int S, int H, int D,
     long long qsb, long long qss, long long qsh, long long ksb, long long kss,
-    long long ksh, long long vsb, long long vss, long long vsh, int causal) {
+    long long ksh, long long vsb, long long vss, long long vsh, float scale,
+    int causal) {
   extern __shared__ float smem[];
   float* q_s = smem;                // [QT][D]
   float* k_s = q_s + QT * D;        // [KC][D + 1]
@@ -51,9 +57,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   const T* kb = k + b * ksb + h * ksh;
   const T* vb = v + b * vsb + h * vsh;
 
+  const Prescale<T> prescale{scale};
   for (int idx = tid; idx < QT * D; idx += THREADS) {
     const int r = idx / D, d = idx % D, i = i0 + r;
-    q_s[idx] = i < S ? to_f32(qb[i * qss + d]) : 0.f;
+    q_s[idx] = i < S ? prescale(qb[i * qss + d]) : 0.f;
   }
   int row[RPW], lim[RPW];
   float m[RPW], l[RPW], acc[RPW][MAXE];
@@ -104,8 +111,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
-           int B, int S, int H, int D, const long long* st, int causal,
-           cudaStream_t stream) {
+           int B, int S, int H, int D, const long long* st, float scale,
+           int causal, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (QT * D + KC * (D + 1) + KC * D);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -117,28 +124,61 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, D, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal);
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Typed dispatch of one launch; k and v start k_off and v_off elements past
+// their pointers (the packed layout's column offsets E and 2E, or 0).
+int dispatch(int dtype, const void* q, const void* k, const void* v,
+             long long k_off, long long v_off, void* out, void* lse, int B,
+             int S, int H, int D, const long long* st, float scale,
+             int causal, void* stream) {
+  if (D < 1 || D > 32 * MAXE || B < 1 || S < 1 || H < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaGetLastError();  // clear a stale non-sticky error from earlier work
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0) {
+    const float* base_k = static_cast<const float*>(k) + k_off;
+    const float* base_v = static_cast<const float*>(v) + v_off;
+    return launch<float>(q, base_k, base_v, out, l, B, S, H, D, st, scale,
+                         causal, s);
+  }
+  if (dtype == 1) {
+    const __nv_bfloat16* base_k = static_cast<const __nv_bfloat16*>(k) + k_off;
+    const __nv_bfloat16* base_v = static_cast<const __nv_bfloat16*>(v) + v_off;
+    return launch<__nv_bfloat16>(q, base_k, base_v, out, l, B, S, H, D, st,
+                                 scale, causal, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q (prescaled), k, v: [B, S, H, D] with
-// element strides (batch, seq, head) each and a unit last-dim stride; out is
-// contiguous [B, S, H, D]; lse is [B*H, S] f32. Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16. q, k, v: [B, S, H, D] with element
+// strides (batch, seq, head) each and a unit last-dim stride; q is prescaled
+// by `scale` in-kernel; out is contiguous [B, S, H, D]; lse is [B*H, S] f32.
+// Returns cudaGetLastError().
 extern "C" int flash_fwd_launch(
     int dtype, const void* q, const void* k, const void* v, void* out,
     void* lse, int B, int S, int H, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
-    long long vss, long long vsh, int causal, void* stream) {
-  if (D < 1 || D > 32 * MAXE || B < 1 || S < 1 || H < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaGetLastError();  // clear a stale non-sticky error from earlier work
+    long long vss, long long vsh, float scale, int causal, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  if (dtype == 0) return launch<float>(q, k, v, out, l, B, S, H, D, st, causal, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, l, B, S, H, D, st, causal, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, q, k, v, 0, 0, out, lse, B, S, H, D, st, scale,
+                  causal, stream);
+}
+
+// The packed entry (K6): qkv is contiguous [B, S, 3E] with E = H * D, q, k
+// and v its column ranges [0, E), [E, 2E), [2E, 3E); out is [B, S, E] and
+// lse [B, H, S] f32, the layouts of the reference's packed kernel.
+extern "C" int flash_fwd_packed_launch(int dtype, const void* qkv, void* out,
+                                       void* lse, int B, int S, int H, int D,
+                                       float scale, int causal, void* stream) {
+  const long long E = static_cast<long long>(H) * D;
+  const long long sb = S * 3 * E, ss = 3 * E, sh = D;
+  const long long st[9] = {sb, ss, sh, sb, ss, sh, sb, ss, sh};
+  return dispatch(dtype, qkv, qkv, qkv, E, 2 * E, out, lse, B, S, H, D, st,
+                  scale, causal, stream);
 }

@@ -150,9 +150,19 @@ def test_paged_forward_matches_flax(numpy_params, shape):
 
 
 def test_unported_paths_raise(numpy_params):
-    _, model = _models(numpy_params, attention_impl="flash")
-    with pytest.raises(NotImplementedError, match="B5"):
-        model(torch.from_numpy(_tokens(1, 8)))
+    """The plain forward with attention_impl='flash' now runs the packed
+    kernels' path (JAX: Pallas interpret; port: the plain versions) and
+    matches flax at f32; ring attention and MoE blocks still raise, naming
+    their slices, and an entry point without device= still needs CUDA."""
+    jax_model, model = _models(numpy_params, attention_impl="flash")
+    toks = _tokens(2, 24)
+    want = np.asarray(jax_model.apply(numpy_params, jnp.asarray(toks)))
+    with torch.no_grad():
+        got = model(torch.from_numpy(toks)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    _, ring = _models(numpy_params, attention_impl="ring")
+    with pytest.raises(NotImplementedError, match="ring attention"):
+        ring(torch.from_numpy(_tokens(1, 8)))
     with pytest.raises(NotImplementedError, match="MoE"):
         GPT(GPTConfig(**TINY, num_experts=4), device="cpu")
     if not torch.cuda.is_available():
@@ -167,3 +177,27 @@ def test_seeded_init_is_deterministic():
         assert torch.equal(pa, pb), name
     assert torch.all(a.h[0].ln_1.weight == 1) and torch.all(a.h[0].attn_qkv.bias == 0)
     assert abs(a.wte.weight.std().item() - 0.02) < 0.005
+
+
+def test_f32_masters_and_runner_cast_once_copy(numpy_params):
+    """Every parameter of a bf16 GPT is f32 (flax's param_dtype) and is cast
+    at each use; GPTRunner serves a cast-once bf16 copy of the dense layers
+    and embeddings (LayerNorm stays f32), which gives the same logits
+    bit for bit."""
+    from ray_tpu_torch.llm import EngineConfig, GPTRunner
+    from ray_tpu_torch.models.gpt import Dense, Embed
+
+    _, model = _models(numpy_params, dtype="bfloat16")
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    runner = GPTRunner(
+        GPTConfig(**TINY, dtype=torch.bfloat16, attention_impl="reference"),
+        EngineConfig(block_size=8, num_blocks=8, max_blocks_per_seq=4),
+        params=params_from_flax(numpy_params), device="cpu",
+    )
+    for name, p in runner.model.named_parameters():
+        owner = runner.model.get_submodule(name.rsplit(".", 1)[0])
+        want = torch.bfloat16 if isinstance(owner, (Dense, Embed)) else torch.float32
+        assert p.dtype == want, name
+    toks = torch.from_numpy(_tokens(2, 24))
+    with torch.no_grad():
+        assert torch.equal(runner.model(toks), model(toks))

@@ -10,6 +10,7 @@ tests/test_torch_kernels.py.
 import math
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,12 +25,19 @@ from ray_tpu.ops.attention import _chunk_attn_partial as jax_chunk_partial
 from ray_tpu.ops.attention import finalize_partial as jax_finalize
 from ray_tpu.ops.attention import merge_partials as jax_merge
 from ray_tpu.ops.flash_attention import _flash_fwd as jax_flash_fwd
+from ray_tpu.ops.flash_attention import _packed_bwd as jax_packed_bwd
+from ray_tpu.ops.flash_attention import _packed_fwd as jax_packed_fwd
+from ray_tpu.ops.flash_attention import _packed_n_sub as jax_packed_n_sub
 from ray_tpu.ops.paged_flash import kv_pool_bytes as jax_kv_pool_bytes
 from ray_tpu_torch.ops import (
     attention,
     dequantize_kv,
     flash_attention,
+    flash_attention_bwd,
     flash_attention_fwd,
+    flash_attention_packed,
+    flash_attention_packed_bwd,
+    flash_attention_packed_fwd,
     flash_attention_reference,
     mha_reference,
     paged_attention,
@@ -297,8 +305,10 @@ def test_mha_reference_and_dispatcher_match_jax(causal):
 
 def test_flash_reference_blockwise_across_tiles_and_grad_refusal():
     """S past one key tile: the blockwise recurrence equals the full-
-    matrix reference; an input that requires grad is refused (the
-    backward kernels come with the training slice)."""
+    matrix reference, and so does the gradient of `flash_attention` (its
+    plain blockwise backward on the CPU) against autograd through the
+    full-matrix op. The forward kernel wrapper alone records no graph, so
+    an input that requires grad is refused there, never detached."""
     rng = np.random.RandomState(4)
     q, k, v = _t(*(rng.randn(1, 300, 2, 8).astype(np.float32) for _ in range(3)))
     o, lse = flash_attention_reference(q, k, v, causal=True)
@@ -306,8 +316,120 @@ def test_flash_reference_blockwise_across_tiles_and_grad_refusal():
         o.numpy(), mha_reference(q, k, v, causal=True).numpy(), atol=F32_TOL
     )
     assert lse.shape == (2, 300)
-    with pytest.raises(NotImplementedError, match="B3/B4"):
+    g = torch.from_numpy(rng.randn(1, 300, 2, 8).astype(np.float32))
+    grads = []
+    for op in (flash_attention, mha_reference):
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        op(*x, causal=True).backward(g)
+        grads.append([t.grad.numpy() for t in x])
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got, want, atol=1e-4)
+    with pytest.raises(RuntimeError, match="records no autograd graph"):
         flash_attention_fwd(q.requires_grad_(), k, v, causal=True)
+
+
+# ------------------------------------------------------------- training
+
+
+def _qkv_packed(seed, b, s, h, d):
+    return np.random.RandomState(seed).randn(b, s, 3 * h * d).astype(np.float32)
+
+
+PACKED_CASES = {
+    # name: (S, causal); B2 H4 D32. S384 runs JAX's packed kernels with
+    # n_sub = 1, S512 with n_sub = 2 (causal half-split subtiles).
+    "s256_causal": (256, True),
+    "s256_full": (256, False),
+    "s384_causal": (384, True),
+    "s512_causal": (512, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACKED_CASES))
+def test_flash_attention_packed_matches_jax(case):
+    """The packed path against JAX's Pallas packed kernels (K6, K7) in
+    interpret mode, f32: O and lse of the forward wrapper within 2e-5, dqkv
+    of the backward wrapper and of autograd through `flash_attention_packed`
+    within 5e-3 (test_ops.py's tolerances for the same kernels)."""
+    s, causal = PACKED_CASES[case]
+    b, h, d = 2, 4, 32
+    if s in (384, 512):
+        assert jax_packed_n_sub(s, causal) == {384: 1, 512: 2}[s]
+    qkv = _qkv_packed(s + causal, b, s, h, d)
+    do = np.random.RandomState(1).randn(b, s, h * d).astype(np.float32)
+    sm = 1.0 / math.sqrt(d)
+    want_o, res = jax_packed_fwd(jnp.asarray(qkv), h, sm, causal)
+    (want_dqkv,) = jax_packed_bwd(h, sm, causal, res, jnp.asarray(do))
+    got_o, got_lse = flash_attention_packed_fwd(torch.from_numpy(qkv), h, causal=causal)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), atol=2e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(res[2]), atol=2e-5)
+    got_dqkv = flash_attention_packed_bwd(
+        torch.from_numpy(qkv), got_o, torch.from_numpy(do), got_lse, h, causal=causal
+    )
+    np.testing.assert_allclose(got_dqkv.numpy(), np.asarray(want_dqkv), rtol=5e-3, atol=5e-3)
+    x = torch.from_numpy(qkv).requires_grad_()
+    out = flash_attention_packed(x, h, causal=causal)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_o), atol=2e-5)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_dqkv), rtol=5e-3, atol=5e-3)
+
+
+def test_flash_attention_packed_bf16_rounding_matches_jax():
+    """bf16 packed forward and backward against JAX's kernels. Both round
+    q's prescale, P and dS to bf16 at the same points, so what is left is
+    f32 summation order flipping the final bf16 rounding of an output here
+    and there: one or two bf16 ulps at these magnitudes (|dqkv| < 4), which
+    2e-2 bounds. The rounding points show in how many gradients are
+    bit-identical to JAX's: every dV and ~75% of dQ and dK here; with dS
+    kept f32, ~58% of dQ and dK; with P too, about half of dV."""
+    b, s, h, d = 1, 256, 2, 32
+    qkv = _qkv_packed(7, b, s, h, d)
+    do = np.random.RandomState(8).randn(b, s, h * d).astype(np.float32)
+    sm = 1.0 / math.sqrt(d)
+    jq, jdo = jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(do, jnp.bfloat16)
+    want_o, res = jax_packed_fwd(jq, h, sm, True)
+    (want_dqkv,) = jax_packed_bwd(h, sm, True, res, jdo)
+    x = torch.from_numpy(qkv).bfloat16().requires_grad_()
+    out = flash_attention_packed(x, h, causal=True)
+    out.backward(torch.from_numpy(do).bfloat16())
+    assert out.dtype == x.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        out.detach().float().numpy(), np.asarray(want_o, np.float32), atol=2e-2
+    )
+    np.testing.assert_allclose(
+        x.grad.float().numpy(), np.asarray(want_dqkv, np.float32), atol=2e-2
+    )
+    same = x.grad.float().numpy() == np.asarray(want_dqkv, np.float32)
+    e = h * d
+    assert same[..., 2 * e:].mean() > 0.95  # dV: P rounded
+    assert same[..., :e].mean() > 0.65 and same[..., e:2 * e].mean() > 0.65  # dS rounded
+
+
+@pytest.mark.parametrize("s,block", [(256, 128), (128, None)])
+def test_flash_attention_grad_matches_jax(s, block):
+    """Gradients of `flash_attention` against JAX's: at S256 with 128-token
+    blocks JAX runs its dQ and dK/dV kernels (K4, K5), at S128 in one block
+    its fused one-program kernel (K3); the port runs its plain blockwise
+    backward on the CPU either way. f32, test_ops.py's 5e-4. Blocks that do
+    not divide S raise in both."""
+    rng = np.random.RandomState(s)
+    q, k, v, g = (rng.randn(2, s, 2, 32).astype(np.float32) for _ in range(4))
+    kw = dict(causal=True, block_q=block, block_k=block)
+    out, vjp = jax.vjp(lambda *x: jax_flash_attention(*x, **kw), *_j(q, k, v))
+    want = vjp(jnp.asarray(g))
+    x = [t.requires_grad_() for t in _t(q, k, v)]
+    got = flash_attention(*x, **kw)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), atol=2e-5)
+    for t, w in zip(x, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=5e-4)
+    # The kernel-level entry computes the same three gradients.
+    o, lse = flash_attention_fwd(*_t(q, k, v), causal=True)
+    direct = flash_attention_bwd(*_t(q, k, v), o, torch.from_numpy(g), lse, causal=True)
+    for t, w in zip(direct, want):
+        np.testing.assert_allclose(t.numpy(), np.asarray(w), atol=5e-4)
+    with pytest.raises(ValueError, match="divisible"):
+        flash_attention(*_t(q, k, v), causal=True, block_q=96)
 
 
 def test_partials_merge_match_jax():
