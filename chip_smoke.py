@@ -19,7 +19,14 @@ Phases, each fatal on failure:
      long-context branch at B=1, S=4096 (K2, K4, K5) for 2 steps; then f32
      parity of one step (loss, every gradient, the parameters after the
      update) between the kernels and the plain attention path;
-  5. server  — LLMServer serves GPT-2 125M (random seeded weights) to 8
+  5. trainer — the same model with attention_impl="auto" trains through
+     ray_tpu_torch.train.TorchTrainer on a worker actor of the in-process
+     runtime (cuda:0): 5 steps at B=8, S=1024 through K2 and the one-block
+     backward K3 (12 launches each per step, K4-K7 none), losses that fall,
+     a checkpoint of the parameters and both moments; a second fit() resumes
+     from it bit for bit and takes step 5; then f32 parity of one "auto"
+     step against the plain attention path;
+  6. server  — LLMServer serves GPT-2 125M (random seeded weights) to 8
      concurrent requests; asserts they all finish, the prefix cache hit,
      and both kernels launched on that run; then f32 on the kernels must
      be token-identical to f32 on the plain versions, one request at a
@@ -289,13 +296,22 @@ def phase_kernels() -> list:
                             bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
             log(json.dumps(rows[-1]))
     training_kernel_rows(gen, rows)
+    pick = {r["kernel"]: r for r in rows
+            if r.get("case") == "train" and r["dtype"] == "bf16"}
+    k3, k4, k5 = (pick[n] for n in ("K3 flash_bwd_fused", "K4 flash_bwd_dq",
+                                    "K5 flash_bwd_dkv"))
+    log(f"[kernels] backward at B{TRAIN_B} S{TRAIN_S} H{H} D{D} bf16 causal: "
+        f"K3 {k3['ms']:.4f} ms, K4 + K5 {k4['ms']:.4f} + {k5['ms']:.4f} = "
+        f"{k4['ms'] + k5['ms']:.4f} ms (and the delta pre-pass), SDPA backward "
+        f"{k3['library_ms']:.4f} ms, bound {k3['bound_ms']:.4f} ms")
     return rows
 
 
 def training_kernel_rows(gen, rows: list) -> None:
-    """K6 / K7 at the packed training shape, K4 / K5 there and at the long-
-    context shape, each against its plain version (same inputs: a packed
-    projection, its forward's O and lse, a random upstream gradient)."""
+    """K6 / K7, and K2 / K3 of the "auto" path, at the packed training
+    shape, K4 / K5 there and at the long-context shape, each against its
+    plain version (same inputs: a packed projection, its forward's O and
+    lse, a random upstream gradient)."""
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
     cases = [("train", TRAIN_B, TRAIN_S, dt) for dt in (torch.bfloat16, torch.float32)]
@@ -321,7 +337,8 @@ def training_kernel_rows(gen, rows: list) -> None:
             (o, lse), want = kern(), plain()
             check_close(rows, "K6 flash_fwd_packed", {"o": o, "lse": lse},
                         dict(zip(("o", "lse"), want)), label, **shape)
-            timed.append((kern, plain, time_ms(lib),
+            fwd_lib_ms = time_ms(lib)
+            timed.append((kern, plain, fwd_lib_ms,
                           bound(4 * bse + rows_f32, 4 * D * pairs, dtype)))
             kern = lambda: fa.flash_attention_packed_bwd(qkv, o, do, lse, H, causal=True)
             plain = lambda: fa.flash_attention_packed_bwd_reference(
@@ -330,10 +347,29 @@ def training_kernel_rows(gen, rows: list) -> None:
             got, want = ({n: t for n, t in zip(("dq", "dk", "dv"), f().split(e, dim=-1))}
                          for f in (kern, plain))
             check_close(rows, "K7 flash_bwd_packed", got, want, label, **shape)
-            o4 = o.unflatten(-1, (H, D))
-            timed.append((kern, plain, sdpa_bwd_ms(q, k, v, do4),
+            sdpa_ms = sdpa_bwd_ms(q, k, v, do4)
+            timed.append((kern, plain, sdpa_ms,
                           bound(8 * bse + rows_f32, 10 * D * pairs + 2 * b * s * e, dtype)))
-            lse4 = lse.view(b * H, s)
+            # K2, the forward the trainer's "auto" path runs, on the strided
+            # q / k / v views of the same projection (batch stride 3E): o
+            # and lse apart. Its O and lse feed K3, K4 and K5 below, as the
+            # trainer's forward gives them to its backward.
+            kern = lambda: fa.flash_attention_fwd(q, k, v, causal=True)
+            plain = lambda: fa.flash_attention_reference(q, k, v, causal=True)
+            (o4, lse4), want = kern(), plain()
+            check_close(rows, "K2 flash_fwd", {"o": o4, "lse": lse4},
+                        dict(zip(("o", "lse"), want)), label, **shape)
+            timed.append((kern, plain, fwd_lib_ms,
+                          bound(4 * bse + rows_f32, 4 * D * pairs, dtype)))
+            # K3, the one-block backward the trainer's "auto" path runs, on
+            # K2's output: dq, dk, dv apart.
+            args3 = (q, k, v, o4, do4, lse4)
+            kern = lambda: fa.flash_attention_bwd_fused(*args3, causal=True)
+            plain = lambda: fa.flash_attention_bwd_fused_reference(*args3, causal=True)
+            got, want = (dict(zip(("dq", "dk", "dv"), f())) for f in (kern, plain))
+            check_close(rows, "K3 flash_bwd_fused", got, want, label, **shape)
+            timed.append((kern, plain, sdpa_ms,
+                          bound(8 * bse + rows_f32, 10 * D * pairs + 2 * b * s * e, dtype)))
         else:
             o4, lse4 = fa.flash_attention_fwd(q, k, v, causal=True)
         delta = fa.flash_bwd_delta(o4, do4)
@@ -358,6 +394,27 @@ def training_kernel_rows(gen, rows: list) -> None:
             log(json.dumps(row))
         del qkv, do, q, k, v, do4, o4, lse4, delta, args
         torch.cuda.empty_cache()
+    k3_edge_rows(gen, rows)
+
+
+def k3_edge_rows(gen, rows: list) -> None:
+    """K3 against its plain version where its tiles end early: B2 S1000
+    (1000 is not a multiple of the 64-row key tile) and non-causal at
+    S256, bf16; dq, dk, dv apart."""
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    for b, s, causal in ((2, 1000, True), (2, 256, False)):
+        dtype, e = torch.bfloat16, H * D
+        qkv = torch.randn(b, s, 3 * e, generator=gen, device="cuda").to(dtype)
+        q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(e, dim=-1))
+        do = torch.randn(b, s, H, D, generator=gen, device="cuda").to(dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        args = (q, k, v, o, do, lse)
+        got, want = (dict(zip(("dq", "dk", "dv"), f(*args, causal=causal)))
+                     for f in (fa.flash_attention_bwd_fused,
+                               fa.flash_attention_bwd_fused_reference))
+        check_close(rows, "K3 flash_bwd_fused", got, want, dtype_label(dtype),
+                    case="tail" if causal else "full", B=b, S=s)
+        log(json.dumps(rows[-1]))
 
 
 def _train_step(model, opt, state, params, tokens):
@@ -566,6 +623,212 @@ def _f32_parity(cfg, b, s) -> dict:
     return res
 
 
+def _fingerprint(parts: dict) -> dict:
+    """Per leaf of each part ({part: {name: tensor}}), computed where the
+    tensor lies: its dtype, its float64 sum and a position-weighted sum of
+    its bytes. A checkpoint that drops, casts, reorders or stales a value
+    changes it."""
+    out = {}
+    for part, leaves in parts.items():
+        for name, t in leaves.items():
+            t = t.detach().contiguous()
+            raw = t.view(-1).view(torch.uint8).to(torch.int64)
+            weight = torch.arange(raw.numel(), device=raw.device) % 65521 + 1
+            out[f"{part}/{name}"] = [str(t.dtype), t.double().sum().item(),
+                                     (raw * weight).sum().item()]
+    return out
+
+
+def _trainer_loop(config):
+    """The train loop of the trainer phase, run by TorchTrainer in its worker
+    actor: GPT-2 125M (bf16 compute, f32 params, attention_impl="auto") on
+    the worker's device, `config["steps"]` fused_adamw steps on one seeded
+    batch through prepare_params / prepare_batch / prepare_step. Resumed
+    from a checkpoint, it restores the parameters and both moments, checks
+    them bit for bit against the checkpoint, and reports their fingerprint
+    on the device (`_fingerprint`). Each step reports its loss and time; the
+    step `config["profile_step"]` runs under torch.profiler; the last step
+    reports the fingerprint of the live parameters and moments, and a
+    checkpoint of them (on the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.air import Checkpoint
+    from ray_tpu_torch.models.gpt import GPT, gpt2_125m
+    from ray_tpu_torch.ops import FusedAdamWState, fused_adamw
+
+    t_setup = time.perf_counter()
+    device = train.get_device()
+    model = GPT(gpt2_125m(attention_impl="auto"), device=device, seed=0)
+    params = dict(model.named_parameters())
+    opt = fused_adamw(LR)
+    state = opt.init(params)
+    restored = restored_fp = None
+    saved = train.get_checkpoint()
+    if saved is not None:
+        saved = saved.to_dict()
+        with torch.no_grad():
+            for name, value in train.prepare_params(saved["params"]).items():
+                params[name].copy_(value)
+        state = FusedAdamWState(count=saved["count"].clone(),
+                                mu=train.prepare_params(saved["mu"]),
+                                nu=train.prepare_params(saved["nu"]))
+        restored = all(
+            torch.equal(live[k].detach().cpu(), saved[part][k])
+            for part, live in (("params", params), ("mu", state.mu), ("nu", state.nu))
+            for k in params
+        )
+        restored_fp = _fingerprint({"params": params, "mu": state.mu, "nu": state.nu})
+    start = int(state.count)
+    gen = torch.Generator().manual_seed(0)
+    tokens = train.prepare_batch(
+        torch.randint(0, 50257, (TRAIN_B, TRAIN_S), generator=gen))
+    opt_state = {"state": state}
+    torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t_setup
+
+    def step():
+        loss, _, opt_state["state"] = _train_step(model, opt, opt_state["state"],
+                                                  params, tokens)
+        return loss
+
+    step = train.prepare_step(step)
+    last = start + config["steps"] - 1
+    for i in range(start, last + 1):
+        metrics = {"step": i, "restored_bit_for_bit": restored,
+                   "restored_fingerprint": restored_fp if i == start else None,
+                   "setup_s": setup_s}
+        if i == config.get("profile_step"):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                loss = step()
+                torch.cuda.synchronize(device)
+                wall = time.perf_counter() - t0
+            device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                         if e.self_device_time_total > 0}
+            top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+            metrics["profile"] = {
+                "wall_s": wall, "device_busy_s": sum(device_us.values()) / 1e6,
+                "top_kernels_ms": {k[:70]: v / 1e3 for k, v in top}}
+        else:
+            t0 = time.perf_counter()
+            loss = step()  # bounded by torch.cuda.synchronize (instrumented)
+            wall = time.perf_counter() - t0
+        metrics.update(loss=loss.item(), step_s=wall)
+        ckpt = None
+        if i == last:
+            t_ckpt = time.perf_counter()
+            state = opt_state["state"]
+            metrics["fingerprint"] = _fingerprint(
+                {"params": params, "mu": state.mu, "nu": state.nu})
+            ckpt = Checkpoint.from_dict({
+                "params": {k: p.detach().cpu() for k, p in params.items()},
+                "mu": {k: m.cpu() for k, m in state.mu.items()},
+                "nu": {k: m.cpu() for k, m in state.nu.items()},
+                "count": state.count.clone(),
+            })
+            metrics["checkpoint_s"] = time.perf_counter() - t_ckpt
+        train.report(metrics, checkpoint=ckpt)
+
+
+def phase_trainer() -> dict:
+    """GPT-2 125M through ray_tpu_torch.train.TorchTrainer: init the
+    in-process runtime, fit() 5 steps on a worker actor on cuda:0 with the
+    launch counters zeroed just before and read just after (K2 and K3 12 per
+    step, K4-K7 none), then a second fit() resuming from the first's
+    checkpoint for one step (its own counts), then f32 parity of one
+    attention_impl="auto" step against "reference"."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models.gpt import gpt2_125m
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    counters = {
+        "K2 flash_fwd": fa.flash_attention_fwd,
+        "K3 flash_bwd_fused": fa.flash_attention_bwd_fused,
+        "K4 flash_bwd_dq": fa.flash_bwd_dq,
+        "K5 flash_bwd_dkv": fa.flash_bwd_dkv,
+        "K6 flash_fwd_packed": fa.flash_attention_packed_fwd,
+        "K7 flash_bwd_packed": fa.flash_attention_packed_bwd,
+    }
+    layers = gpt2_125m().num_layers
+
+    def fit(steps, checkpoint=None, profile_step=None):
+        trainer = TorchTrainer(
+            _trainer_loop,
+            train_loop_config={"steps": steps, "profile_step": profile_step},
+            scaling_config=ScalingConfig(num_workers=1),
+            resume_from_checkpoint=checkpoint,
+        )
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        if result.error is not None:
+            fail(f"TorchTrainer.fit() failed: {result.error!r}")
+        history = result.metrics_history
+        want = {k: (layers * steps if k in ("K2 flash_fwd", "K3 flash_bwd_fused") else 0)
+                for k in counters}
+        if launches != want:
+            fail(f"trainer launches {launches}, not {want}")
+        losses = [m["loss"] for m in history]
+        if len(losses) != steps or not all(np.isfinite(losses)):
+            fail(f"trainer losses {losses}")
+        return result, wall, launches
+
+    ray_tpu_torch.init()
+    try:
+        result, wall, launches = fit(TRAIN_STEPS, profile_step=TRAIN_STEPS - 1)
+        history = result.metrics_history
+        losses = [m["loss"] for m in history]
+        if not losses[-1] < losses[0]:
+            fail(f"trainer loss did not fall on one batch: {losses}")
+        times = [m["step_s"] for m in history]
+        step_p50 = statistics.median(times[:-1])  # the last step is profiled
+        prof = history[-1]["profile"]
+        summary = {
+            "model": "gpt2_125m bf16 (f32 params), attention_impl=auto",
+            "B": TRAIN_B, "S": TRAIN_S, "steps": TRAIN_STEPS, "losses": losses,
+            "step_s": times, "step_p50_s": step_p50,
+            "tokens_per_s": TRAIN_B * TRAIN_S / step_p50,
+            "fit_wall_s": wall, "fit_overhead_s": wall - sum(times),
+            "loop_setup_s": history[0]["setup_s"],
+            "checkpoint_to_host_s": history[-1]["checkpoint_s"],
+            "profiled_step": {**prof, "device_busy_share": prof["device_busy_s"] / prof["wall_s"]},
+            "launches": launches,
+        }
+        log("[trainer] " + json.dumps(summary))
+        resumed, wall_r, launches_r = fit(1, checkpoint=result.checkpoint)
+        last = resumed.metrics_history[-1]
+        if last["step"] != TRAIN_STEPS or last["restored_bit_for_bit"] is not True:
+            fail(f"resumed fit: step {last['step']}, restored "
+                 f"{last['restored_bit_for_bit']}")
+        # The live state's fingerprint before the checkpoint left the card,
+        # against the restored state's on the card, leaf by leaf.
+        saved_fp = history[-1]["fingerprint"]
+        restored_fp = last["restored_fingerprint"]
+        if not saved_fp or restored_fp != saved_fp:
+            bad = sorted(k for k in saved_fp
+                         if (restored_fp or {}).get(k) != saved_fp[k])
+            fail(f"resumed fit: {len(bad)} of {len(saved_fp)} restored leaves "
+                 f"differ from the saved state, first {bad[:3]}")
+        summary["resumed"] = {"step": last["step"], "loss": last["loss"],
+                              "restored_bit_for_bit": True,
+                              "fingerprint_leaves": len(saved_fp), "fit_wall_s": wall_r,
+                              "loop_setup_s": last["setup_s"],
+                              "launches": launches_r}
+        log("[trainer] resumed: " + json.dumps(summary["resumed"]))
+    finally:
+        ray_tpu_torch.shutdown()
+    torch.cuda.empty_cache()
+    summary["parity"] = _f32_parity(
+        gpt2_125m(dtype=torch.float32, attention_impl="auto"), PARITY_B, PARITY_S)
+    return summary
+
+
 def _prompts(rng) -> list:
     """8 prompts: one long enough (~600) for chunked prefill, two sharing
     a 64-token prefix, one repeated block-aligned prompt (prefix cache hit
@@ -762,6 +1025,11 @@ KERNELS = {
         replaces="ray_tpu/ops/flash_attention.py:66",
         main=dict(case="prefill", S=256, dtype="bf16"),
     ),
+    "K3 flash_bwd_fused": dict(
+        route="cuda", source="ray_tpu_torch/ops/csrc/flash_bwd_fused.cu",
+        replaces="ray_tpu/ops/flash_attention.py:288",
+        main=dict(case="train", dtype="bf16"),
+    ),
     "K4 flash_bwd_dq": dict(
         route="cuda", source="ray_tpu_torch/ops/csrc/flash_bwd.cu",
         replaces="ray_tpu/ops/flash_attention.py:194",
@@ -818,6 +1086,8 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     launches = dict(phase_train()["launches_main"])
+    trainer = phase_trainer()
+    launches["K3 flash_bwd_fused"] = trainer["launches"]["K3 flash_bwd_fused"]
     launches.update(phase_server()["launches"])
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches)))

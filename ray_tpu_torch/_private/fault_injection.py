@@ -173,7 +173,7 @@ def _resolve_exc(name: str) -> Callable[[], BaseException]:
 
 
 def configure_from_env(value: Optional[str] = None) -> List[FaultSpec]:
-    """Parse `RAY_TPU_FAULT_INJECTION` (or an explicit string) and register
+    """Parse `RAY_TPU_TORCH_FAULT_INJECTION` (or an explicit string) and register
     the specs it describes. Format: semicolon-separated specs of
     comma-separated key=value pairs; `exc=Name` resolves against
     ray_tpu_torch.exceptions then builtins."""

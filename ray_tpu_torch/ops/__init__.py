@@ -7,6 +7,8 @@ from ray_tpu_torch.ops.flash_attention import (
     attention,
     flash_attention,
     flash_attention_bwd,
+    flash_attention_bwd_fused,
+    flash_attention_bwd_fused_reference,
     flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_packed,
@@ -29,6 +31,8 @@ __all__ = [
     "dequantize_kv",
     "flash_attention",
     "flash_attention_bwd",
+    "flash_attention_bwd_fused",
+    "flash_attention_bwd_fused_reference",
     "flash_attention_bwd_reference",
     "flash_attention_fwd",
     "flash_attention_packed",

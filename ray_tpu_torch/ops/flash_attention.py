@@ -11,7 +11,12 @@ its storage type as the reference rounds it.
 Backward (K4, K5, and K7 on a packed qkv): a pre-pass writes
 delta = rowsum(dO * O); one kernel accumulates dQ over the key tiles, the
 other dK and dV over the query tiles, each recomputing P from the saved
-logsumexp. No S x S matrix reaches device memory in either direction.
+logsumexp. When one block covers the whole sequence (the reference's rule,
+`_pick_block`), `flash_attention`'s gradient is the one-pass backward K3
+(``csrc/flash_bwd_fused.cu``) instead: one recompute of P per pair feeds
+dQ, dK and dV, delta is computed inside it, and dQ is summed over the key
+tiles with atomics. No S x S matrix reaches device memory in either
+direction.
 
 Every kernel reads its operands through (batch, seq, head) strides, so the
 head split of the packed qkv projection costs no transpose, and the packed
@@ -60,6 +65,12 @@ _BWD_ARGTYPES = {
     "flash_bwd_dq_launch": _GRAD_ARGTYPES,
     "flash_bwd_dkv_launch": _GRAD_ARGTYPES,
 }
+_FUSED_ARGTYPES = {
+    "flash_bwd_fused_launch": [ctypes.c_int]
+    + [ctypes.c_void_p] * 10
+    + [ctypes.c_int] * 4
+    + [_STRIDES, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+}
 
 # Key-tile width of the plain blockwise versions (any width gives the same
 # result up to f32 summation order).
@@ -68,6 +79,15 @@ _REF_BLOCK_K = 128
 
 def _scale(sm_scale: Optional[float], d: int) -> float:
     return 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+
+
+def _pick_block(s: int) -> int:
+    """The reference's default block: the largest power-of-two block <= 1024
+    that divides the sequence length, else the length itself."""
+    for block in (1024, 512, 256, 128):
+        if s % block == 0:
+            return block
+    return s
 
 
 def _prescale(q: torch.Tensor, sm_scale: float) -> torch.Tensor:
@@ -192,6 +212,32 @@ def flash_attention_bwd_reference(
     dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
+
+
+def flash_attention_bwd_fused_reference(
+    q, k, v, o, do, lse, *, causal: bool = False, sm_scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the one-pass backward (K3), the reference's
+    `_bwd_fused_kernel` step by step over the whole [S, S] score matrix:
+    P rounded to dO's type before dV = Pᵀ dO, delta = rowsum(dO · O) in f32,
+    dS = P ∘ (dP − delta) rounded to q's type before dK = dSᵀ q_scaled and
+    dQ = sm_scale · dS K. (dq, dk, dv) [B, S, H, D] in the inputs' dtype."""
+    b, s, h, d = q.shape
+    scale = _scale(sm_scale, d)
+    qs = _heads_first(_prescale(q, scale))
+    kf, vf, dof = _heads_first(k), _heads_first(v), _heads_first(do)
+    scores = qs @ kf.transpose(-1, -2)
+    p = torch.exp(scores - lse.reshape(b, h, s, 1))
+    if causal:
+        p = torch.where(_causal_mask(s, 0, s, q.device), p, 0.0)
+    dv = p.to(do.dtype).float().transpose(-1, -2) @ dof
+    dp = dof @ vf.transpose(-1, -2)
+    delta = (dof * _heads_first(o)).sum(-1, keepdim=True)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dk = ds.transpose(-1, -2) @ qs
+    dq = (ds @ kf) * scale
+    unfold = lambda t, like: t.permute(0, 2, 1, 3).to(like.dtype)
+    return unfold(dq, q), unfold(dk, k), unfold(dv, v)
 
 
 def _packed_views(qkv: torch.Tensor, num_heads: int):
@@ -483,6 +529,44 @@ def flash_attention_bwd(
     return dq, dk, dv
 
 
+def flash_attention_bwd_fused(
+    q, k, v, o, do, lse, *, causal: bool = False, sm_scale: Optional[float] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-pass backward kernel wrapper (K3): (dq, dk, dv) [B, S, H, D] from
+    the forward's inputs (strided views), O and lse [B*H, S], with delta
+    computed inside the kernel. Two launches (the pass over the pairs, which
+    adds dQ into an f32 workspace with atomics, then dQ's scale and cast).
+    dO may come in any layout; it is made contiguous here. CPU tensors run
+    `flash_attention_bwd_fused_reference`."""
+    _refuse_graph("flash_attention_bwd_fused", q, k, v, o, do)
+    if _on_cpu(q):
+        return flash_attention_bwd_fused_reference(
+            q, k, v, o, do, lse, causal=causal, sm_scale=sm_scale
+        )
+    do = do.contiguous()
+    _check_kernel_inputs(q, k=k, v=v, o=o, do=do)
+    b, s, h, d = q.shape
+    _check_rows("lse", lse, b, h, s)
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
+    if b * s == 0:
+        return dq, dk, dv
+    workspace = torch.empty((b * h, s, d), dtype=torch.float32, device=q.device)
+    lib = _kernels.library("flash_bwd_fused", _FUSED_ARGTYPES)
+    err = lib.flash_bwd_fused_launch(
+        _kernels.dtype_code(q.dtype),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), workspace.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, s, h, d, _strides(q, k, v, o, do, dk, dv, dq),
+        _scale(sm_scale, d), int(causal), _stream(q),
+    )
+    _kernels.check(err, "flash_bwd_fused")
+    flash_attention_bwd_fused.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_fused.launches = 0
+
+
 def flash_attention_packed_bwd(
     qkv, o, do, lse, num_heads: int, *, causal: bool = False,
     sm_scale: Optional[float] = None,
@@ -519,21 +603,25 @@ flash_attention_packed_bwd.launches = 0
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
+    def forward(ctx, q, k, v, causal, sm_scale, single_block):
         o, lse = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
         # Residuals in the kernels' layout: the strided views as given (no
         # prescaled or transposed copy), O and lse.
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.single_block = single_block
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(
+        # The reference's dispatch: one block over the sequence takes the
+        # one-pass backward (K3), longer ones the two kernels (K4, K5).
+        bwd = flash_attention_bwd_fused if ctx.single_block else flash_attention_bwd
+        dq, dk, dv = bwd(
             q, k, v, o, do, lse, causal=ctx.causal, sm_scale=ctx.sm_scale
         )
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 class _PackedFlashAttention(torch.autograd.Function):
@@ -567,17 +655,25 @@ def flash_attention(
     block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash attention. q,k,v: [B, S, H, D] → [B, S, H, D], differentiable
-    through the backward kernels. block_q / block_k keep the reference's
-    signature and checks (an explicit block must divide the sequence); the
-    kernels' tiles are their own."""
+    through the backward kernels. block_q / block_k resolve as the
+    reference's do (default `_pick_block`; an explicit block must divide the
+    sequence) and choose the backward as the reference's blocks choose
+    theirs: one block over the whole sequence takes the one-pass backward
+    (K3), anything else K4 + K5. The kernels' tiles are their own."""
     s_q, s_k = q.shape[1], k.shape[1]
-    bq = min(block_q or s_q, s_q)
-    bk = min(block_k or s_k, s_k)
+    bq = min(_pick_block(s_q) if block_q is None else block_q, s_q)
+    bk = min(_pick_block(s_k) if block_k is None else block_k, s_k)
     if s_q % bq or s_k % bk:
         raise ValueError(
             f"seq lengths ({s_q},{s_k}) must be divisible by blocks ({bq},{bk})"
         )
-    return _FlashAttention.apply(q, k, v, causal, sm_scale)
+    return _FlashAttention.apply(q, k, v, causal, sm_scale, single_block(s_q, s_k, bq, bk))
+
+
+def single_block(s_q: int, s_k: int, block_q: int, block_k: int) -> bool:
+    """The reference's test for its one-program backward
+    (`_flash_bwd`: min(block_q, S) == S == S_k == min(block_k, S))."""
+    return min(block_q, s_q) == s_q == s_k == min(block_k, s_q)
 
 
 def flash_attention_packed(

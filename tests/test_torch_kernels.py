@@ -27,6 +27,8 @@ from ray_tpu_torch.ops import (
     quantize_kv,
 )
 from ray_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd_fused,
+    flash_attention_bwd_fused_reference,
     flash_attention_bwd_reference,
     flash_bwd_delta,
     flash_bwd_delta_reference,
@@ -197,7 +199,9 @@ def test_autograd_launches_the_kernels(cuda):
     """On CUDA tensors that require grad, both autograd functions run the
     forward and backward kernels (never the plain versions), and their
     gradients equal the plain backward's; a transposed (non-contiguous)
-    upstream gradient is taken as it comes."""
+    upstream gradient is taken as it comes. `flash_attention` at S = 200
+    with 100-token blocks (several blocks, by the reference's rule) runs
+    K4 + K5; its one-block default runs K3 (test below)."""
     qkv, do = _packed(cuda, torch.float32, seed=3)
     x = qkv.clone().requires_grad_()
     fwd, bwd = flash_attention_packed_fwd.launches, flash_attention_packed_bwd.launches
@@ -211,10 +215,53 @@ def test_autograd_launches_the_kernels(cuda):
     q, k, v = (t.unflatten(-1, (4, 64)).detach().clone().requires_grad_()
                for t in qkv.split(256, dim=-1))
     counts = flash_attention_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches
-    out = flash_attention(q, k, v, causal=True)
+    out = flash_attention(q, k, v, causal=True, block_q=100, block_k=100)
     out.backward(do.unflatten(-1, (4, 64)))
     assert (flash_attention_fwd.launches, flash_bwd_dq.launches,
             flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    o, lse = flash_attention_reference(q, k, v, causal=True)
+    grads = flash_attention_bwd_reference(
+        q, k, v, o, do.unflatten(-1, (4, 64)), lse, causal=True
+    )
+    for t, g in zip((q, k, v), grads):
+        _assert_close(t.grad, g, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", [(200, 64), (96, 32), (256, 64)])
+def test_fused_backward_kernel_matches_plain(cuda, dtype, causal, s, d):
+    """K3 (the one-pass backward, delta inside, dQ by atomics) against its
+    plain version on the strided q/k/v views of a packed projection; S = 200
+    and 96 end in a partial 64-row key tile."""
+    qkv, do = _packed(cuda, dtype, s=s, d=d, seed=4)
+    q, k, v = (t.unflatten(-1, (4, d)) for t in qkv.split(4 * d, dim=-1))
+    do = do.unflatten(-1, (4, d))
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    before = flash_attention_bwd_fused.launches
+    grads = flash_attention_bwd_fused(q, k, v, o, do, lse, causal=causal)
+    assert flash_attention_bwd_fused.launches == before + 1
+    want = flash_attention_bwd_fused_reference(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    for got, w in zip(grads, want):
+        assert got.shape == w.shape and got.dtype == dtype
+        _assert_close(got, w, dtype)
+
+
+@pytest.mark.cuda
+def test_single_block_gradient_runs_k3_not_k4_k5(cuda):
+    """`flash_attention`'s gradient at a one-block length (S = 200, default
+    blocks) launches K3 once and neither K4, K5 nor the delta pre-pass, and
+    equals the plain two-kernel backward's."""
+    qkv, do = _packed(cuda, torch.float32, seed=5)
+    q, k, v = (t.unflatten(-1, (4, 64)).detach().clone().requires_grad_()
+               for t in qkv.split(256, dim=-1))
+    kernels = (flash_attention_bwd_fused, flash_bwd_delta, flash_bwd_dq, flash_bwd_dkv)
+    counts = [f.launches for f in kernels]
+    out = flash_attention(q, k, v, causal=True)
+    out.backward(do.unflatten(-1, (4, 64)))
+    assert [f.launches - c for f, c in zip(kernels, counts)] == [1, 0, 0, 0]
     o, lse = flash_attention_reference(q, k, v, causal=True)
     grads = flash_attention_bwd_reference(
         q, k, v, o, do.unflatten(-1, (4, 64)), lse, causal=True

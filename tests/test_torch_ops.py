@@ -25,6 +25,7 @@ from ray_tpu.ops.attention import _chunk_attn_partial as jax_chunk_partial
 from ray_tpu.ops.attention import finalize_partial as jax_finalize
 from ray_tpu.ops.attention import merge_partials as jax_merge
 from ray_tpu.ops.flash_attention import _flash_fwd as jax_flash_fwd
+from ray_tpu.ops.flash_attention import _pick_block as jax_pick_block
 from ray_tpu.ops.flash_attention import _packed_bwd as jax_packed_bwd
 from ray_tpu.ops.flash_attention import _packed_fwd as jax_packed_fwd
 from ray_tpu.ops.flash_attention import _packed_n_sub as jax_packed_n_sub
@@ -34,6 +35,8 @@ from ray_tpu_torch.ops import (
     dequantize_kv,
     flash_attention,
     flash_attention_bwd,
+    flash_attention_bwd_fused,
+    flash_attention_bwd_fused_reference,
     flash_attention_fwd,
     flash_attention_packed,
     flash_attention_packed_bwd,
@@ -430,6 +433,118 @@ def test_flash_attention_grad_matches_jax(s, block):
         np.testing.assert_allclose(t.numpy(), np.asarray(w), atol=5e-4)
     with pytest.raises(ValueError, match="divisible"):
         flash_attention(*_t(q, k, v), causal=True, block_q=96)
+
+
+# ------------------------------------------------- one-block backward (K3)
+
+K3_CASES = {
+    # name: (B, S, H, D, causal, dtype). S96 is not a multiple of the
+    # kernel's 64-row key tile, so its plain version meets a tail too.
+    "s128_causal": (2, 128, 2, 64, True, "float32"),
+    "s128_full": (2, 128, 2, 64, False, "float32"),
+    "s96_causal": (2, 96, 2, 64, True, "float32"),
+    "s96_full": (2, 96, 2, 64, False, "float32"),
+    "s128_causal_bf16": (2, 128, 2, 64, True, "bfloat16"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_flash_bwd_fused_matches_jax_k3(case):
+    """The one-block backward against JAX's `_bwd_fused_kernel` (K3) in
+    interpret mode: JAX's `flash_attention(..., block_q=S, block_k=S)`
+    gradient, which runs K3 because one block covers S. Both the port's
+    plain K3 (`flash_attention_bwd_fused` on CPU tensors) and the autograd
+    path through `flash_attention` (default blocks: one block at these S)
+    are held to it. Tolerances: f32 5e-4 (test_ops.py's for the same
+    kernels); bf16 3e-2 over gradients below 4 in magnitude, one or two bf16
+    ulps, since both round P, dS and q's prescale at the same points and
+    differ only in f32 summation order."""
+    b, s, h, d, causal, dtype = K3_CASES[case]
+    rng = np.random.RandomState(s + causal)
+    q, k, v, g = (rng.randn(b, s, h, d).astype(np.float32) for _ in range(4))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jx = [jnp.asarray(x, jdt) for x in (q, k, v)]
+    kw = dict(causal=causal, block_q=s, block_k=s)
+    out, vjp = jax.vjp(lambda *x: jax_flash_attention(*x, **kw), *jx)
+    want = [np.asarray(w, np.float32) for w in vjp(jnp.asarray(g, jdt))]
+    tol = 5e-4 if dtype == "float32" else 3e-2
+    tx = [torch.from_numpy(x).to(tdt) for x in (q, k, v)]
+    tg = torch.from_numpy(g).to(tdt)
+    o, lse = flash_attention_fwd(*tx, causal=causal)
+    direct = flash_attention_bwd_fused(*tx, o, tg, lse, causal=causal)
+    plain = flash_attention_bwd_fused_reference(*tx, o, tg, lse, causal=causal)
+    leaves = [t.clone().requires_grad_() for t in tx]
+    got = flash_attention(*leaves, causal=causal)
+    got.backward(tg)
+    np.testing.assert_allclose(
+        got.detach().float().numpy(), np.asarray(out, np.float32), atol=tol
+    )
+    for grads in (direct, plain, [t.grad for t in leaves]):
+        for t, w in zip(grads, want):
+            assert t.dtype == tdt
+            np.testing.assert_allclose(t.float().numpy(), w, atol=tol)
+
+
+# S: the reference's `_pick_block` gives one block at 64, 96, 128, 1000,
+# 1024 and 2500 (128 does not divide 1000 or 2500), several at 1536, 2048
+# and 2304.
+SINGLE_BLOCK_S = [64, 96, 128, 1000, 1024, 1536, 2048, 2304, 2500]
+
+
+def _jax_takes_one_block(monkeypatch, s, block) -> bool:
+    """Which backward the reference picks at S with these blocks: trace
+    `jax.grad` through its `flash_attention` (no kernel runs) and record
+    which Pallas wrapper its `_flash_bwd` calls."""
+    jax_fa = sys.modules["ray_tpu.ops.flash_attention"]
+    called = []
+    for name in ("_flash_bwd_fused_pallas", "_flash_bwd_pallas"):
+        real = getattr(jax_fa, name)
+        monkeypatch.setattr(jax_fa, name, lambda *a, _n=name, _f=real, **kw:
+                            called.append(_n) or _f(*a, **kw))
+    x = jnp.zeros((1, s, 1, 8), jnp.float32)
+    loss = lambda q: jax_flash_attention(q, x, x, causal=True, block_q=block,
+                                         block_k=block).sum()
+    jax.make_jaxpr(jax.grad(loss))(x)
+    assert len(called) == 1, called
+    return called == ["_flash_bwd_fused_pallas"]
+
+
+@pytest.mark.parametrize("s", SINGLE_BLOCK_S)
+@pytest.mark.parametrize("blocks", ["default", "explicit_128", "explicit_s"])
+def test_single_block_rule_matches_jax(monkeypatch, s, blocks):
+    """The port's choice between the one-block backward (K3) and K4 + K5 is
+    the reference's (`_flash_bwd`, flash_attention.py:674) over default and
+    explicit blocks: the port's predicate names the backward that the
+    reference's own dispatch calls, and `flash_attention`'s backward calls
+    the wrapper the predicate names."""
+    fa = sys.modules["ray_tpu_torch.ops.flash_attention"]
+    block = {"default": None, "explicit_128": 128, "explicit_s": s}[blocks]
+    pb = fa._pick_block(s) if block is None else block
+    assert fa._pick_block(s) == jax_pick_block(s)
+    if s % min(pb, s):
+        # An explicit block that does not divide S raises in both.
+        with pytest.raises(ValueError, match="divisible"):
+            flash_attention(*_t(*(np.zeros((1, s, 1, 8), np.float32),) * 3),
+                            block_q=block, block_k=block)
+        return
+    want = _jax_takes_one_block(monkeypatch, s, block)
+    assert fa.single_block(s, s, min(pb, s), min(pb, s)) == want
+    if blocks == "default":
+        assert want == (s not in (1536, 2048, 2304))
+    if s > 128:
+        return  # the dispatch itself is shown at the short lengths
+    called = []
+    real = {n: getattr(fa, n) for n in ("flash_attention_bwd_fused", "flash_attention_bwd")}
+    x = [t.requires_grad_() for t in _t(*(np.random.RandomState(s).randn(1, s, 2, 8)
+                                        .astype(np.float32) for _ in range(3)))]
+    try:
+        for n, f in real.items():
+            setattr(fa, n, lambda *a, _n=n, _f=f, **kw: called.append(_n) or _f(*a, **kw))
+        flash_attention(*x, causal=True, block_q=block, block_k=block).sum().backward()
+    finally:
+        for n, f in real.items():
+            setattr(fa, n, f)
+    assert called == ["flash_attention_bwd_fused" if want else "flash_attention_bwd"]
 
 
 def test_partials_merge_match_jax():

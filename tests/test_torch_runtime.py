@@ -1,0 +1,191 @@
+"""The port's in-process runtime against the reference's.
+
+Each test runs one small program twice, once on `ray_tpu` and once on
+`ray_tpu_torch`, each package through its own public API, and compares the
+results (exact: both sides compute the same Python values). The features
+the port refuses are checked to raise, naming where they would come from.
+"""
+
+import numpy as np
+import pytest
+
+import ray_tpu
+import ray_tpu_torch
+import ray_tpu.util as jax_util
+import ray_tpu_torch.util as torch_util
+
+PACKAGES = {"ray_tpu": ray_tpu, "ray_tpu_torch": ray_tpu_torch}
+
+
+@pytest.fixture
+def both():
+    """Both runtimes up at once (4 CPUs each), each shut down after."""
+    for rt in PACKAGES.values():
+        rt.init(num_cpus=4, num_gpus=0)
+    yield PACKAGES
+    for rt in PACKAGES.values():
+        rt.shutdown()
+
+
+def _run(both, program):
+    got = {name: program(rt) for name, rt in both.items()}
+    assert got["ray_tpu_torch"] == got["ray_tpu"], got
+    return got["ray_tpu_torch"]
+
+
+def test_tasks_and_chained_refs(both):
+    def program(rt):
+        @rt.remote
+        def square(x):
+            return x * x
+
+        @rt.remote
+        def total(*xs):
+            return sum(xs)
+
+        refs = [square.remote(i) for i in range(6)]
+        return rt.get(refs), rt.get(total.remote(*refs))
+
+    assert _run(both, program) == ([0, 1, 4, 9, 16, 25], 55)
+
+
+def test_put_get_wait(both):
+    def program(rt):
+        arr = np.arange(12.0).reshape(3, 4)
+        ref = rt.put({"a": arr, "b": [1, 2]})
+        value = rt.get(ref)
+
+        @rt.remote
+        def col_sums(d):
+            return d["a"].sum(0).tolist()
+
+        ready, rest = rt.wait([col_sums.remote(ref), rt.put(7)], num_returns=2,
+                              timeout=30)
+        return value["a"].tolist(), value["b"], sorted(
+            map(str, rt.get(ready))), len(rest)
+
+    _run(both, program)
+
+
+def test_actor_call_sequence_named_get_actor_and_kill(both):
+    def program(rt):
+        @rt.remote
+        class Counter:
+            def __init__(self, start):
+                self.n = start
+
+            def add(self, k):
+                self.n += k
+                return self.n
+
+        c = Counter.options(name="counter").remote(10)
+        seq = rt.get([c.add.remote(i) for i in range(5)])
+        again = rt.get(rt.get_actor("counter").add.remote(100))
+        rt.kill(c)
+        try:
+            rt.get(c.add.remote(1), timeout=30)
+            died = None
+        except Exception as exc:  # ActorDiedError, each package its own
+            died = type(exc).__name__
+        try:
+            rt.get_actor("counter")
+            lookup = "found"
+        except ValueError:
+            lookup = "gone"
+        return seq, again, died, lookup
+
+    assert _run(both, program) == (
+        [10, 11, 13, 16, 20], 120, "ActorDiedError", "gone"
+    )
+
+
+def test_task_error_reraises_as_cause_type(both):
+    def program(rt):
+        @rt.remote(max_retries=0)
+        def fail():
+            raise KeyError("missing")
+
+        try:
+            rt.get(fail.remote())
+        except KeyError as exc:
+            return "KeyError", "missing" in str(exc)
+
+    assert _run(both, program) == ("KeyError", True)
+
+
+def test_placement_groups(both):
+    def program(rt):
+        util = torch_util if rt is ray_tpu_torch else jax_util
+        pg = util.placement_group([{"CPU": 1}, {"CPU": 1}], strategy="PACK")
+        assert pg.ready(timeout=30)
+        strategy = util.PlacementGroupSchedulingStrategy
+
+        @rt.remote(num_cpus=1)
+        def where(i):
+            return i * 2
+
+        refs = [
+            where.options(
+                scheduling_strategy=strategy(
+                    placement_group=pg, placement_group_bundle_index=i
+                )
+            ).remote(i)
+            for i in range(2)
+        ]
+        out = rt.get(refs)
+        nodes = len(set(pg.bundle_node_ids().values()))
+        util.remove_placement_group(pg)
+        return out, nodes, rt.available_resources()["CPU"]
+
+    assert _run(both, program) == ([0, 2], 1, 4.0)
+
+
+def test_refused_features_name_their_slice():
+    """What the in-process port does not construct is refused, never run
+    reduced: worker processes, remote drivers, GCS persistence, the native
+    store, spilling, the dashboard, the memory monitor."""
+    for config, match in (
+        ({"isolation": "process"}, "process"),
+        ({"gcs_storage_path": "/nonexistent"}, "GCS persistence"),
+        ({"native_store_enabled": True}, "native"),
+        ({"object_spilling_enabled": True}, "spilling"),
+        ({"include_dashboard": True}, "dashboard"),
+        ({"memory_usage_threshold": 0.9}, "memory monitor"),
+    ):
+        with pytest.raises(NotImplementedError, match=match):
+            ray_tpu_torch.init(num_cpus=1, _system_config=config)
+        assert not ray_tpu_torch.is_initialized()
+    with pytest.raises(NotImplementedError, match="remote drivers"):
+        ray_tpu_torch.init(address="127.0.0.1:1")
+    ray_tpu_torch.init(num_cpus=1, num_gpus=0)
+    try:
+        @ray_tpu_torch.remote
+        class A:
+            pass
+
+        with pytest.raises(NotImplementedError, match="isolation='process'"):
+            A.options(isolation="process").remote()
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_import_and_init_create_no_cuda_context():
+    """`import ray_tpu_torch` and a CPU-only runtime's init/shutdown leave
+    CUDA uninitialised (init counts devices without a context)."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import torch, ray_tpu_torch\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "ray_tpu_torch.init(num_cpus=1)\n"
+        "ray_tpu_torch.shutdown()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=repo,
+                          env=dict(os.environ, PYTHONPATH=repo))
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
