@@ -7,11 +7,15 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, each fatal on failure:
   1. device  — the card's name and power limit (nvidia-smi) and torch's name;
-  2. build   — compile every CUDA kernel from ray_tpu_torch/ops/csrc;
+  2. build   — compile every CUDA kernel from ray_tpu_torch/ops/csrc, and
+     count the tensor-core instructions (HMMA / HGMMA, by cuobjdump) of the
+     bf16 forward kernel: none fails the run;
   3. kernels — hold each kernel against its plain PyTorch version at the
      serving and training paths' GPT-2 125M shapes (H=12, D=64), with stated
      tolerances; time kernel, plain version, the bound and, where one
      PyTorch call computes the same function, that call (a yardstick only);
+     K2 and K6 rows also print their achieved TFLOP/s and the time of the
+     CUDA-core forward they replaced (`earlier_ms`);
   4. train   — GPT-2 125M (bf16 compute on f32 params) takes 5 fused_adamw
      steps at B=8, S=1024 through the packed kernels (K6, K7): finite
      losses that fall, both kernels launched 12 per step, step time,
@@ -38,11 +42,13 @@ from __future__ import annotations
 
 import importlib
 import json
+import re
 import statistics
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -64,6 +70,28 @@ LONG_B, LONG_S, LONG_STEPS = 1, 4096, 2
 PARITY_B, PARITY_S, PARITY_LONG_LAYERS = 2, 1024, 2
 LR = 3e-4
 GRAD_FLOOR = 10 * 1e-8  # 10 x fused_adamw's eps: see _f32_parity
+# K2 / K6 times of the forward before the tensor-core kernel (f32 math on
+# the CUDA cores in both types), ms: this script's kernel phase run on commit
+# 771fee6 on an H100 80GB HBM3 at 700 W (PERF.md). Keys: kernel, case, S,
+# causal, dtype.
+EARLIER_MS = {
+    ("K2 flash_fwd", "prefill", 128, True, "bf16"): 0.0486,
+    ("K2 flash_fwd", "prefill", 128, True, "f32"): 0.0483,
+    ("K2 flash_fwd", "prefill", 200, True, "bf16"): 0.0666,
+    ("K2 flash_fwd", "prefill", 200, True, "f32"): 0.0650,
+    ("K2 flash_fwd", "prefill", 256, True, "bf16"): 0.0836,
+    ("K2 flash_fwd", "prefill", 256, True, "f32"): 0.0828,
+    ("K2 flash_fwd", "prefill", 1000, True, "bf16"): 0.4012,
+    ("K2 flash_fwd", "prefill", 1000, True, "f32"): 0.3930,
+    ("K2 flash_fwd", "prefill", 1024, True, "bf16"): 0.4069,
+    ("K2 flash_fwd", "prefill", 1024, True, "f32"): 0.3992,
+    ("K2 flash_fwd", "prefill", 1024, False, "bf16"): 0.5630,
+    ("K2 flash_fwd", "prefill", 1024, False, "f32"): 0.5670,
+    ("K2 flash_fwd", "train", 1024, True, "bf16"): 1.9456,
+    ("K2 flash_fwd", "train", 1024, True, "f32"): 1.9217,
+    ("K6 flash_fwd_packed", "train", 1024, True, "bf16"): 1.9600,
+    ("K6 flash_fwd_packed", "train", 1024, True, "f32"): 1.8940,
+}
 
 
 def log(msg: str) -> None:
@@ -189,12 +217,43 @@ def phase_build() -> None:
     report = _kernels.build()
     for name, info in report.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "entry function" in ln]
         log(f"[build] {name}: {info['seconds']:.1f}s")
         for ln in ptxas:
             log(f"[build]   {ln}")
     log(f"[build] total {time.perf_counter() - t0:.1f}s "
         f"({len(report)} compiled, {len(_kernels.KERNELS) - len(report)} cached)")
+    mma = tensor_core_instructions(_kernels, "flash_fwd")
+    log(f"[build] flash_fwd tensor-core instructions (cuobjdump): {json.dumps(mma)}")
+    bf16 = {fn: n for fn, n in mma.items() if "flash_fwd_mma_kernel" in fn}
+    if not bf16 or not all(bf16.values()):
+        fail(f"the bf16 forward kernel has no HMMA / HGMMA instruction: {bf16}")
+
+
+def tensor_core_instructions(kernels, name: str) -> dict:
+    """HMMA / HGMMA instructions in each kernel function of one built
+    library, from the CUDA toolkit's cuobjdump --dump-sass."""
+    cuobjdump = str(Path(kernels._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(kernels._library_path(name))],
+                          capture_output=True, text=True, timeout=120)
+    if sass.returncode != 0:
+        fail(f"cuobjdump: {sass.stderr.strip()}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts.setdefault(fn, 0)
+        elif fn is not None and re.search(r"\bHG?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def tflops(row: dict, flops: float) -> None:
+    """Achieved TFLOP/s of a timed row, and the earlier kernel's time of the
+    same row (EARLIER_MS)."""
+    key = (row["kernel"], row["case"], row["S"], row.get("causal", True), row["dtype"])
+    row.update(tflops=flops / (row["ms"] * 1e-3) / 1e12, earlier_ms=EARLIER_MS.get(key))
 
 
 def _paged_case(gen, b, s, ctx, dtype, kv):
@@ -275,25 +334,30 @@ def phase_kernels() -> list:
             rows[-1].update(ms=ms, plain_ms=plain_ms, library_ms=None,
                             bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
             log(json.dumps(rows[-1]))
-    for s in (128, 256, 1024):
+    # Prefill lengths (S = 200 and 1000 end inside a 64-row tile), and one
+    # non-causal row.
+    for s, causal in ((128, True), (200, True), (256, True), (1000, True),
+                      (1024, True), (1024, False)):
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn(1, s, 3 * H * D, generator=gen, device="cuda").to(dtype)
             q, k, v = (t.view(1, s, H, D) for t in qkv.split(H * D, dim=-1))
-            kern = lambda: flash_attention_fwd(q, k, v, causal=True)
-            plain = lambda: flash_attention_reference(q, k, v, causal=True)
+            kern = lambda: flash_attention_fwd(q, k, v, causal=causal)
+            plain = lambda: flash_attention_reference(q, k, v, causal=causal)
             got, want = (dict(zip(("o", "lse"), f())) for f in (kern, plain))
             check_close(rows, "K2 flash_fwd", got, want, dtype_label(dtype),
-                        case="prefill", B=1, S=s)
+                        case="prefill", B=1, S=s, causal=causal)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             library = lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True
+                qt, kt, vt, is_causal=causal
             )
             ms, plain_ms = time_ms(kern), time_ms(plain, reps=10)
             lib_ms = time_ms(library)
             nbytes = 4 * s * H * D * dtype.itemsize + H * s * 4
-            bms, by = bound(nbytes, 4 * D * H * s * (s + 1) // 2, dtype)
+            flops = 4 * D * H * (s * (s + 1) // 2 if causal else s * s)
+            bms, by = bound(nbytes, flops, dtype)
             rows[-1].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
+            tflops(rows[-1], flops)
             log(json.dumps(rows[-1]))
     training_kernel_rows(gen, rows)
     pick = {r["kernel"]: r for r in rows
@@ -339,7 +403,7 @@ def training_kernel_rows(gen, rows: list) -> None:
                         dict(zip(("o", "lse"), want)), label, **shape)
             fwd_lib_ms = time_ms(lib)
             timed.append((kern, plain, fwd_lib_ms,
-                          bound(4 * bse + rows_f32, 4 * D * pairs, dtype)))
+                          bound(4 * bse + rows_f32, 4 * D * pairs, dtype), 4 * D * pairs))
             kern = lambda: fa.flash_attention_packed_bwd(qkv, o, do, lse, H, causal=True)
             plain = lambda: fa.flash_attention_packed_bwd_reference(
                 qkv, o, do, lse, H, causal=True)
@@ -360,7 +424,7 @@ def training_kernel_rows(gen, rows: list) -> None:
             check_close(rows, "K2 flash_fwd", {"o": o4, "lse": lse4},
                         dict(zip(("o", "lse"), want)), label, **shape)
             timed.append((kern, plain, fwd_lib_ms,
-                          bound(4 * bse + rows_f32, 4 * D * pairs, dtype)))
+                          bound(4 * bse + rows_f32, 4 * D * pairs, dtype), 4 * D * pairs))
             # K3, the one-block backward the trainer's "auto" path runs, on
             # K2's output: dq, dk, dv apart.
             args3 = (q, k, v, o4, do4, lse4)
@@ -387,10 +451,12 @@ def training_kernel_rows(gen, rows: list) -> None:
         timed.append((kern, plain, lib_ms,
                       bound(6 * bse + 2 * rows_f32, 8 * D * pairs, dtype)))
         torch.cuda.synchronize()
-        for row, (kern, plain, lib_ms, (bms, by)) in zip(rows[-len(timed):], timed):
+        for row, (kern, plain, lib_ms, (bms, by), *fwd) in zip(rows[-len(timed):], timed):
             row.update(ms=time_ms(kern), plain_ms=time_ms(plain, reps=5),
                        library_ms=lib_ms, bound_ms=bms, bound_us=bms * 1e3,
                        bound_by=by)
+            if fwd:  # K2, K6: the forward's operations, 4 D per causal pair
+                tflops(row, fwd[0])
             log(json.dumps(row))
         del qkv, do, q, k, v, do4, o4, lse4, delta, args
         torch.cuda.empty_cache()

@@ -115,10 +115,14 @@ __device__ __forceinline__ void stage_rows(const KV* __restrict__ src,
 //                     1 otherwise, which multiplies exactly)
 //   row[r]            local query row of slot r, or -1 (warp-uniform)
 //   lim[r]            keys 0..lim[r]-1 of the chunk are visible to row r
+//   PT                the type P is rounded to before P·V, after V's int8
+//                     scale, as the reference rounds it (`p.astype(v.dtype)`
+//                     in _fwd_kernel, `p.astype(out_dtype)` in
+//                     _online_update); l sums the unrounded P. float is exact.
 // Keys at or past lim get probability exactly 0, so a row whose every key
 // so far was masked keeps l == 0 (and comes out as zeros), never the
 // uniform average that exp(NEG_INF - NEG_INF) = 1 would give.
-template <int RPW>
+template <int RPW, typename PT>
 __device__ __forceinline__ void fold_chunk(
     const float* __restrict__ q_s, const float* __restrict__ k_s,
     const float* __restrict__ v_s, float ksc, float vsc, int D, int lane,
@@ -153,7 +157,7 @@ __device__ __forceinline__ void fold_chunk(
     const float alpha = expf(m[r] - m_new);
     l[r] = l[r] * alpha + warp_sum(pr);
     m[r] = m_new;
-    p[r] = pr * vsc;  // int8: V's scale on P
+    p[r] = round_to<PT>(pr * vsc);  // int8: V's scale on P, then rounded
 #pragma unroll
     for (int e = 0; e < MAXE; ++e) acc[r][e] *= alpha;
   }

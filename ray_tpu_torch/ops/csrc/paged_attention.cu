@@ -114,7 +114,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
         lim[r] = row[r] >= 0 ? i0 + r + 1 - c0 : 0;
     }
     __syncwarp();
-    fold_chunk<RPW>(q_s, k_s, v_s, ksc, vsc, D, lane, row, lim, m, l, acc);
+    fold_chunk<RPW, T>(q_s, k_s, v_s, ksc, vsc, D, lane, row, lim, m, l, acc);
     __syncwarp();  // the slice is consumed before the next chunk lands
   }
 

@@ -6,7 +6,10 @@ Forward (K2, and K6 on a packed qkv): one thread block owns a tile of query
 rows of one (batch, head), walks the key tiles up to the causal diagonal,
 keeps the running max / sum / accumulator in f32, and writes O and the
 per-row logsumexp. q is prescaled by sm_scale inside the kernel, rounded to
-its storage type as the reference rounds it.
+its storage type as the reference rounds it, and P is rounded to v's type
+before P·V, as the reference rounds it. bf16 runs both products on the
+tensor cores (head_dim 32, 64 or 128); f32 keeps f32 math on the CUDA
+cores.
 
 Backward (K4, K5, and K7 on a packed qkv): a pre-pass writes
 delta = rowsum(dO * O); one kernel accumulates dQ over the key tiles, the
@@ -119,8 +122,10 @@ def flash_attention_reference(
     sm_scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain blockwise version of the forward kernel: same prescaling, same
-    online-softmax recurrence over key tiles in f32. q,k,v [B, S, H, D] →
-    (O [B, S, H, D] in q's dtype, lse [B*H, S] f32)."""
+    online-softmax recurrence over key tiles in f32, and P rounded to v's
+    dtype before P·V where the reference's `_fwd_kernel` rounds it (exact
+    in f32); l sums the unrounded P. q,k,v [B, S, H, D] → (O [B, S, H, D]
+    in q's dtype, lse [B*H, S] f32)."""
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     qf = _heads_first(_prescale(q, _scale(sm_scale, d)))  # [B, H, Sq, D]
@@ -142,7 +147,7 @@ def flash_attention_reference(
         p = torch.exp(s - m_new) * valid
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + p @ vf[:, :, k0:k1]
+        acc = acc * alpha + p.to(v.dtype).float() @ vf[:, :, k0:k1]
         m = m_new
     safe = torch.where(l == 0.0, torch.ones_like(l), l)
     out = (acc / safe).permute(0, 2, 1, 3).to(q.dtype)
@@ -332,6 +337,21 @@ def _check_kernel_inputs(q: torch.Tensor, **others: torch.Tensor) -> None:
             raise ValueError(f"{name} rows must start 16-byte aligned")
 
 
+# head_dims the bf16 forward (tensor cores) is instantiated for.
+_MMA_HEAD_DIMS = (32, 64, 128)
+
+
+def _check_fwd_head_dim(q: torch.Tensor) -> None:
+    """The bf16 forward kernel is compiled per head_dim; another bf16
+    head_dim is refused, never sent to the f32 kernel."""
+    d = q.shape[-1]
+    if q.dtype == torch.bfloat16 and d not in _MMA_HEAD_DIMS:
+        raise ValueError(
+            f"bf16 head_dim {d}: the forward kernel takes head_dim in "
+            f"{_MMA_HEAD_DIMS} in bf16"
+        )
+
+
 def _check_rows(name: str, t: torch.Tensor, b: int, h: int, s: int) -> None:
     """lse / delta: contiguous f32 [B*H, S] (or [B, H, S])."""
     if t.dtype != torch.float32 or t.numel() != b * h * s or not t.is_contiguous():
@@ -369,6 +389,7 @@ def flash_attention_fwd(
     if _on_cpu(q):
         return flash_attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)
     _check_kernel_inputs(q, k=k, v=v)
+    _check_fwd_head_dim(q)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
@@ -410,6 +431,7 @@ def flash_attention_packed_fwd(
     if not qkv.is_contiguous():
         raise ValueError("the packed kernel takes a contiguous qkv [B, S, 3E]")
     _check_kernel_inputs(q, k=k, v=v)
+    _check_fwd_head_dim(q)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=qkv.device)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ray_tpu_torch.ops import (
     flash_attention,
     flash_attention_fwd,
@@ -39,8 +40,9 @@ from ray_tpu_torch.ops.flash_attention import (
 )
 
 # f32: the kernel and the plain version differ in summation order only.
-# bf16: the forward kernels keep P in f32, the plain version rounds it to
-# bf16; the backward kernels round P and dS as the plain version does, and
+# bf16: the kernels round P (and, backward, dS) where the plain versions do,
+# but the bf16 forward walks 64-key tiles against the plain version's 128,
+# so P is rounded against another running max here and there, and
 # summation order flips a bf16 rounding here and there. Gradients are held
 # relative to their largest magnitude (they sum over up to S rows).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -268,3 +270,69 @@ def test_single_block_gradient_runs_k3_not_k4_k5(cuda):
     )
     for t, g in zip((q, k, v), grads):
         _assert_close(t.grad, g, torch.float32)
+
+
+def _assert_limits(got, want, what):
+    """chip_smoke.py's check of a kernel output against its plain version:
+    relative L2 and per-element rounding steps plus a floor of the RMS, by
+    the output's dtype (LIMITS)."""
+    out = chip_smoke.compare(got, want)
+    lim = chip_smoke.LIMITS[want.dtype]
+    assert out["rel_l2"] <= lim["rel_l2"] and out["floor_rms"] <= lim["floor_rms"], (
+        what, out, lim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 200, 1000, 1024])
+def test_bf16_forward_tensor_core_kernel_matches_plain(cuda, s, d, causal, b):
+    """The bf16 forward (tensor cores) against the plain versions, o and lse
+    apart, by chip_smoke.py's LIMITS: K2 on the strided q/k/v views of a
+    packed projection (batch stride 3E, as the trainer passes them) and on
+    contiguous copies, K6 on the projection itself. S = 1, 63, 65, 200 and
+    1000 end inside a 64-row tile; 1024 fills 16."""
+    h = 3
+    g = torch.Generator(device=cuda).manual_seed(s * 1000 + d + causal + 7 * b)
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
+    want_o, want_lse = flash_attention_reference(q, k, v, causal=causal)
+    for label, args in (("strided", (q, k, v)),
+                        ("contiguous", tuple(t.contiguous() for t in (q, k, v)))):
+        before = flash_attention_fwd.launches
+        o, lse = flash_attention_fwd(*args, causal=causal)
+        assert flash_attention_fwd.launches == before + 1
+        torch.cuda.synchronize()
+        assert o.dtype == torch.bfloat16 and lse.shape == (b * h, s)
+        _assert_limits(o, want_o, ("K2", label, "o"))
+        _assert_limits(lse, want_lse, ("K2", label, "lse"))
+    o, lse = flash_attention_packed_fwd(qkv, h, causal=causal)
+    want_o, want_lse = flash_attention_packed_reference(qkv, h, causal=causal)
+    torch.cuda.synchronize()
+    assert o.shape == (b, s, h * d) and lse.shape == (b, h, s)
+    _assert_limits(o, want_o, ("K6", "o"))
+    _assert_limits(lse, want_lse, ("K6", "lse"))
+
+
+@pytest.mark.cuda
+def test_bf16_forward_refuses_head_dims_it_was_not_built_for(cuda):
+    """bf16 head_dim 48 (16-byte rows, but no tensor-core instantiation) is
+    refused by both forward entries, naming the head_dims it takes; f32 at
+    the same head_dim runs on the CUDA-core kernel."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    qkv = torch.randn(2, 70, 3 * 2 * 48, generator=g, device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = qkv.to(dtype)
+        q, k, v = (t.unflatten(-1, (2, 48)) for t in x.split(96, dim=-1))
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match=r"head_dim 48.*\(32, 64, 128\)"):
+                flash_attention_fwd(q, k, v, causal=True)
+            with pytest.raises(ValueError, match=r"head_dim 48.*\(32, 64, 128\)"):
+                flash_attention_packed_fwd(x, 2, causal=True)
+        else:
+            o, lse = flash_attention_fwd(q, k, v, causal=True)
+            want_o, want_lse = flash_attention_reference(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            _assert_limits(o, want_o, "o")
+            _assert_limits(lse, want_lse, "lse")

@@ -404,8 +404,58 @@ def test_flash_attention_packed_bf16_rounding_matches_jax():
     )
     same = x.grad.float().numpy() == np.asarray(want_dqkv, np.float32)
     e = h * d
+    # O: P rounded before P·V on both sides (0.943 bit-identical; 0.623
+    # with P kept f32); the rest is the packed reference's one-pass row max
+    # against the plain version's running max.
+    assert _bf16_share(out.detach(), want_o) >= 0.94
     assert same[..., 2 * e:].mean() > 0.95  # dV: P rounded
     assert same[..., :e].mean() > 0.65 and same[..., e:2 * e].mean() > 0.65  # dS rounded
+
+
+def _bf16_share(got: torch.Tensor, want) -> float:
+    """Share of bf16 outputs bit-identical to the reference's."""
+    return float((got.float().numpy() == np.asarray(want, np.float32)).mean())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_reference_bf16_rounds_p_as_jax(causal):
+    """K2's plain forward against JAX's `_fwd_kernel` (interpret mode) in
+    bf16 at B1 S256 H2 D32 with 128-token blocks, the plain version's own
+    key tile: both round q's prescale and, before P·V, the unnormalised P
+    to v's dtype, with the same running max at the same tile edges, so O is
+    bit-identical but for summation order (measured: 1.0 causal, 0.9999
+    not; 0.63 and 0.60 with P kept f32) and lse within 2e-6 (4.8e-7)."""
+    b, s, h, d = 1, 256, 2, 32
+    rng = np.random.RandomState(5 + causal)
+    q, k, v = (rng.randn(b, s, h, d).astype(np.float32) for _ in range(3))
+    sm = 1.0 / math.sqrt(d)
+    want_o, res = jax_flash_fwd(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                sm, causal, 128, 128)
+    got_o, got_lse = flash_attention_fwd(
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v)), causal=causal)
+    assert got_o.dtype == torch.bfloat16
+    assert _bf16_share(got_o, want_o) >= 0.99
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(res[-1]), atol=2e-6)
+
+
+@pytest.mark.parametrize("causal,share", [(True, 0.9), (False, 0.75)])
+def test_flash_packed_reference_bf16_rounds_p_as_jax(causal, share):
+    """K6's plain forward against JAX's `_packed_fwd_kernel` (interpret
+    mode) in bf16 at B1 S256 H2 D32: P rounded to v's dtype before P·V on
+    both sides (measured: 0.93 causal, 0.81 not; 0.63 and 0.60 with P kept
+    f32). The rest is not rounding: the packed reference takes each row's
+    max in one pass over all its keys, the plain version (K2's, over
+    128-key tiles) a running max, so P is rounded relative to another max
+    wherever the second tile raises it; more rows see a second tile when
+    nothing is masked. lse within 2e-6."""
+    b, s, h, d = 1, 256, 2, 32
+    qkv = _qkv_packed(7 + causal, b, s, h, d)
+    want_o, res = jax_packed_fwd(jnp.asarray(qkv, jnp.bfloat16), h, 1.0 / math.sqrt(d), causal)
+    got_o, got_lse = flash_attention_packed_fwd(
+        torch.from_numpy(qkv).bfloat16(), h, causal=causal)
+    assert got_o.dtype == torch.bfloat16
+    assert _bf16_share(got_o, want_o) >= share
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(res[2]), atol=2e-6)
 
 
 @pytest.mark.parametrize("s,block", [(256, 128), (128, None)])
