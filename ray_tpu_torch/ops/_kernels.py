@@ -22,7 +22,10 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("paged_attention", "flash_fwd", "flash_bwd", "flash_bwd_fused")
+KERNELS = (
+    "paged_attention", "flash_fwd", "flash_bwd", "flash_bwd_fused",
+    "attn_dissect", "attn_slim", "attn_subtile",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -100,7 +103,9 @@ def library(name: str, argtypes: Optional[Dict[str, list]] = None) -> ctypes.CDL
     """The loaded library for kernel `name`, built first if needed.
     `argtypes` maps each C entry point to its ctypes argument list
     (``c_void_p`` for every pointer and the stream: a bare Python int
-    would be passed as a 32-bit int and cut the pointer)."""
+    would be passed as a 32-bit int and cut the pointer), or to a pair
+    (argument list, return type) for an entry that returns something other
+    than a ``cudaError_t``."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -109,8 +114,9 @@ def library(name: str, argtypes: Optional[Dict[str, list]] = None) -> ctypes.CDL
                 build([name])
             lib = ctypes.CDLL(str(path))
             for fn, types in (argtypes or {}).items():
-                getattr(lib, fn).argtypes = types
-                getattr(lib, fn).restype = ctypes.c_int
+                args, ret = types if isinstance(types, tuple) else (types, ctypes.c_int)
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = ret
             _libs[name] = lib
         return lib
 

@@ -16,11 +16,16 @@
 //     products: dV += P^T dO and dK += dS^T q_scaled in registers, and the
 //     chunk's dS [32 x 64] goes through shared memory so that every thread
 //     sums dS K for D / 8 (query, dim) outputs, one after another (holding
-//     all D / 8 sums at once ran 8% slower on an H100), and adds them into
-//     an f32 dQ workspace [B*H, S, D] with atomicAdd (one add per output
-//     per key tile);
-//   * a second small launch (dq_finish_kernel) scales the workspace by
-//     sm_scale once and writes dQ in the input type through its strides.
+//     all D / 8 sums at once ran 8% slower on an H100), and stores them in
+//     the key tile's own slice of an f32 workspace of partial dQ sums: the
+//     tile's partial dQ of every query row it can see (rows from the tile's
+//     first key on when causal, all rows otherwise), one store per output;
+//   * a second small launch (dq_finish_kernel) sums each dQ element's
+//     partials in key-tile order, scales by sm_scale once and writes dQ in
+//     the input type through its strides. The order of every sum is fixed,
+//     so dQ, like dK and dV, is the same bit for bit from run to run (the
+//     reference's one program per head is deterministic too); atomics
+//     would order the adds as the blocks happen to be scheduled.
 // Rounding points are the reference's: P is rounded to dO's type before
 // dV = P^T dO; dS = P * (dP - delta) to q's type before dK and dQ; q is
 // prescaled as it is staged (its storage rounding), so dK carries sm_scale;
@@ -28,19 +33,30 @@
 //
 // Bound on this card: operations (10 * D flops per causal pair, as K7). This
 // first version runs its products on the CUDA cores in f32 (no wgmma, no
-// TMA), like K4 and K5; the atomics on dQ replace K4's second recompute of
-// the scores.
+// TMA), like K4 and K5; the partial dQ sums replace K4's second recompute of
+// the scores. Their workspace holds, per batch * head, 8,704 rows of D f32
+// at S = 1024 causal (16,384 non-causal): 214 MB at the training shape B8
+// H12 D64, written once and read once.
 #include "flash_bwd_common.cuh"
 
 using namespace rtt;
 
 namespace {
 
+// First row of key tile t's slice in one (batch * head)'s part of the
+// partial-dQ workspace: causal tile u holds the S - u * TILE query rows from
+// its first key on, a non-causal tile all S rows.
+__host__ __device__ __forceinline__ long long part_offset(int t, int S,
+                                                          int causal) {
+  const long long tl = t;
+  return causal ? tl * S - TILE * tl * (tl - 1) / 2 : tl * S;
+}
+
 template <typename T>
 struct FusedArgs {
   const T *q, *k, *v, *o, *dout;
   const float* lse;  // [B*H, S] f32
-  float* dq_acc;     // [B*H, S, D] f32 workspace, zeroed
+  float* dq_part;    // [B*H, part_offset(n_tiles), D] f32 partial dQ sums
   T *dk, *dv;
   View qv, kv, vv, ov, dov, dkv, dvv;
   int S, H, D;
@@ -81,9 +97,14 @@ __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(FusedArgs<T> a) {
   const T* qb = row_ptr(a.q, a.qv, b, 0, h);
   const T* db = row_ptr(a.dout, a.dov, b, 0, h);
   const Prescale<T> prescale{a.scale};
-  float* dq_rows = a.dq_acc + (size_t)bh * S * D;
+  // This tile's slice of partial dQ sums: query rows first_q .. S - 1.
   // Causal: query chunks wholly above the tile's first key see none of it.
-  for (int q0 = a.causal ? j0 : 0; q0 < S; q0 += KC) {
+  const int first_q = a.causal ? j0 : 0;
+  const int n_tiles = (S + TILE - 1) / TILE;
+  float* dq_rows = a.dq_part +
+                   ((size_t)bh * part_offset(n_tiles, S, a.causal) +
+                    part_offset(blockIdx.x, S, a.causal)) * D;
+  for (int q0 = first_q; q0 < S; q0 += KC) {
     __syncthreads();  // the previous chunk's dS and delta are consumed
     auto q_row = [&](int j) -> long long {
       return q0 + j < S ? (q0 + j) * a.qv.ss : -1;
@@ -147,14 +168,15 @@ __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(FusedArgs<T> a) {
       }
     }
     __syncthreads();  // the chunk's dS is in shared memory
-    // dQ[q0 + qo] += dS[qo, :] K over the tile's keys, for dims dd + 8 e.
+    // This tile's part of dQ[q0 + qo] = dS[qo, :] K over the tile's keys,
+    // for dims dd + 8 e, stored in its slice.
     if (qo < nq) {
       const float* ds_row = ds_c + qo * (TILE + 1);
-      float* out = dq_rows + (size_t)(q0 + qo) * D;
+      float* out = dq_rows + (size_t)(q0 + qo - first_q) * D;
       for (int d = dd; d < D; d += 8) {
         float acc = 0.f;
         for (int j = 0; j < n_keys; ++j) acc = fmaf(ds_row[j], k_s[j * D + d], acc);
-        atomicAdd(out + d, acc);
+        out[d] = acc;
       }
     }
   }
@@ -176,12 +198,15 @@ __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(FusedArgs<T> a) {
   }
 }
 
-// dQ = sm_scale * workspace, in the input type, through dQ's strides.
+// dQ = sm_scale * (the sum of the key tiles' partials, in tile order), in
+// the input type, through dQ's strides.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    dq_finish_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq,
+    dq_finish_kernel(const float* __restrict__ dq_part, T* __restrict__ dq,
                      long long total, int S, int H, int D, View w,
-                     float scale) {
+                     float scale, int causal) {
+  const int n_tiles = (S + TILE - 1) / TILE;
+  const long long per_bh = part_offset(n_tiles, S, causal);
   for (long long idx = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
        idx < total; idx += static_cast<long long>(gridDim.x) * THREADS) {
     const int d = static_cast<int>(idx % D);
@@ -189,13 +214,18 @@ __global__ void __launch_bounds__(THREADS)
     const int i = static_cast<int>(row % S);
     const long long bh = row / S;
     const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
-    dq[b * w.sb + i * w.ss + h * w.sh + d] = from_f32<T>(dq_acc[idx] * scale);
+    const float* part = dq_part + bh * per_bh * D + d;
+    const int last = causal ? i / TILE : n_tiles - 1;
+    float acc = 0.f;
+    for (int t = 0; t <= last; ++t)
+      acc += part[(part_offset(t, S, causal) + i - (causal ? t * TILE : 0)) * D];
+    dq[b * w.sb + i * w.ss + h * w.sh + d] = from_f32<T>(acc * scale);
   }
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, float* dq_acc, void* dq,
+           const void* dout, const void* lse, float* dq_part, void* dq,
            void* dk, void* dv, int B, int S, int H, int D,
            const long long* st, float scale, int causal, cudaStream_t stream) {
   FusedArgs<T> a;
@@ -205,7 +235,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   a.o = static_cast<const T*>(o);
   a.dout = static_cast<const T*>(dout);
   a.lse = static_cast<const float*>(lse);
-  a.dq_acc = dq_acc;
+  a.dq_part = dq_part;
   a.dk = static_cast<T*>(dk);
   a.dv = static_cast<T*>(dv);
   View* views[7] = {&a.qv, &a.kv, &a.vv, &a.ov, &a.dov, &a.dkv, &a.dvv};
@@ -218,8 +248,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   a.causal = causal;
 
   const long long total = static_cast<long long>(B) * H * S * D;
-  cudaError_t err = cudaMemsetAsync(dq_acc, 0, sizeof(float) * total, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err;
   const size_t smem = sizeof(float) * (2 * TILE * D + 2 * KC * (D + 1) +
                                        KC * (TILE + 1) + KC);
   if (smem > 48 * 1024) {
@@ -234,24 +263,32 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (total + THREADS - 1) / THREADS;
   dq_finish_kernel<T><<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535),
-                        THREADS, 0, stream>>>(dq_acc, static_cast<T*>(dq),
-                                              total, S, H, D, dqv, scale);
+                        THREADS, 0, stream>>>(dq_part, static_cast<T*>(dq),
+                                              total, S, H, D, dqv, scale,
+                                              causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Rows of the partial-dQ workspace per (batch * head): the wrapper
+// allocates B*H times this many rows of D f32.
+extern "C" long long flash_bwd_fused_workspace_rows(int S, int causal) {
+  return part_offset((S + TILE - 1) / TILE, S, causal);
+}
+
 // dtype: 0 = float32, 1 = bfloat16. q (not prescaled), k, v, o, dout:
 // [B, S, H, D] inputs with a unit last-dim stride; lse: [B*H, S] f32;
-// dq_acc: an f32 workspace of B*H*S*D elements (zeroed here); dq, dk, dv are
-// written through their strides. st: 24 element strides, (batch, seq, head)
-// of q, k, v, o, dout, dk, dv, dq in that order. Two launches on `stream`
-// (the pass over the pairs, then dQ's scale and cast), after a memset of the
-// workspace. Returns cudaGetLastError().
+// dq_part: an f32 workspace of B*H*flash_bwd_fused_workspace_rows(S,
+// causal)*D elements (every element is written before it is read); dq, dk,
+// dv are written through their strides. st: 24 element strides, (batch,
+// seq, head) of q, k, v, o, dout, dk, dv, dq in that order. Two launches on
+// `stream` (the pass over the pairs, then the sum of dQ's partials with its
+// scale and cast). Returns cudaGetLastError().
 extern "C" int flash_bwd_fused_launch(int dtype, const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
-                                      void* dq_acc, void* dq, void* dk,
+                                      void* dq_part, void* dq, void* dk,
                                       void* dv, int B, int S, int H, int D,
                                       const long long* st, float scale,
                                       int causal, void* stream) {
@@ -259,12 +296,12 @@ extern "C" int flash_bwd_fused_launch(int dtype, const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();  // clear a stale non-sticky error from earlier work
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* acc = static_cast<float*>(dq_acc);
+  float* part = static_cast<float*>(dq_part);
   if (dtype == 0)
-    return launch<float>(q, k, v, o, dout, lse, acc, dq, dk, dv, B, S, H, D,
+    return launch<float>(q, k, v, o, dout, lse, part, dq, dk, dv, B, S, H, D,
                          st, scale, causal, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, dout, lse, acc, dq, dk, dv, B, S,
-                                 H, D, st, scale, causal, s);
+    return launch<__nv_bfloat16>(q, k, v, o, dout, lse, part, dq, dk, dv, B,
+                                 S, H, D, st, scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

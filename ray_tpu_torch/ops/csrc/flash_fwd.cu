@@ -16,7 +16,8 @@
 // the tensor cores to come near either, and the loads have to overlap them.
 //
 // bf16 (flash_fwd_mma_kernel<D>, D in {32, 64, 128}): a FlashAttention-2
-// style kernel on mma.sync, ldmatrix and cp.async.
+// style kernel on mma.sync, ldmatrix and cp.async, built from the tile steps
+// of attn_tiles.cuh (shared with the profiling kernels K8-K10).
 //   * one block of 4 warps per (batch * head, tile of 64 query rows); each
 //     warp owns 16 rows. Causal grids launch the heaviest (last) query tiles
 //     first: blockIdx.x walks batch * head fastest, and blockIdx.y counts the
@@ -59,7 +60,7 @@
 // of the packed qkv projection needs no transpose, write O as [B, S, H, D]
 // and the per-row logsumexp as [B*H, S] f32 (the TPU kernel's 8 padded rows
 // are gone).
-#include "attn_common.cuh"
+#include "attn_tiles.cuh"
 
 using namespace rtt;
 
@@ -164,94 +165,16 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 
 // ------------------------------------------- bf16: tensor-core kernel
 
-using bf16 = __nv_bfloat16;
-
 constexpr int MMA_WARPS = 4;
 constexpr int BM = 16 * MMA_WARPS;  // query rows per block: 16 per warp
 constexpr int BN = 64;              // keys per K / V tile
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
-constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy from global to shared memory; with `valid`
-// false nothing is read and the 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8, and receives row (l / 4), elements 2 (l % 4) and + 1 of each.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-// The same, transposed: lane l receives rows 2 (l % 4) and + 1, column l / 4.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// d += a b for one m16n8k16 tile: bf16 operands, f32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 values rounded to nearest-even bf16, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
-  return fmaxf(x, __shfl_xor_sync(FULL, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(FULL, x, 1);
-  return x + __shfl_xor_sync(FULL, x, 2);
-}
-
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  // q [BM][D + 8], then two stages each of K and V [BN][D + 8].
-  return sizeof(bf16) * (BM + 4 * BN) * (D + 8);
-}
-
-// Fragment layouts (m16n8k16, per lane: g = lane / 4, t = lane % 4): an
-// accumulator tile holds rows g (elements 0, 1) and g + 8 (2, 3), columns
-// 2t and 2t + 1; an A fragment holds rows g, g + 8 and columns 2t, 2t + 1,
-// 2t + 8, 2t + 9 of its 16 x 16 tile. Blocks per SM asked of
+// The tile steps are attn_tiles.cuh's. Blocks per SM asked of
 // __launch_bounds__: at D <= 64 four (16 warps), which holds ptxas to 128
-// registers a thread; at D = 128 shared memory (87 KB a block) allows two,
-// and a register cap would spill.
+// registers a thread (at D = 64 it spills about 40 bytes there, at no
+// measured cost: PERF.md, K2's row); at D = 128 shared memory (87 KB a
+// block) allows two, and a register cap would spill.
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS, (D <= 64 ? 4 : 1))
     flash_fwd_mma_kernel(
@@ -260,11 +183,7 @@ __global__ void __launch_bounds__(MMA_THREADS, (D <= 64 ? 4 : 1))
         float* __restrict__ lse, int S, int H, long long qsb, long long qss,
         long long qsh, long long ksb, long long kss, long long ksh,
         long long vsb, long long vss, long long vsh, float scale, int causal) {
-  constexpr int LD = D + 8;      // padded row, in elements (16 bytes more)
-  constexpr int CPR = D / 8;     // 16-byte chunks per row
-  constexpr int KSTEPS = D / 16;  // k-steps of Q K^T
-  constexpr int NT = BN / 8;     // 8-key accumulator tiles of S
-  constexpr int DT = D / 8;      // 8-wide accumulator tiles of O
+  constexpr int LD = tile_ld<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [BM][LD]
   bf16* k_s = q_s + BM * LD;                      // [2][BN][LD]
@@ -273,196 +192,52 @@ __global__ void __launch_bounds__(MMA_THREADS, (D <= 64 ? 4 : 1))
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int i0 = qt * BM;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const bf16* qb = q + b * qsb + h * qsh;
-  const bf16* kb = k + b * ksb + h * ksh;
-  const bf16* vb = v + b * vsb + h * vsh;
-
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = i0 + warp * 16 + (lane >> 2);  // rows row0, row0 + 8
+  const KVRows kv{k + b * ksb + h * ksh, v + b * vsb + h * vsh, kss, vss, S};
   const int k_end = causal ? min(S, i0 + BM) : S;
   const int n_tiles = (k_end + BN - 1) / BN;
 
-  auto load_kv = [&](int tile, int stage) {
-    const int k0 = tile * BN;
-    bf16* ks = k_s + stage * BN * LD;
-    bf16* vs = v_s + stage * BN * LD;
-#pragma unroll
-    for (int c = tid; c < BN * CPR; c += MMA_THREADS) {
-      const int r = c / CPR, col = (c % CPR) * 8, j = k0 + r;
-      const bool valid = j < S;
-      const long long jr = valid ? j : 0;
-      cp_async16(ks + r * LD + col, kb + jr * kss + col, valid);
-      cp_async16(vs + r * LD + col, vb + jr * vss + col, valid);
-    }
-  };
-  load_kv(0, 0);
+  // Tile 0 of K and V is in flight while q is staged, prescaled and rounded
+  // to bf16 as the reference rounds it.
+  start_tile_copy<BN, D, MMA_THREADS, true>(kv, 0, 0, k_s, v_s);
   cp_async_commit();
+  uint32_t qf[D / 16][4];
+  load_q_frags<BM, D, MMA_THREADS>(qf, q_s, q + b * qsb + h * qsh, qss, i0, S,
+                                   scale, warp, lane);
 
-  // q, prescaled and rounded to bf16 as it is staged (rows past S: zeros).
+  float o[D / 8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int c = tid; c < BM * CPR; c += MMA_THREADS) {
-    const int r = c / CPR, col = (c % CPR) * 8, i = i0 + r;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (i < S)
-      raw = __ldg(reinterpret_cast<const uint4*>(qb + i * qss + col));
-    bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-    for (int x = 0; x < 8; ++x)
-      e[x] = __float2bfloat16(__bfloat162float(e[x]) * scale);
-    *reinterpret_cast<uint4*>(q_s + r * LD + col) = raw;
-  }
-  __syncthreads();
-  uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk)
-    ldmatrix_x4(qf[kk],
-                q_s + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-
-  float o[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  const int row0 = i0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) load_kv(tile + 1, (tile + 1) & 1);
-    cp_async_commit();  // possibly empty: keeps the group count uniform
-    cp_async_wait<1>();  // this tile has landed
-    __syncthreads();
-    const bf16* ks = k_s + (tile & 1) * BN * LD;
-    const bf16* vs = v_s + (tile & 1) * BN * LD;
-
-    // S = Q K^T: 16 rows x 64 keys per warp.
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int jn = 0; jn < NT / 2; ++jn) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, ks + (jn * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                            kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * jn], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * jn + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
-
-    // Only tiles that reach past the block's first row (the causal
-    // diagonal) or past S are masked: a masked score becomes -inf, and
-    // since every row's max is finite from the first tile on (key 0 is
-    // visible to every row), its P is exp2(-inf) = 0 exactly.
-    const int k0 = tile * BN;
-    if ((causal && k0 + BN > i0 + 1) || k0 + BN > S) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + j * 8 + 2 * t4 + (e & 1);
-          const int row = row0 + (e >> 1) * 8;
-          if (key >= S || (causal && key > row)) s[j][e] = -INFINITY;
-        }
-    }
-
-    // Online softmax on the accumulator fragments: P = exp2(s log2(e) -
-    // m log2(e)), one FFMA and one MUFU.EX2 per element.
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    float alpha[2], ms[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      alpha[r] = exp2f((m[r] - mx[r]) * LOG2E);
-      m[r] = mx[r];
-      ms[r] = mx[r] * LOG2E;
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(fmaf(s[j][e], LOG2E, -ms[e >> 1]));
-        s[j][e] = p;
-        rs[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      o[d][0] *= alpha[0];
-      o[d][1] *= alpha[0];
-      o[d][2] *= alpha[1];
-      o[d][3] *= alpha[1];
-    }
-
-    // O += P V, P rounded to bf16 in registers as the A fragment.
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int jd = 0; jd < D / 16; ++jd) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vs + (kk * 16 + (lane & 15)) * LD + jd * 16 +
-                                  (lane >> 4) * 8);
-        mma_bf16(o[2 * jd], pa, vf[0], vf[1]);
-        mma_bf16(o[2 * jd + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // this stage is consumed before it is refilled
-  }
-
-  // Epilogue: l summed across the quad, O / l rounded to bf16, staged in
-  // this warp's own rows of q_s (read into registers before the loop).
-  float safe[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = quad_sum(l[r]);
-    safe[r] = l[r] == 0.f ? 1.f : l[r];
-  }
-  bf16* os = q_s + warp * 16 * LD;
-#pragma unroll
-  for (int d = 0; d < DT; ++d) {
-    const int col = d * 8 + 2 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(os + g * LD + col) =
-        __floats2bfloat162_rn(o[d][0] / safe[0], o[d][1] / safe[0]);
-    *reinterpret_cast<__nv_bfloat162*>(os + (g + 8) * LD + col) =
-        __floats2bfloat162_rn(o[d][2] / safe[1], o[d][3] / safe[1]);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int c = lane; c < 16 * CPR; c += 32) {
-    const int r = c / CPR, col = (c % CPR) * 8, i = i0 + warp * 16 + r;
-    if (i < S)
-      *reinterpret_cast<uint4*>(out + (((size_t)b * S + i) * H + h) * D + col) =
-          *reinterpret_cast<const uint4*>(os + r * LD + col);
-  }
-  if (t4 == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = row0 + 8 * r;
-      if (i < S) lse[(size_t)bh * S + i] = m[r] + logf(safe[r]);
-    }
-  }
+  for (int d = 0; d < D / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  sweep_tiles<BN, D, MMA_THREADS, true>(
+      kv, n_tiles, k_s, v_s, true,
+      [&](int tile, const bf16* ks, const bf16* vs) {
+        float s[BN / 8][4];
+        qk_tile<D, BN>(s, qf, ks, lane);
+        // Only tiles that reach past the block's first row (the causal
+        // diagonal) or past S are masked: a masked score becomes -inf, and
+        // since every row's max is finite from the first tile on (key 0 is
+        // visible to every row), its P is exp2(-inf) = 0 exactly.
+        const int k0 = tile * BN;
+        if ((causal && k0 + BN > i0 + 1) || k0 + BN > S)
+          mask_tile<BN>(s, k0, row0, lane, S, causal, -INFINITY);
+        online_softmax_tile<D, BN>(s, m, l, o);
+        pv_tile<D, BN>(o, s, vs, lane);
+      });
+  finish_row_sums(l);
+  const int w0 = i0 + warp * 16;  // this warp's first row
+  store_rows<D>(out + (((size_t)b * S + w0) * H + h) * D, (long long)H * D,
+                S - w0, o, l, q_s + warp * 16 * LD, lane);
+  store_lse(lse + (size_t)bh * S, row0, S, m, l, lane);
 }
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int S, int H, const long long* st,
                float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  constexpr size_t smem = tiles_smem_bytes<BM, BN, D>();
+  const cudaError_t err = allow_smem(flash_fwd_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + BM - 1) / BM);
   flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),

@@ -17,9 +17,9 @@ other dK and dV over the query tiles, each recomputing P from the saved
 logsumexp. When one block covers the whole sequence (the reference's rule,
 `_pick_block`), `flash_attention`'s gradient is the one-pass backward K3
 (``csrc/flash_bwd_fused.cu``) instead: one recompute of P per pair feeds
-dQ, dK and dV, delta is computed inside it, and dQ is summed over the key
-tiles with atomics. No S x S matrix reaches device memory in either
-direction.
+dQ, dK and dV, delta is computed inside it, and dQ's partials of the key
+tiles are summed in a fixed order. No S x S matrix reaches device memory in
+either direction.
 
 Every kernel reads its operands through (batch, seq, head) strides, so the
 head split of the packed qkv projection costs no transpose, and the packed
@@ -73,11 +73,13 @@ _FUSED_ARGTYPES = {
     + [ctypes.c_void_p] * 10
     + [ctypes.c_int] * 4
     + [_STRIDES, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "flash_bwd_fused_workspace_rows": ([ctypes.c_int, ctypes.c_int], ctypes.c_longlong),
 }
 
-# Key-tile width of the plain blockwise versions (any width gives the same
-# result up to f32 summation order).
-_REF_BLOCK_K = 128
+# Key-tile width of the plain blockwise backward. P comes from the saved
+# lse there, not from a running max, so the width changes only the f32
+# summation order of dQ.
+_BWD_BLOCK_K = 128
 
 
 def _scale(sm_scale: Optional[float], d: int) -> float:
@@ -120,21 +122,26 @@ def flash_attention_reference(
     *,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain blockwise version of the forward kernel: same prescaling, same
-    online-softmax recurrence over key tiles in f32, and P rounded to v's
-    dtype before P·V where the reference's `_fwd_kernel` rounds it (exact
-    in f32); l sums the unrounded P. q,k,v [B, S, H, D] → (O [B, S, H, D]
-    in q's dtype, lse [B*H, S] f32)."""
+    online-softmax recurrence over key tiles of `block_k` keys in f32, and P
+    rounded to v's dtype before P·V where the reference's `_fwd_kernel`
+    rounds it (exact in f32); l sums the unrounded P. P is rounded against
+    the running max of its tile, so the tile edges decide the bf16 bits:
+    `block_k` defaults to the reference's own (`_pick_block` of the key
+    length). q,k,v [B, S, H, D] → (O [B, S, H, D] in q's dtype, lse
+    [B*H, S] f32)."""
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
+    bk = max(min(_pick_block(s_k) if block_k is None else block_k, s_k), 1)
     qf = _heads_first(_prescale(q, _scale(sm_scale, d)))  # [B, H, Sq, D]
     kf, vf = _heads_first(k), _heads_first(v)
     m = torch.full((b, h, s_q, 1), NEG_INF, device=q.device)
     l = torch.zeros((b, h, s_q, 1), device=q.device)
     acc = torch.zeros((b, h, s_q, d), device=q.device)
-    for k0 in range(0, s_k, _REF_BLOCK_K):
-        k1 = min(k0 + _REF_BLOCK_K, s_k)
+    for k0 in range(0, s_k, bk):
+        k1 = min(k0 + bk, s_k)
         s = qf @ kf[:, :, k0:k1].transpose(-1, -2)  # [B, H, Sq, bk]
         if causal:
             valid = _causal_mask(s_q, k0, k1, q.device)
@@ -172,8 +179,8 @@ def _bwd_tiles(q, k, v, do, lse, delta, causal, sm_scale):
     kf, vf, dof = _heads_first(k), _heads_first(v), _heads_first(do)
     lse = lse.reshape(b, h, s, 1)
     delta = delta.reshape(b, h, s, 1)
-    for k0 in range(0, s, _REF_BLOCK_K):
-        k1 = min(k0 + _REF_BLOCK_K, s)
+    for k0 in range(0, s, _BWD_BLOCK_K):
+        k1 = min(k0 + _BWD_BLOCK_K, s)
         scores = qs @ kf[:, :, k0:k1].transpose(-1, -2)
         p = torch.exp(scores - lse)
         if causal:
@@ -262,10 +269,14 @@ def flash_attention_packed_reference(
     sm_scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the packed forward (K6): qkv [B, S, 3E] →
-    (O [B, S, E], lse [B, H, S] f32)."""
+    (O [B, S, E], lse [B, H, S] f32). Each row's max is taken in one pass
+    over all its keys, as the reference's `_packed_fwd_kernel` takes it
+    (one key tile of the whole length)."""
     q, k, v = _packed_views(qkv, num_heads)
     b, s, h, d = q.shape
-    o, lse = flash_attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+    o, lse = flash_attention_reference(
+        q, k, v, causal=causal, sm_scale=sm_scale, block_k=max(s, 1)
+    )
     return o.reshape(b, s, h * d), lse.view(b, h, s)
 
 
@@ -380,14 +391,18 @@ def flash_attention_fwd(
     *,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward kernel wrapper (K2): (O [B, S, H, D], lse [B*H, S] f32) from
     q, k, v [B, S, H, D] read through their strides; q is prescaled in the
-    kernel. CUDA tensors launch the kernel (or raise); CPU tensors run
-    `flash_attention_reference`."""
+    kernel. CUDA tensors launch the kernel (or raise), which walks its own
+    64-key tiles; CPU tensors run `flash_attention_reference` with key
+    tiles of `block_k` (default: the reference's)."""
     _refuse_graph("flash_attention_fwd", q, k, v)
     if _on_cpu(q):
-        return flash_attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+        return flash_attention_reference(
+            q, k, v, causal=causal, sm_scale=sm_scale, block_k=block_k
+        )
     _check_kernel_inputs(q, k=k, v=v)
     _check_fwd_head_dim(q)
     b, s, h, d = q.shape
@@ -557,7 +572,9 @@ def flash_attention_bwd_fused(
     """One-pass backward kernel wrapper (K3): (dq, dk, dv) [B, S, H, D] from
     the forward's inputs (strided views), O and lse [B*H, S], with delta
     computed inside the kernel. Two launches (the pass over the pairs, which
-    adds dQ into an f32 workspace with atomics, then dQ's scale and cast).
+    stores each key tile's partial dQ in its own slice of an f32 workspace,
+    then the sum of the partials in key-tile order with dQ's scale and
+    cast), so every output is the same bit for bit from run to run.
     dO may come in any layout; it is made contiguous here. CPU tensors run
     `flash_attention_bwd_fused_reference`."""
     _refuse_graph("flash_attention_bwd_fused", q, k, v, o, do)
@@ -572,8 +589,9 @@ def flash_attention_bwd_fused(
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
     if b * s == 0:
         return dq, dk, dv
-    workspace = torch.empty((b * h, s, d), dtype=torch.float32, device=q.device)
     lib = _kernels.library("flash_bwd_fused", _FUSED_ARGTYPES)
+    rows = lib.flash_bwd_fused_workspace_rows(s, int(causal))
+    workspace = torch.empty((b * h, rows, d), dtype=torch.float32, device=q.device)
     err = lib.flash_bwd_fused_launch(
         _kernels.dtype_code(q.dtype),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
@@ -625,8 +643,10 @@ flash_attention_packed_bwd.launches = 0
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, single_block):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+    def forward(ctx, q, k, v, causal, sm_scale, block_k, single_block):
+        o, lse = flash_attention_fwd(
+            q, k, v, causal=causal, sm_scale=sm_scale, block_k=block_k
+        )
         # Residuals in the kernels' layout: the strided views as given (no
         # prescaled or transposed copy), O and lse.
         ctx.save_for_backward(q, k, v, o, lse)
@@ -643,7 +663,7 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = bwd(
             q, k, v, o, do, lse, causal=ctx.causal, sm_scale=ctx.sm_scale
         )
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 class _PackedFlashAttention(torch.autograd.Function):
@@ -681,7 +701,9 @@ def flash_attention(
     reference's do (default `_pick_block`; an explicit block must divide the
     sequence) and choose the backward as the reference's blocks choose
     theirs: one block over the whole sequence takes the one-pass backward
-    (K3), anything else K4 + K5. The kernels' tiles are their own."""
+    (K3), anything else K4 + K5. On the CPU the plain forward walks key
+    tiles of block_k, so it rounds P where the reference does; the
+    kernels' tiles are their own."""
     s_q, s_k = q.shape[1], k.shape[1]
     bq = min(_pick_block(s_q) if block_q is None else block_q, s_q)
     bk = min(_pick_block(s_k) if block_k is None else block_k, s_k)
@@ -689,7 +711,9 @@ def flash_attention(
         raise ValueError(
             f"seq lengths ({s_q},{s_k}) must be divisible by blocks ({bq},{bk})"
         )
-    return _FlashAttention.apply(q, k, v, causal, sm_scale, single_block(s_q, s_k, bq, bk))
+    return _FlashAttention.apply(
+        q, k, v, causal, sm_scale, bk, single_block(s_q, s_k, bq, bk)
+    )
 
 
 def single_block(s_q: int, s_k: int, block_q: int, block_k: int) -> bool:

@@ -27,6 +27,7 @@ from ray_tpu_torch.ops import (
     paged_flash_attention,
     quantize_kv,
 )
+from ray_tpu_torch.ops import attn_profile as ap
 from ray_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_fused,
     flash_attention_bwd_fused_reference,
@@ -41,8 +42,9 @@ from ray_tpu_torch.ops.flash_attention import (
 
 # f32: the kernel and the plain version differ in summation order only.
 # bf16: the kernels round P (and, backward, dS) where the plain versions do,
-# but the bf16 forward walks 64-key tiles against the plain version's 128,
-# so P is rounded against another running max here and there, and
+# but the bf16 forward walks 64-key tiles against the plain version's (the
+# reference's: up to 1024 keys), so P is rounded against another running
+# max here and there, and
 # summation order flips a bf16 rounding here and there. Gradients are held
 # relative to their largest magnitude (they sum over up to S rows).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -234,7 +236,8 @@ def test_autograd_launches_the_kernels(cuda):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s,d", [(200, 64), (96, 32), (256, 64)])
 def test_fused_backward_kernel_matches_plain(cuda, dtype, causal, s, d):
-    """K3 (the one-pass backward, delta inside, dQ by atomics) against its
+    """K3 (the one-pass backward, delta inside, dQ by fixed-order sums of
+    the key tiles' partials) against its
     plain version on the strided q/k/v views of a packed projection; S = 200
     and 96 end in a partial 64-row key tile."""
     qkv, do = _packed(cuda, dtype, s=s, d=d, seed=4)
@@ -272,11 +275,11 @@ def test_single_block_gradient_runs_k3_not_k4_k5(cuda):
         _assert_close(t.grad, g, torch.float32)
 
 
-def _assert_limits(got, want, what):
+def _assert_limits(got, want, what, per_row=False):
     """chip_smoke.py's check of a kernel output against its plain version:
     relative L2 and per-element rounding steps plus a floor of the RMS, by
-    the output's dtype (LIMITS)."""
-    out = chip_smoke.compare(got, want)
+    the output's dtype (LIMITS); with `per_row`, each row's own scale too."""
+    out = chip_smoke.compare(got, want, per_row)
     lim = chip_smoke.LIMITS[want.dtype]
     assert out["rel_l2"] <= lim["rel_l2"] and out["floor_rms"] <= lim["floor_rms"], (
         what, out, lim)
@@ -336,3 +339,141 @@ def test_bf16_forward_refuses_head_dims_it_was_not_built_for(cuda):
             torch.cuda.synchronize()
             _assert_limits(o, want_o, "o")
             _assert_limits(lse, want_lse, "lse")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_backward_is_the_same_bit_for_bit_twice(cuda, dtype, causal):
+    """K3 run twice on the same inputs gives dq, dk and dv bit for bit: the
+    key tiles' partial dQ sums are added in a fixed order, not by atomics.
+    B2 S1000 H4 D64 (a partial last key tile)."""
+    qkv, do = _packed(cuda, dtype, b=2, s=1000, seed=6)
+    q, k, v = (t.unflatten(-1, (4, 64)) for t in qkv.split(256, dim=-1))
+    do = do.unflatten(-1, (4, 64))
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    first = flash_attention_bwd_fused(q, k, v, o, do, lse, causal=causal)
+    second = flash_attention_bwd_fused(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _bhsd(device, s, d=64, bh=6, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(bh, s, d, generator=g, device=device).to(torch.bfloat16)
+            for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [128, 1024])
+@pytest.mark.parametrize("level,two_heads", [
+    (0, False), (1, False), (2, False), (3, False), (4, False), (3, True),
+])
+def test_dissect_kernel_matches_plain(cuda, s, level, two_heads):
+    """K8 at every level and the two-head variant against its plain version
+    by chip_smoke's LIMITS (relative to the output's RMS, which reaches
+    ~1e31 at levels 1-2; there each row is also held to its own RMS, so
+    the rows with no masked key, ~1e2, are checked too)."""
+    q, k, v = _bhsd(cuda, s, seed=level)
+    before = ap.attn_dissect.launches
+    got = ap.attn_dissect(q, k, v, level, two_heads=two_heads)
+    assert ap.attn_dissect.launches == before + 1
+    want = ap.attn_dissect_reference(q, k, v, level, two_heads=two_heads)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _assert_limits(got, want, ("K8", level, two_heads),
+                   per_row=level in (1, 2) and not two_heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [128, 1024])
+@pytest.mark.parametrize("block_q,block_k", [(64, 64), (64, 128), (128, 64), (128, 128)])
+@pytest.mark.parametrize("d", [32, 64])
+def test_slim_kernel_matches_plain(cuda, s, block_q, block_k, d):
+    """K9 at every tile against its plain version with block_k = the
+    kernel's key tile: O and lse by LIMITS."""
+    q, k, v = _bhsd(cuda, s, d=d, seed=block_q + block_k)
+    o, lse = ap.flash_fwd_slim(q, k, v, block_q=block_q, block_k=block_k)
+    want_o, want_lse = ap.flash_fwd_slim_reference(q, k, v, block_k=block_k)
+    torch.cuda.synchronize()
+    _assert_limits(o, want_o, ("K9", "o"))
+    _assert_limits(lse, want_lse, ("K9", "lse"))
+
+
+@pytest.mark.cuda
+def test_slim_prescale_is_the_plain_prescale(cuda):
+    """K9's wrapper prescales q in one pass (bf16 times the scale); on the
+    card that gives the bits of the plain versions' `_prescale` (f32
+    product, one rounding)."""
+    from ray_tpu_torch.ops.flash_attention import _prescale
+
+    q = _bhsd(cuda, 1024)[0] * 3
+    for scale in (0.125, 64 ** -0.5, 32 ** -0.5, 0.3):
+        assert torch.equal(q * scale, _prescale(q, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [128, 1024])
+@pytest.mark.parametrize("T", [2, 4, 8])
+def test_subtile_kernel_matches_plain(cuda, s, T):
+    """K10 at every T against its plain version: O and lse by LIMITS. At
+    S128 only T = 2 cuts whole 64-row tiles; T = 4 and 8 are refused."""
+    q, k, v = _bhsd(cuda, s, seed=T)
+    if (s // T) % 64:
+        with pytest.raises(ValueError, match="whole 64-row tiles"):
+            ap.attn_subtile(q, k, v, T)
+        return
+    o, lse = ap.attn_subtile(q, k, v, T)
+    want_o, want_lse = ap.attn_subtile_reference(q, k, v, T)
+    torch.cuda.synchronize()
+    _assert_limits(o, want_o, ("K10", "o"))
+    _assert_limits(lse, want_lse, ("K10", "lse"))
+
+
+@pytest.mark.cuda
+def test_profiling_kernels_refuse_what_they_cannot_take(cuda):
+    """Each wrapper raises on a CUDA tensor its kernel cannot take: f32, a
+    head_dim outside {32, 64}, an S its tiles do not divide, inputs that
+    require grad; nothing falls back to the plain version."""
+    calls = {
+        "K8": lambda q, k, v: ap.attn_dissect(q, k, v, 4),
+        "K9": lambda q, k, v: ap.flash_fwd_slim(q, k, v, block_q=128),
+        "K10": lambda q, k, v: ap.attn_subtile(q, k, v, 2),
+    }
+    counts = (ap.attn_dissect.launches, ap.flash_fwd_slim.launches,
+              ap.attn_subtile.launches)
+    for name, call in calls.items():
+        q, k, v = _bhsd(cuda, 128)
+        with pytest.raises(ValueError, match="bf16"):
+            call(q.float(), k.float(), v.float())
+        with pytest.raises(ValueError, match="head_dim 128"):
+            call(*_bhsd(cuda, 128, d=128))
+        with pytest.raises(ValueError, match="not a multiple"):
+            call(*_bhsd(cuda, 96))
+        with pytest.raises(RuntimeError, match="autograd"):
+            call(q.requires_grad_(), k, v)
+    assert counts == (ap.attn_dissect.launches, ap.flash_fwd_slim.launches,
+                      ap.attn_subtile.launches)
+    with pytest.raises(ValueError, match="even BH"):
+        ap.attn_dissect(*_bhsd(cuda, 128, bh=3), 3, two_heads=True)
+
+
+@pytest.mark.cuda
+def test_slim_attention_gradient_matches_flash(cuda):
+    """`slim_attention` (K9 forward, K4 + K5 backward) against
+    `flash_attention` (K2, K3) at B2 S256 H4 D64 bf16: O and gradients
+    within the bf16 tolerance (the two forwards round P at other tile
+    edges)."""
+    qkv, do = _packed(cuda, torch.bfloat16, b=2, s=256, seed=7)
+    outs = []
+    for fn in (lambda a, b, c: ap.slim_attention(a, b, c, block_q=128, block_k=64),
+               lambda a, b, c: flash_attention(a, b, c, causal=True)):
+        x = [t.unflatten(-1, (4, 64)).detach().clone().requires_grad_()
+             for t in qkv.split(256, dim=-1)]
+        o = fn(*x)
+        o.backward(do.unflatten(-1, (4, 64)))
+        outs.append([o.detach()] + [t.grad for t in x])
+    torch.cuda.synchronize()
+    for got, want in zip(*outs):
+        _assert_close(got, want, torch.bfloat16)
