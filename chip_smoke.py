@@ -9,15 +9,16 @@ Phases, each fatal on failure:
   1. device  — the card's name and power limit (nvidia-smi) and torch's name;
   2. build   — compile every CUDA kernel from ray_tpu_torch/ops/csrc, and
      count the tensor-core instructions (HMMA / HGMMA, by cuobjdump) of the
-     bf16 forward kernel and of every profiling kernel (K8-K10): none fails
-     the run;
+     bf16 forward kernel, of the bf16 dQ and dK/dV kernels and of every
+     profiling kernel (K8-K10): none fails the run;
   3. kernels — hold each kernel against its plain PyTorch version at the
      serving and training paths' GPT-2 125M shapes (H=12, D=64), with stated
      tolerances; time kernel, plain version, the bound and, where one
      PyTorch call computes the same function, that call (a yardstick only);
-     K2 and K6 rows also print their achieved TFLOP/s and the time of the
-     CUDA-core forward they replaced (`earlier_ms`); K3 runs twice on the
-     same inputs and must give dq, dk and dv bit for bit;
+     K2, K4-K7 rows also print their achieved TFLOP/s, and K2 and K6 the
+     time of the CUDA-core forward they replaced (`earlier_ms`); K3, K4, K5
+     and K7 run twice on the same inputs and must give dq, dk and dv bit
+     for bit;
   4. profile — the profiling entry points (ray_tpu_torch.profiling:
      attn_dissect, attn_variants, attn_subtile) at the reference scripts'
      B24 S1024 H12 D64 bf16, each with its kernel's launch counter zeroed
@@ -202,17 +203,22 @@ def phase_build() -> None:
             log(f"[build]   {ln}")
     log(f"[build] total {time.perf_counter() - t0:.1f}s "
         f"({len(report)} compiled, {len(_kernels.KERNELS) - len(report)} cached)")
-    mma = tensor_core_instructions(_kernels, "flash_fwd")
-    log(f"[build] flash_fwd tensor-core instructions (cuobjdump): {json.dumps(mma)}")
-    bf16 = {fn: n for fn, n in mma.items() if "flash_fwd_mma_kernel" in fn}
-    if not bf16 or not all(bf16.values()):
-        fail(f"the bf16 forward kernel has no HMMA / HGMMA instruction: {bf16}")
-    # The profiling kernels (K8-K10) are tensor-core kernels throughout.
-    for lib in ("attn_dissect", "attn_slim", "attn_subtile"):
+    # The tensor-core kernels, by library and name: the bf16 forward (K2,
+    # K6), the bf16 dQ and dK/dV kernels (K4, K5, K7), and the profiling
+    # kernels (K8-K10) throughout ("" names every function). A name with no
+    # function, or a function with no HMMA / HGMMA instruction, fails.
+    for lib, names in (("flash_fwd", ("flash_fwd_mma_kernel",)),
+                       ("flash_bwd", ("flash_bwd_dq_mma_kernel",
+                                      "flash_bwd_dkv_mma_kernel")),
+                       ("attn_dissect", ("",)), ("attn_slim", ("",)),
+                       ("attn_subtile", ("",))):
         mma = tensor_core_instructions(_kernels, lib)
         log(f"[build] {lib} tensor-core instructions (cuobjdump): {json.dumps(mma)}")
-        if not mma or not all(mma.values()):
-            fail(f"a {lib} kernel has no HMMA / HGMMA instruction: {mma}")
+        for name in names:
+            found = {fn: n for fn, n in mma.items() if name in fn}
+            if not found or not all(found.values()):
+                fail(f"a {lib} kernel {name!r} has no HMMA / HGMMA instruction: "
+                     f"{found or mma}")
 
 
 def tensor_core_instructions(kernels, name: str) -> dict:
@@ -232,6 +238,15 @@ def tensor_core_instructions(kernels, name: str) -> dict:
         elif fn is not None and re.search(r"\bHG?MMA\b", line):
             counts[fn] += 1
     return counts
+
+
+def check_bitwise_repeat(rows: list, got: dict, again: dict, what: str) -> None:
+    """A second run on the same inputs must give every output bit for bit
+    (the kernels sum in a fixed order, with no atomics)."""
+    same = {n: torch.equal(again[n], got[n]) for n in got}
+    rows[-1]["bitwise_repeat"] = same
+    if not all(same.values()):
+        fail(f"{what}: a second run differs: {same}")
 
 
 def tflops(row: dict, flops: float) -> None:
@@ -393,12 +408,14 @@ def training_kernel_rows(gen, rows: list) -> None:
             plain = lambda: fa.flash_attention_packed_bwd_reference(
                 qkv, o, do, lse, H, causal=True)
             # dqkv held as its three column ranges: dq, dk, dv apart.
-            got, want = ({n: t for n, t in zip(("dq", "dk", "dv"), f().split(e, dim=-1))}
-                         for f in (kern, plain))
+            split = lambda t: dict(zip(("dq", "dk", "dv"), t.split(e, dim=-1)))
+            got, want = (split(f()) for f in (kern, plain))
             check_close(rows, "K7 flash_bwd_packed", got, want, label, **shape)
+            check_bitwise_repeat(rows, got, split(kern()), f"K7 {shape} {label}")
             sdpa_ms = sdpa_bwd_ms(q, k, v, do4)
             timed.append((kern, plain, sdpa_ms,
-                          bound(8 * bse + rows_f32, 10 * D * pairs + 2 * b * s * e, dtype)))
+                          bound(8 * bse + rows_f32, 10 * D * pairs + 2 * b * s * e, dtype),
+                          14 * D * pairs))
             # K2, the forward the trainer's "auto" path runs, on the strided
             # q / k / v views of the same projection (batch stride 3E): o
             # and lse apart. Its O and lse feed K3, K4 and K5 below, as the
@@ -419,11 +436,8 @@ def training_kernel_rows(gen, rows: list) -> None:
             check_close(rows, "K3 flash_bwd_fused", got, want, label, **shape)
             # dQ's partials are summed in a fixed order: a second run on
             # the same inputs gives every output bit for bit.
-            again = dict(zip(("dq", "dk", "dv"), kern()))
-            same = {n: torch.equal(again[n], got[n]) for n in got}
-            rows[-1]["bitwise_repeat"] = same
-            if not all(same.values()):
-                fail(f"K3 {shape} {label}: a second run differs: {same}")
+            check_bitwise_repeat(rows, got, dict(zip(("dq", "dk", "dv"), kern())),
+                                 f"K3 {shape} {label}")
             timed.append((kern, plain, sdpa_ms,
                           bound(8 * bse + rows_f32, 10 * D * pairs + 2 * b * s * e, dtype)))
         else:
@@ -432,23 +446,27 @@ def training_kernel_rows(gen, rows: list) -> None:
         args = (q, k, v, do4, lse4, delta)
         kern = lambda: fa.flash_bwd_dq(*args, causal=True)
         plain = lambda: fa.flash_bwd_dq_reference(*args, causal=True)
-        check_close(rows, "K4 flash_bwd_dq", {"dq": kern()}, {"dq": plain()}, label, **shape)
+        got = {"dq": kern()}
+        check_close(rows, "K4 flash_bwd_dq", got, {"dq": plain()}, label, **shape)
+        check_bitwise_repeat(rows, got, {"dq": kern()}, f"K4 {shape} {label}")
         lib_ms = sdpa_bwd_ms(q, k, v, do4)  # dQ, dK and dV together
         timed.append((kern, plain, lib_ms,
-                      bound(5 * bse + 2 * rows_f32, 6 * D * pairs, dtype)))
+                      bound(5 * bse + 2 * rows_f32, 6 * D * pairs, dtype), 6 * D * pairs))
         kern = lambda: fa.flash_bwd_dkv(*args, causal=True)
         plain = lambda: fa.flash_bwd_dkv_reference(*args, causal=True)
         got, want = (dict(zip(("dk", "dv"), f())) for f in (kern, plain))
         check_close(rows, "K5 flash_bwd_dkv", got, want, label, **shape)
+        check_bitwise_repeat(rows, got, dict(zip(("dk", "dv"), kern())),
+                             f"K5 {shape} {label}")
         timed.append((kern, plain, lib_ms,
-                      bound(6 * bse + 2 * rows_f32, 8 * D * pairs, dtype)))
+                      bound(6 * bse + 2 * rows_f32, 8 * D * pairs, dtype), 8 * D * pairs))
         torch.cuda.synchronize()
-        for row, (kern, plain, lib_ms, (bms, by), *fwd) in zip(rows[-len(timed):], timed):
+        for row, (kern, plain, lib_ms, (bms, by), *flops) in zip(rows[-len(timed):], timed):
             row.update(ms=time_ms(kern), plain_ms=time_ms(plain, reps=5),
                        library_ms=lib_ms, bound_ms=bms, bound_us=bms * 1e3,
                        bound_by=by)
-            if fwd:  # K2, K6: the forward's operations, 4 D per causal pair
-                tflops(row, fwd[0])
+            if flops:  # the products' operations per causal pair: K2 / K6 4 D,
+                tflops(row, flops[0])  # K4 6 D, K5 8 D, K7 14 D
             log(json.dumps(row))
         del qkv, do, q, k, v, do4, o4, lse4, delta, args
         torch.cuda.empty_cache()

@@ -1,11 +1,12 @@
-// The bf16 attention forwards' tile machinery, in one place: the forward
-// flash_fwd_mma_kernel (flash_fwd.cu: K2, K6) and the profiling kernels
-// (attn_dissect.cu: K8, attn_slim.cu: K9, attn_subtile.cu: K10) are built
-// from it. Warps of 16 query rows keep q in registers as m16n8k16 A
-// fragments; K and V tiles pass through a two-stage cp.async ring of rows
-// padded by 16 bytes; S = Q K^T and O += P V run on mma.sync with f32
-// accumulators, and P is packed to bf16 in registers as the A fragment of
-// P V.
+// The bf16 attention kernels' tile machinery, in one place: the forward
+// flash_fwd_mma_kernel (flash_fwd.cu: K2, K6), the blockwise backward
+// (flash_bwd.cu: K4, K5, K7) and the profiling kernels (attn_dissect.cu:
+// K8, attn_slim.cu: K9, attn_subtile.cu: K10) are built from it. Warps of
+// 16 query rows keep q in registers as m16n8k16 A fragments; K and V tiles
+// pass through a two-stage cp.async ring of rows padded by 16 bytes;
+// S = Q K^T and O += P V run on mma.sync with f32 accumulators, and P is
+// packed to bf16 in registers as the A fragment of P V. The backward runs
+// its five products as these two, on other operands.
 //
 // Operands are read through a row stride (the [B, S, H, D] layouts of the
 // forward, the packed qkv, or the profiling scripts' contiguous [BH, S, D])
@@ -34,15 +35,22 @@ struct KVRows {
   int n;
 };
 
-// Stage the block's BM query rows i0 .. i0 + BM - 1 of `qb` (row stride
-// `ld`; rows at or past n_rows are zeros) in q_s, each multiplied by
-// `scale` and rounded to bf16 (scale 1 leaves them as they are), and load
-// this warp's 16 rows as the A fragments of every k-step of Q K^T.
+// Eight bf16 values multiplied by `scale` and rounded to nearest-even bf16:
+// the reference's prescale of q, (q.f32 * scale).astype(bf16).
+__device__ __forceinline__ void scale_bf16x8(uint4& raw, float scale) {
+  bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+  for (int x = 0; x < 8; ++x)
+    e[x] = __float2bfloat16(__bfloat162float(e[x]) * scale);
+}
+
+// Stage the block's BM rows i0 .. i0 + BM - 1 of `qb` (row stride `ld`;
+// rows at or past n_rows are zeros) in q_s, each multiplied by `scale` and
+// rounded to bf16 (scale 1 leaves them as they are). The caller syncs.
 template <int BM, int D, int THREADS>
-__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[D / 16][4],
-                                             bf16* q_s, const bf16* qb,
-                                             long long ld, int i0, int n_rows,
-                                             float scale, int warp, int lane) {
+__device__ __forceinline__ void stage_tile_rows(bf16* q_s, const bf16* qb,
+                                                long long ld, int i0,
+                                                int n_rows, float scale) {
   constexpr int LD = tile_ld<D>(), CPR = D / 8;
 #pragma unroll
   for (int c = threadIdx.x; c < BM * CPR; c += THREADS) {
@@ -50,17 +58,35 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[D / 16][4],
     uint4 raw = make_uint4(0u, 0u, 0u, 0u);
     if (i < n_rows)
       raw = __ldg(reinterpret_cast<const uint4*>(qb + i * ld + col));
-    bf16* e = reinterpret_cast<bf16*>(&raw);
-#pragma unroll
-    for (int x = 0; x < 8; ++x)
-      e[x] = __float2bfloat16(__bfloat162float(e[x]) * scale);
+    scale_bf16x8(raw, scale);
     *reinterpret_cast<uint4*>(q_s + r * LD + col) = raw;
   }
-  __syncthreads();
+}
+
+// The m16n8k16 A fragments of every k-step over D of the 16 rows from
+// `row0` of a staged tile (row stride tile_ld<D>()), by ldmatrix.
+template <int D>
+__device__ __forceinline__ void warp_a_frags(uint32_t (&af)[D / 16][4],
+                                             const bf16* tile, int row0,
+                                             int lane) {
+  constexpr int LD = tile_ld<D>();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+    ldmatrix_x4(af[kk], tile + (row0 + (lane & 15)) * LD + kk * 16 +
                             (lane >> 4) * 8);
+}
+
+// Stage the block's BM query rows in q_s (stage_tile_rows, prescaled by
+// `scale`) and load this warp's 16 rows as the A fragments of every k-step
+// of Q K^T.
+template <int BM, int D, int THREADS>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[D / 16][4],
+                                             bf16* q_s, const bf16* qb,
+                                             long long ld, int i0, int n_rows,
+                                             float scale, int warp, int lane) {
+  stage_tile_rows<BM, D, THREADS>(q_s, qb, ld, i0, n_rows, scale);
+  __syncthreads();
+  warp_a_frags<D>(qf, q_s, warp * 16, lane);
 }
 
 // Start the asynchronous copy, 16 bytes a copy, of key tile `tile` (and its
@@ -82,32 +108,53 @@ __device__ __forceinline__ void start_tile_copy(const KVRows& kv, int tile,
   }
 }
 
+// A sweep's copy beside each tile: none.
+struct NoExtraCopy {
+  __device__ __forceinline__ void operator()(int, int) const {}
+};
+
 // One pass over key tiles 0 .. n_tiles - 1 of BN keys through the
 // two-stage ring: tile j + 1 is in flight while `body(j, k_tile, v_tile)`
 // computes on tile j. V is staged only WITH_V (a pass that takes a row's
-// max or sum needs K alone). With `first_in_flight`, tile 0 is already in
-// flight in stage 0 (started and committed before q was staged, so the two
-// overlap). Every thread of the block calls it.
-template <int BN, int D, int THREADS, bool WITH_V, typename Body>
+// max or sum needs K alone). `extra(j, stage)` starts the caller's own
+// asynchronous copies of tile j into ring stage `stage` (the backward's
+// per-query lse and delta), in the same commit group as the tile. With
+// `first_in_flight`, tile 0 is already in flight in stage 0 (started and
+// committed before q was staged, so the two overlap). Every thread of the
+// block calls it.
+template <int BN, int D, int THREADS, bool WITH_V, typename Extra,
+          typename Body>
 __device__ __forceinline__ void sweep_tiles(const KVRows& kv, int n_tiles,
                                             bf16* k_s, bf16* v_s,
                                             bool first_in_flight,
-                                            Body&& body) {
+                                            Extra&& extra, Body&& body) {
   constexpr int STAGE = BN * tile_ld<D>();
   if (!first_in_flight) {
     start_tile_copy<BN, D, THREADS, WITH_V>(kv, 0, 0, k_s, v_s);
+    extra(0, 0);
     cp_async_commit();
   }
   for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles)
+    if (tile + 1 < n_tiles) {
       start_tile_copy<BN, D, THREADS, WITH_V>(kv, tile + 1, (tile + 1) & 1,
                                               k_s, v_s);
+      extra(tile + 1, (tile + 1) & 1);
+    }
     cp_async_commit();   // possibly empty: keeps the group count uniform
     cp_async_wait<1>();  // this tile has landed
     __syncthreads();
     body(tile, k_s + (tile & 1) * STAGE, v_s + (tile & 1) * STAGE);
     __syncthreads();  // this stage is consumed before it is refilled
   }
+}
+
+template <int BN, int D, int THREADS, bool WITH_V, typename Body>
+__device__ __forceinline__ void sweep_tiles(const KVRows& kv, int n_tiles,
+                                            bf16* k_s, bf16* v_s,
+                                            bool first_in_flight,
+                                            Body&& body) {
+  sweep_tiles<BN, D, THREADS, WITH_V>(kv, n_tiles, k_s, v_s, first_in_flight,
+                                      NoExtraCopy{}, body);
 }
 
 // S = Q K^T for this warp's 16 rows against a staged tile of BN keys.

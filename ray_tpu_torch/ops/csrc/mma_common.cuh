@@ -1,6 +1,6 @@
 // Shared tensor-core building blocks of the bf16 attention kernels
-// (flash_fwd.cu: K2, K6; attn_dissect.cu: K8; attn_slim.cu: K9;
-// attn_subtile.cu: K10): cp.async copies, ldmatrix, the m16n8k16 bf16
+// (flash_fwd.cu: K2, K6; flash_bwd.cu: K4, K5, K7; attn_dissect.cu: K8;
+// attn_slim.cu: K9; attn_subtile.cu: K10): cp.async copies, ldmatrix, the m16n8k16 bf16
 // mma.sync with an f32 accumulator, and the quad reductions that take a
 // row's max and sum across the four lanes holding it.
 //
@@ -32,6 +32,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4-byte asynchronous copy (through L1), zero-filled when `valid` is false:
+// for f32 rows whose start need not be 16-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

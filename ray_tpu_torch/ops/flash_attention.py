@@ -14,8 +14,11 @@ cores.
 Backward (K4, K5, and K7 on a packed qkv): a pre-pass writes
 delta = rowsum(dO * O); one kernel accumulates dQ over the key tiles, the
 other dK and dV over the query tiles, each recomputing P from the saved
-logsumexp. When one block covers the whole sequence (the reference's rule,
-`_pick_block`), `flash_attention`'s gradient is the one-pass backward K3
+logsumexp. bf16 runs all five products of the two kernels on the tensor
+cores (head_dim 32, 64 or 128; other bf16 head_dims are refused); f32
+keeps f32 math on the CUDA cores. When one block covers the whole
+sequence (the reference's rule, `_pick_block`), `flash_attention`'s
+gradient is the one-pass backward K3
 (``csrc/flash_bwd_fused.cu``) instead: one recompute of P per pair feeds
 dQ, dK and dV, delta is computed inside it, and dQ's partials of the key
 tiles are summed in a fixed order. No S x S matrix reaches device memory in
@@ -342,23 +345,29 @@ def _check_kernel_inputs(q: torch.Tensor, **others: torch.Tensor) -> None:
     for name, t in (("q", q), *others.items()):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
-        if t.data_ptr() % 16 or any(
-            (st * t.element_size()) % 16 for st in t.stride()[:3]
-        ):
+        if _misaligned(t):
             raise ValueError(f"{name} rows must start 16-byte aligned")
 
 
-# head_dims the bf16 forward (tensor cores) is instantiated for.
+def _misaligned(t: torch.Tensor) -> bool:
+    """Whether some row of a [B, S, H, D] view starts off a 16-byte line."""
+    return bool(t.data_ptr() % 16 or any(
+        (st * t.element_size()) % 16 for st in t.stride()[:3]
+    ))
+
+
+# head_dims the bf16 kernels (tensor cores) are instantiated for.
 _MMA_HEAD_DIMS = (32, 64, 128)
 
 
-def _check_fwd_head_dim(q: torch.Tensor) -> None:
-    """The bf16 forward kernel is compiled per head_dim; another bf16
-    head_dim is refused, never sent to the f32 kernel."""
+def _check_mma_head_dim(q: torch.Tensor, direction: str) -> None:
+    """The bf16 forward and blockwise backward kernels are compiled per
+    head_dim; another bf16 head_dim is refused, never sent to the f32
+    kernels."""
     d = q.shape[-1]
     if q.dtype == torch.bfloat16 and d not in _MMA_HEAD_DIMS:
         raise ValueError(
-            f"bf16 head_dim {d}: the forward kernel takes head_dim in "
+            f"bf16 head_dim {d}: the {direction} kernels take head_dim in "
             f"{_MMA_HEAD_DIMS} in bf16"
         )
 
@@ -404,7 +413,7 @@ def flash_attention_fwd(
             q, k, v, causal=causal, sm_scale=sm_scale, block_k=block_k
         )
     _check_kernel_inputs(q, k=k, v=v)
-    _check_fwd_head_dim(q)
+    _check_mma_head_dim(q, "forward")
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
@@ -446,7 +455,7 @@ def flash_attention_packed_fwd(
     if not qkv.is_contiguous():
         raise ValueError("the packed kernel takes a contiguous qkv [B, S, 3E]")
     _check_kernel_inputs(q, k=k, v=v)
-    _check_fwd_head_dim(q)
+    _check_mma_head_dim(q, "forward")
     b, s, h, d = q.shape
     out = torch.empty((b, s, h * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=qkv.device)
@@ -493,6 +502,7 @@ def _launch_grad(entry, q, k, v, do, lse, delta, dq, dk, dv, causal, sm_scale):
     """One launch of the dQ or the dK/dV kernel, writing the given outputs
     ([B, S, H, D] views, unit last stride) through their strides."""
     _check_kernel_inputs(q, k=k, v=v, do=do)
+    _check_mma_head_dim(q, "backward")
     b, s, h, d = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         _check_rows(name, t, b, h, s)
@@ -500,6 +510,9 @@ def _launch_grad(entry, q, k, v, do, lse, delta, dq, dk, dv, causal, sm_scale):
         if t is not None and (t.shape != q.shape or t.dtype != q.dtype
                               or t.device != q.device or t.stride(-1) != 1):
             raise ValueError("gradient outputs must match q and have a unit last stride")
+        # The bf16 kernels store rows in 16-byte units.
+        if t is not None and _misaligned(t):
+            raise ValueError("gradient output rows must start 16-byte aligned")
     if b * s == 0:
         return
     lib = _kernels.library("flash_bwd", _BWD_ARGTYPES)
@@ -558,6 +571,7 @@ def flash_attention_bwd(
     `flash_attention_bwd_reference`."""
     if _on_cpu(q):
         return flash_attention_bwd_reference(q, k, v, o, do, lse, causal=causal, sm_scale=sm_scale)
+    _check_mma_head_dim(q, "backward")
     do = do.contiguous()
     delta = flash_bwd_delta(o, do)
     kw = dict(causal=causal, sm_scale=sm_scale)
@@ -622,6 +636,7 @@ def flash_attention_packed_bwd(
             qkv, o, do, lse, num_heads, causal=causal, sm_scale=sm_scale
         )
     q, k, v = _packed_views(qkv, num_heads)
+    _check_mma_head_dim(q, "backward")
     b, s, h, d = q.shape
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
     dq, dk, dv = _packed_views(dqkv, num_heads)

@@ -29,6 +29,7 @@ from ray_tpu_torch.ops import (
 )
 from ray_tpu_torch.ops import attn_profile as ap
 from ray_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd,
     flash_attention_bwd_fused,
     flash_attention_bwd_fused_reference,
     flash_attention_bwd_reference,
@@ -155,31 +156,57 @@ def test_packed_forward_kernel_matches_plain(cuda, dtype, causal, d):
     _assert_close(lse, lse_ref, dtype)
 
 
+# K4, K5 and K7: (dtype, causal, head_dim, S, B). The first cases, f32 and
+# bf16 at B2 S200; then the bf16 tensor-core kernels at every head_dim they
+# are built for, at lengths that end inside a 64-row tile (1, 63, 65, 200,
+# 1000) or fill 16 (1024).
+_BWD_CASES = [(dt, causal, d, 200, 2) for dt in ("float32", "bfloat16")
+              for causal in (True, False) for d in (32, 64)]
+_BWD_CASES += [("bfloat16", causal, d, s, b) for causal in (True, False)
+               for d in (32, 64, 128) for s in (1, 63, 65, 200, 1000, 1024)
+               for b in (1, 3)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [32, 64])
-def test_backward_kernels_match_plain(cuda, dtype, causal, d):
+@pytest.mark.parametrize("dtype,causal,d,s,b", _BWD_CASES)
+def test_backward_kernels_match_plain(cuda, dtype, causal, d, s, b):
     """K4 (dQ), K5 (dK, dV) and the delta pre-pass, each against its plain
-    version on the strided q/k/v views of a packed projection."""
-    qkv, do = _packed(cuda, dtype, d=d, seed=1)
-    q, k, v = (t.unflatten(-1, (4, d)) for t in qkv.split(4 * d, dim=-1))
-    do = do.unflatten(-1, (4, d))
+    version on the strided q/k/v views of a packed projection, and K7 (the
+    same kernels on the packed strides) on the projection itself. Each
+    gradient is held by the absolute bound, and in bf16 also on its own by
+    chip_smoke.py's LIMITS; at S = 1 each query sees one key, so dS =
+    dP - delta and with it dQ and dK are zero but for rounding, and only
+    dV (= dO) is held by LIMITS there."""
+    dtype, h = getattr(torch, dtype), 4
+    qkv, do = _packed(cuda, dtype, b=b, s=s, h=h, d=d, seed=1)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
+    do4 = do.unflatten(-1, (h, d))
     o, lse = flash_attention_fwd(q, k, v, causal=causal)
     counts = [f.launches for f in (flash_bwd_delta, flash_bwd_dq, flash_bwd_dkv)]
-    delta = flash_bwd_delta(o, do)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    delta = flash_bwd_delta(o, do4)
+    dq = flash_bwd_dq(q, k, v, do4, lse, delta, causal=causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do4, lse, delta, causal=causal)
     assert [f.launches for f in (flash_bwd_delta, flash_bwd_dq, flash_bwd_dkv)] == [
         c + 1 for c in counts
     ]
+    o6, lse6 = flash_attention_packed_fwd(qkv, h, causal=causal)
+    before = flash_attention_packed_bwd.launches
+    dqkv = flash_attention_packed_bwd(qkv, o6, do, lse6, h, causal=causal)
+    assert flash_attention_packed_bwd.launches == before + 1
     kw = dict(causal=causal)
-    _assert_close(delta, flash_bwd_delta_reference(o, do), dtype)
-    _assert_close(dq, flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw), dtype)
-    dk_ref, dv_ref = flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
+    _assert_close(delta, flash_bwd_delta_reference(o, do4), dtype)
+    want = {"dq": flash_bwd_dq_reference(q, k, v, do4, lse, delta, **kw)}
+    want.update(zip(("dk", "dv"), flash_bwd_dkv_reference(q, k, v, do4, lse, delta, **kw)))
+    want7 = flash_attention_packed_bwd_reference(qkv, o6, do, lse6, h, **kw)
     torch.cuda.synchronize()
-    _assert_close(dk, dk_ref, dtype)
-    _assert_close(dv, dv_ref, dtype)
+    got7 = dict(zip(("dq", "dk", "dv"), dqkv.split(h * d, dim=-1)))
+    for kernel, got, ref in (
+            ("K4/K5", {"dq": dq, "dk": dk, "dv": dv}, want),
+            ("K7", got7, dict(zip(("dq", "dk", "dv"), want7.split(h * d, dim=-1))))):
+        for name in ("dq", "dk", "dv"):
+            _assert_close(got[name], ref[name], dtype)
+            if dtype == torch.bfloat16 and (s > 1 or name == "dv"):
+                _assert_limits(got[name], ref[name], (kernel, name))
 
 
 @pytest.mark.cuda
@@ -357,6 +384,69 @@ def test_fused_backward_is_the_same_bit_for_bit_twice(cuda, dtype, causal):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_backward_kernels_are_the_same_bit_for_bit_twice(cuda, d, causal):
+    """The bf16 dQ and dK/dV kernels (K4, K5, and K7 on the packed strides)
+    run twice on the same inputs give dq, dk and dv bit for bit: their
+    outputs are disjoint, so no atomics. B2 S1000 H4 (a partial last
+    tile)."""
+    qkv, do = _packed(cuda, torch.bfloat16, b=2, s=1000, d=d, seed=8)
+    q, k, v = (t.unflatten(-1, (4, d)) for t in qkv.split(4 * d, dim=-1))
+    do4 = do.unflatten(-1, (4, d))
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    o6, lse6 = flash_attention_packed_fwd(qkv, 4, causal=causal)
+    runs = [(flash_attention_bwd(q, k, v, o, do4, lse, causal=causal),
+             flash_attention_packed_bwd(qkv, o6, do, lse6, 4, causal=causal))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (grads, dqkv), (grads2, dqkv2) = runs
+    for a, b in zip(grads, grads2):
+        assert torch.equal(a, b)
+    assert torch.equal(dqkv, dqkv2)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_refuses_head_dims_it_was_not_built_for(cuda):
+    """bf16 head_dim 48 (16-byte rows, but no tensor-core instantiation) is
+    refused by every backward entry (K4, K5, their pair, K7), naming the
+    head_dims they take, before anything launches; f32 at the same
+    head_dim runs on the CUDA-core kernels and matches the plain
+    backward."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    qkv = torch.randn(2, 70, 3 * 2 * 48, generator=g, device=cuda)
+    do = torch.randn(2, 70, 2 * 48, generator=g, device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dx = qkv.to(dtype), do.to(dtype)
+        q, k, v = (t.unflatten(-1, (2, 48)) for t in x.split(96, dim=-1))
+        do4 = dx.unflatten(-1, (2, 48))
+        # The plain forward: the bf16 forward kernel refuses head_dim 48 too.
+        o, lse = flash_attention_reference(q, k, v, causal=True)
+        lse = lse.contiguous()
+        delta = flash_bwd_delta_reference(o, do4)
+        calls = {
+            "K4": lambda: flash_bwd_dq(q, k, v, do4, lse, delta, causal=True),
+            "K5": lambda: flash_bwd_dkv(q, k, v, do4, lse, delta, causal=True),
+            "K4 + K5": lambda: flash_attention_bwd(q, k, v, o, do4, lse, causal=True),
+            "K7": lambda: flash_attention_packed_bwd(
+                x, o.reshape(2, 70, 96), dx, lse, 2, causal=True),
+        }
+        if dtype == torch.bfloat16:
+            counts = [f.launches for f in (flash_bwd_delta, flash_bwd_dq, flash_bwd_dkv)]
+            for name, call in calls.items():
+                with pytest.raises(ValueError, match=r"head_dim 48.*\(32, 64, 128\)"):
+                    call()
+            assert counts == [f.launches for f in (flash_bwd_delta, flash_bwd_dq,
+                                                   flash_bwd_dkv)]
+        else:
+            got = calls["K4 + K5"]()
+            want = flash_attention_bwd_reference(q, k, v, o, do4, lse, causal=True)
+            torch.cuda.synchronize()
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                _assert_limits(a, w, name)
 
 
 def _bhsd(device, s, d=64, bh=6, seed=0):
