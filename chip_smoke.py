@@ -15,10 +15,11 @@ Phases, each fatal on failure:
      serving and training paths' GPT-2 125M shapes (H=12, D=64), with stated
      tolerances; time kernel, plain version, the bound and, where one
      PyTorch call computes the same function, that call (a yardstick only);
-     K2, K4-K7 rows also print their achieved TFLOP/s, and K2 and K6 the
-     time of the CUDA-core forward they replaced (`earlier_ms`); K3, K4, K5
-     and K7 run twice on the same inputs and must give dq, dk and dv bit
-     for bit;
+     K2-K7 rows also print their achieved TFLOP/s, and K2, K3 and K6 the
+     time of the CUDA-core kernel they replaced (`earlier_ms`); K3 at the
+     trainer's shape also has its two launches timed apart, with its
+     workspace and peak memory, and is timed once more at head_dim 128; K3, K4, K5 and K7 run twice on the same inputs and must
+     give dq, dk and dv bit for bit;
   4. profile — the profiling entry points (ray_tpu_torch.profiling:
      attn_dissect, attn_variants, attn_subtile) at the reference scripts'
      B24 S1024 H12 D64 bf16, each with its kernel's launch counter zeroed
@@ -81,11 +82,12 @@ PARITY_B, PARITY_S, PARITY_LONG_LAYERS = 2, 1024, 2
 PROF_B, PROF_S = 24, 1024
 LR = 3e-4
 GRAD_FLOOR = 10 * 1e-8  # 10 x fused_adamw's eps: see _f32_parity
-# K2 / K6 times of the forward before the tensor-core kernel (f32 math on
-# the CUDA cores in both types), ms: this script's kernel phase run on commit
-# 771fee6 on an H100 80GB HBM3 at 700 W (PERF.md). Keys: kernel, case, S,
-# causal, dtype.
+# Times of the kernels before their tensor-core versions (f32 math on the
+# CUDA cores in both types), ms, on an H100 80GB HBM3 at 700 W (PERF.md):
+# K2 / K6 from this script's kernel phase run on commit 771fee6, K3 from its
+# run on commit 1349e5b. Keys: kernel, case, S, causal, dtype.
 EARLIER_MS = {
+    ("K3 flash_bwd_fused", "train", 1024, True, "bf16"): 4.112,
     ("K2 flash_fwd", "prefill", 128, True, "bf16"): 0.0486,
     ("K2 flash_fwd", "prefill", 128, True, "f32"): 0.0483,
     ("K2 flash_fwd", "prefill", 200, True, "bf16"): 0.0666,
@@ -204,12 +206,14 @@ def phase_build() -> None:
     log(f"[build] total {time.perf_counter() - t0:.1f}s "
         f"({len(report)} compiled, {len(_kernels.KERNELS) - len(report)} cached)")
     # The tensor-core kernels, by library and name: the bf16 forward (K2,
-    # K6), the bf16 dQ and dK/dV kernels (K4, K5, K7), and the profiling
-    # kernels (K8-K10) throughout ("" names every function). A name with no
-    # function, or a function with no HMMA / HGMMA instruction, fails.
+    # K6), the bf16 dQ and dK/dV kernels (K4, K5, K7), the bf16 one-block
+    # backward (K3), and the profiling kernels (K8-K10) throughout ("" names
+    # every function). A name with no function, or a function with no HMMA /
+    # HGMMA instruction, fails.
     for lib, names in (("flash_fwd", ("flash_fwd_mma_kernel",)),
                        ("flash_bwd", ("flash_bwd_dq_mma_kernel",
                                       "flash_bwd_dkv_mma_kernel")),
+                       ("flash_bwd_fused", ("flash_bwd_fused_mma_kernel",)),
                        ("attn_dissect", ("",)), ("attn_slim", ("",)),
                        ("attn_subtile", ("",))):
         mma = tensor_core_instructions(_kernels, lib)
@@ -362,10 +366,13 @@ def phase_kernels() -> list:
     training_kernel_rows(gen, rows)
     pick = {r["kernel"]: r for r in rows
             if r.get("case") == "train" and r["dtype"] == "bf16"}
-    k3, k4, k5 = (pick[n] for n in ("K3 flash_bwd_fused", "K4 flash_bwd_dq",
-                                    "K5 flash_bwd_dkv"))
+    k3, k4, k5, k7 = (pick[n] for n in ("K3 flash_bwd_fused", "K4 flash_bwd_dq",
+                                        "K5 flash_bwd_dkv", "K7 flash_bwd_packed"))
     log(f"[kernels] backward at B{TRAIN_B} S{TRAIN_S} H{H} D{D} bf16 causal: "
-        f"K3 {k3['ms']:.4f} ms, K4 + K5 {k4['ms']:.4f} + {k5['ms']:.4f} = "
+        f"K3 {k3['ms']:.4f} ms ({k3['tflops']:.0f} TFLOP/s on 10 D per pair; "
+        f"its dq_finish_kernel "
+        f"{k3['finish_ms']:.4f} ms), "
+        f"K7 {k7['ms']:.4f} ms, K4 + K5 {k4['ms']:.4f} + {k5['ms']:.4f} = "
         f"{k4['ms'] + k5['ms']:.4f} ms (and the delta pre-pass), SDPA backward "
         f"{k3['library_ms']:.4f} ms, bound {k3['bound_ms']:.4f} ms")
     return rows
@@ -439,7 +446,9 @@ def training_kernel_rows(gen, rows: list) -> None:
             check_bitwise_repeat(rows, got, dict(zip(("dq", "dk", "dv"), kern())),
                                  f"K3 {shape} {label}")
             timed.append((kern, plain, sdpa_ms,
-                          bound(8 * bse + rows_f32, 10 * D * pairs + 2 * b * s * e, dtype)))
+                          bound(8 * bse + rows_f32, 10 * D * pairs + 2 * b * s * e, dtype),
+                          10 * D * pairs))
+            k3_split(rows[-1], args3, dtype)
         else:
             o4, lse4 = fa.flash_attention_fwd(q, k, v, causal=True)
         delta = fa.flash_bwd_delta(o4, do4)
@@ -466,11 +475,91 @@ def training_kernel_rows(gen, rows: list) -> None:
                        library_ms=lib_ms, bound_ms=bms, bound_us=bms * 1e3,
                        bound_by=by)
             if flops:  # the products' operations per causal pair: K2 / K6 4 D,
-                tflops(row, flops[0])  # K4 6 D, K5 8 D, K7 14 D
+                tflops(row, flops[0])  # K3 10 D, K4 6 D, K5 8 D, K7 14 D
             log(json.dumps(row))
         del qkv, do, q, k, v, do4, o4, lse4, delta, args
         torch.cuda.empty_cache()
     k3_edge_rows(gen, rows)
+    k3_d128_row(gen, rows)
+
+
+def device_ms_by_kernel(fn, names, reps: int = 10) -> dict:
+    """Device time per call of each kernel whose name contains one of
+    `names`, from torch.profiler over `reps` calls of `fn`, the L2 flushed
+    before each (as time_ms flushes it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        for n in names:
+            if n in e.key:
+                out[n] += e.self_device_time_total / 1e3 / reps
+    return out
+
+
+def k3_split(row: dict, args3: tuple, dtype) -> None:
+    """K3's call on the trainer shape's inputs taken apart, into the K3
+    row: its two launches' times (the pass over the pairs and
+    dq_finish_kernel, by torch.profiler), the partial-dQ workspace and the
+    peak of memory the call allocates above what was allocated before it."""
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    from ray_tpu_torch.ops import _kernels
+
+    lib = _kernels.library("flash_bwd_fused", fa._FUSED_ARGTYPES)
+    b, s, h, d = args3[0].shape
+    call = lambda: fa.flash_attention_bwd_fused(*args3, causal=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    split = device_ms_by_kernel(call, ("flash_bwd_fused_mma_kernel",
+                                       "fused_bwd_f32_kernel", "dq_finish_kernel"))
+    rows_ws = lib.flash_bwd_fused_workspace_rows(s, 1, _kernels.dtype_code(dtype))
+    row.update(pairs_kernel_ms=split["flash_bwd_fused_mma_kernel"]
+               + split["fused_bwd_f32_kernel"],
+               finish_ms=split["dq_finish_kernel"],
+               workspace_mib=b * h * rows_ws * d * 4 / 2**20, call_peak_mib=peak)
+
+
+def k3_d128_row(gen, rows: list) -> None:
+    """K3 at head_dim 128 (B8 S1024 H6, bf16 causal: the trainer's width
+    in half the heads), against its plain version and timed, on strided
+    q / k / v views and K2's O and lse."""
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    b, s, h, d, dtype = TRAIN_B, TRAIN_S, 6, 128, torch.bfloat16
+    e = h * d
+    qkv = torch.randn(b, s, 3 * e, generator=gen, device="cuda").to(dtype)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(e, dim=-1))
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    args = (q, k, v, o, do, lse)
+    kern = lambda: fa.flash_attention_bwd_fused(*args, causal=True)
+    plain = lambda: fa.flash_attention_bwd_fused_reference(*args, causal=True)
+    got, want = (dict(zip(("dq", "dk", "dv"), f())) for f in (kern, plain))
+    check_close(rows, "K3 flash_bwd_fused", got, want, dtype_label(dtype),
+                case="d128", B=b, S=s, H=h, D=d)
+    check_bitwise_repeat(rows, got, dict(zip(("dq", "dk", "dv"), kern())),
+                         f"K3 D{d} {dtype_label(dtype)}")
+    pairs = b * h * s * (s + 1) // 2
+    bse = b * s * e * dtype.itemsize
+    bms, by = bound(8 * bse + b * h * s * 4, 10 * d * pairs + 2 * b * s * e, dtype)
+    rows[-1].update(ms=time_ms(kern), plain_ms=time_ms(plain, reps=5),
+                    library_ms=sdpa_bwd_ms(q, k, v, do), bound_ms=bms,
+                    bound_us=bms * 1e3, bound_by=by)
+    tflops(rows[-1], 10 * d * pairs)
+    log(json.dumps(rows[-1]))
+    del qkv, q, k, v, do, o, lse, args, got, want
+    torch.cuda.empty_cache()
 
 
 def k3_edge_rows(gen, rows: list) -> None:

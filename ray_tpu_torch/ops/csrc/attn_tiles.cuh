@@ -1,7 +1,8 @@
 // The bf16 attention kernels' tile machinery, in one place: the forward
 // flash_fwd_mma_kernel (flash_fwd.cu: K2, K6), the blockwise backward
-// (flash_bwd.cu: K4, K5, K7) and the profiling kernels (attn_dissect.cu:
-// K8, attn_slim.cu: K9, attn_subtile.cu: K10) are built from it. Warps of
+// (flash_bwd.cu: K4, K5, K7), the one-block backward (flash_bwd_fused.cu:
+// K3) and the profiling kernels (attn_dissect.cu: K8, attn_slim.cu: K9,
+// attn_subtile.cu: K10) are built from it. Warps of
 // 16 query rows keep q in registers as m16n8k16 A fragments; K and V tiles
 // pass through a two-stage cp.async ring of rows padded by 16 bytes;
 // S = Q K^T and O += P V run on mma.sync with f32 accumulators, and P is
@@ -219,6 +220,37 @@ __device__ __forceinline__ void mask_tile(float (&s)[BN / 8][4], int k0,
       const int row = row0 + (e >> 1) * 8;
       if (key >= n_keys || (causal && key > row)) s[j][e] = value;
     }
+}
+
+// Transposed scores S^T (rows: this lane's keys key0 and key0 + 8; columns:
+// the tile's queries from q0) set to -inf where the query lies at or past
+// n_q or, causal, before its key.
+template <int BQ>
+__device__ __forceinline__ void mask_queries(float (&s)[BQ / 8][4], int q0,
+                                             int key0, int lane, int n_q,
+                                             int causal) {
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int query = q0 + j * 8 + 2 * t4 + (e & 1);
+      const int key = key0 + (e >> 1) * 8;
+      if (query >= n_q || (causal && query < key)) s[j][e] = -INFINITY;
+    }
+}
+
+// Multiply a staged tile of BR rows by `scale` in place, rounded to bf16.
+template <int BR, int D, int THREADS>
+__device__ __forceinline__ void scale_tile(bf16* t, float scale) {
+  constexpr int LD = tile_ld<D>(), CPR = D / 8;
+#pragma unroll
+  for (int c = threadIdx.x; c < BR * CPR; c += THREADS) {
+    uint4* p = reinterpret_cast<uint4*>(t + (c / CPR) * LD + (c % CPR) * 8);
+    uint4 raw = *p;
+    scale_bf16x8(raw, scale);
+    *p = raw;
+  }
 }
 
 // The running max of this lane's two rows over one tile, reduced across

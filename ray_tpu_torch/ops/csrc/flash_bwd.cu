@@ -71,8 +71,8 @@
 // the forward's fold (attn_common.cuh): lane j scores chunk row j against
 // all 8 rows, then every lane updates the output dimensions it owns with
 // the chunk's dS (and P) broadcast one row at a time.
-// The one-block backward (K3) is flash_bwd_fused.cu, on the f32 helpers
-// (flash_bwd_common.cuh).
+// The one-block backward (K3) is flash_bwd_fused.cu, on the same tile steps
+// in bf16 and on the f32 helpers (flash_bwd_common.cuh) in f32.
 #include "attn_tiles.cuh"
 #include "flash_bwd_common.cuh"
 
@@ -328,37 +328,6 @@ __device__ __forceinline__ void tile_scores(float (&s)[BN / 8][4],
     uint32_t af[D / 16][4];
     warp_a_frags<D>(af, a_s, a_row0, lane);
     qk_tile<D, BN>(s, af, tile, lane);
-  }
-}
-
-// Transposed scores S^T (rows: this lane's keys key0 and key0 + 8; columns:
-// the tile's queries from q0) set to -inf where the query lies at or past
-// n_q or, causal, before its key.
-template <int BQ>
-__device__ __forceinline__ void mask_queries(float (&s)[BQ / 8][4], int q0,
-                                             int key0, int lane, int n_q,
-                                             int causal) {
-  const int t4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int query = q0 + j * 8 + 2 * t4 + (e & 1);
-      const int key = key0 + (e >> 1) * 8;
-      if (query >= n_q || (causal && query < key)) s[j][e] = -INFINITY;
-    }
-}
-
-// Multiply a staged tile of BR rows by `scale` in place, rounded to bf16.
-template <int BR, int D, int THREADS>
-__device__ __forceinline__ void scale_tile(bf16* t, float scale) {
-  constexpr int LD = tile_ld<D>(), CPR = D / 8;
-#pragma unroll
-  for (int c = threadIdx.x; c < BR * CPR; c += THREADS) {
-    uint4* p = reinterpret_cast<uint4*>(t + (c / CPR) * LD + (c % CPR) * 8);
-    uint4 raw = *p;
-    scale_bf16x8(raw, scale);
-    *p = raw;
   }
 }
 

@@ -1,8 +1,9 @@
 // Shared tensor-core building blocks of the bf16 attention kernels
-// (flash_fwd.cu: K2, K6; flash_bwd.cu: K4, K5, K7; attn_dissect.cu: K8;
-// attn_slim.cu: K9; attn_subtile.cu: K10): cp.async copies, ldmatrix, the m16n8k16 bf16
-// mma.sync with an f32 accumulator, and the quad reductions that take a
-// row's max and sum across the four lanes holding it.
+// (flash_fwd.cu: K2, K6; flash_bwd.cu: K4, K5, K7; flash_bwd_fused.cu: K3;
+// attn_dissect.cu: K8; attn_slim.cu: K9; attn_subtile.cu: K10): cp.async
+// copies, ldmatrix, the m16n8k16 bf16 mma.sync with an f32 accumulator, and
+// the quad reductions that take a row's max and sum across the four lanes
+// holding it.
 //
 // Fragment layouts (m16n8k16, per lane: g = lane / 4, t = lane % 4): an
 // accumulator tile holds rows g (elements 0, 1) and g + 8 (2, 3), columns
@@ -68,6 +69,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+// Two 8x8 b16 matrices, transposed; lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_u32(p))
       : "memory");
 }

@@ -21,8 +21,9 @@ sequence (the reference's rule, `_pick_block`), `flash_attention`'s
 gradient is the one-pass backward K3
 (``csrc/flash_bwd_fused.cu``) instead: one recompute of P per pair feeds
 dQ, dK and dV, delta is computed inside it, and dQ's partials of the key
-tiles are summed in a fixed order. No S x S matrix reaches device memory in
-either direction.
+tiles are summed in a fixed order; bf16 runs its five products on the
+tensor cores too, f32 on the CUDA cores. No S x S matrix reaches device
+memory in either direction.
 
 Every kernel reads its operands through (batch, seq, head) strides, so the
 head split of the packed qkv projection costs no transpose, and the packed
@@ -76,7 +77,7 @@ _FUSED_ARGTYPES = {
     + [ctypes.c_void_p] * 10
     + [ctypes.c_int] * 4
     + [_STRIDES, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "flash_bwd_fused_workspace_rows": ([ctypes.c_int, ctypes.c_int], ctypes.c_longlong),
+    "flash_bwd_fused_workspace_rows": ([ctypes.c_int] * 3, ctypes.c_longlong),
 }
 
 # Key-tile width of the plain blockwise backward. P comes from the saved
@@ -361,9 +362,8 @@ _MMA_HEAD_DIMS = (32, 64, 128)
 
 
 def _check_mma_head_dim(q: torch.Tensor, direction: str) -> None:
-    """The bf16 forward and blockwise backward kernels are compiled per
-    head_dim; another bf16 head_dim is refused, never sent to the f32
-    kernels."""
+    """The bf16 forward and backward kernels are compiled per head_dim;
+    another bf16 head_dim is refused, never sent to the f32 kernels."""
     d = q.shape[-1]
     if q.dtype == torch.bfloat16 and d not in _MMA_HEAD_DIMS:
         raise ValueError(
@@ -588,7 +588,9 @@ def flash_attention_bwd_fused(
     computed inside the kernel. Two launches (the pass over the pairs, which
     stores each key tile's partial dQ in its own slice of an f32 workspace,
     then the sum of the partials in key-tile order with dQ's scale and
-    cast), so every output is the same bit for bit from run to run.
+    cast), so every output is the same bit for bit from run to run. bf16
+    runs on the tensor cores (head_dim 32, 64 or 128; other bf16 head_dims
+    are refused), f32 on the CUDA cores.
     dO may come in any layout; it is made contiguous here. CPU tensors run
     `flash_attention_bwd_fused_reference`."""
     _refuse_graph("flash_attention_bwd_fused", q, k, v, o, do)
@@ -598,16 +600,18 @@ def flash_attention_bwd_fused(
         )
     do = do.contiguous()
     _check_kernel_inputs(q, k=k, v=v, o=o, do=do)
+    _check_mma_head_dim(q, "backward")
     b, s, h, d = q.shape
     _check_rows("lse", lse, b, h, s)
     dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v))
     if b * s == 0:
         return dq, dk, dv
     lib = _kernels.library("flash_bwd_fused", _FUSED_ARGTYPES)
-    rows = lib.flash_bwd_fused_workspace_rows(s, int(causal))
+    code = _kernels.dtype_code(q.dtype)
+    rows = lib.flash_bwd_fused_workspace_rows(s, int(causal), code)
     workspace = torch.empty((b * h, rows, d), dtype=torch.float32, device=q.device)
     err = lib.flash_bwd_fused_launch(
-        _kernels.dtype_code(q.dtype),
+        code,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), workspace.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, s, h, d, _strides(q, k, v, o, do, dk, dv, dq),

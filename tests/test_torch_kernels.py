@@ -258,35 +258,50 @@ def test_autograd_launches_the_kernels(cuda):
         _assert_close(t.grad, g, torch.float32)
 
 
+# K3: (dtype, causal, head_dim, S, B). The first cases, f32 and bf16 at B2
+# S200, S96 and S256; then the bf16 tensor-core kernel at every head_dim it
+# is built for, at lengths that end inside a key tile of 64 (f32) or 128
+# (bf16) keys (1, 63, 65, 200, 1000) or fill them (1024).
+_K3_CASES = [(dt, causal, d, s, 2) for dt in ("float32", "bfloat16")
+             for causal in (True, False) for s, d in ((200, 64), (96, 32), (256, 64))]
+_K3_CASES += [("bfloat16", causal, d, s, b) for causal in (True, False)
+              for d in (32, 64, 128) for s in (1, 63, 65, 200, 1000, 1024)
+              for b in (1, 3)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s,d", [(200, 64), (96, 32), (256, 64)])
-def test_fused_backward_kernel_matches_plain(cuda, dtype, causal, s, d):
+@pytest.mark.parametrize("dtype,causal,d,s,b", _K3_CASES)
+def test_fused_backward_kernel_matches_plain(cuda, dtype, causal, d, s, b):
     """K3 (the one-pass backward, delta inside, dQ by fixed-order sums of
-    the key tiles' partials) against its
-    plain version on the strided q/k/v views of a packed projection; S = 200
-    and 96 end in a partial 64-row key tile."""
-    qkv, do = _packed(cuda, dtype, s=s, d=d, seed=4)
-    q, k, v = (t.unflatten(-1, (4, d)) for t in qkv.split(4 * d, dim=-1))
-    do = do.unflatten(-1, (4, d))
+    the key tiles' partials) against its plain version on the strided q/k/v
+    views of a packed projection. Each gradient is held by the absolute bound,
+    and in bf16 also on its own by chip_smoke.py's LIMITS; at S = 1 dQ and
+    dK are zero but for rounding, and only dV is held by LIMITS there."""
+    dtype, h = getattr(torch, dtype), 4
+    qkv, do = _packed(cuda, dtype, b=b, s=s, d=d, seed=4)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
+    do = do.unflatten(-1, (h, d))
     o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    want = flash_attention_bwd_fused_reference(q, k, v, o, do, lse, causal=causal)
     before = flash_attention_bwd_fused.launches
     grads = flash_attention_bwd_fused(q, k, v, o, do, lse, causal=causal)
     assert flash_attention_bwd_fused.launches == before + 1
-    want = flash_attention_bwd_fused_reference(q, k, v, o, do, lse, causal=causal)
     torch.cuda.synchronize()
-    for got, w in zip(grads, want):
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
         assert got.shape == w.shape and got.dtype == dtype
         _assert_close(got, w, dtype)
+        if dtype == torch.bfloat16 and (s > 1 or name == "dv"):
+            _assert_limits(got, w, ("K3", name))
 
 
 @pytest.mark.cuda
-def test_single_block_gradient_runs_k3_not_k4_k5(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_block_gradient_runs_k3_not_k4_k5(cuda, dtype):
     """`flash_attention`'s gradient at a one-block length (S = 200, default
     blocks) launches K3 once and neither K4, K5 nor the delta pre-pass, and
-    equals the plain two-kernel backward's."""
-    qkv, do = _packed(cuda, torch.float32, seed=5)
+    equals the plain backward's: in f32 the plain two-kernel backward's, in
+    bf16 the plain K3's (also by chip_smoke.py's LIMITS)."""
+    qkv, do = _packed(cuda, dtype, seed=5)
     q, k, v = (t.unflatten(-1, (4, 64)).detach().clone().requires_grad_()
                for t in qkv.split(256, dim=-1))
     kernels = (flash_attention_bwd_fused, flash_bwd_delta, flash_bwd_dq, flash_bwd_dkv)
@@ -294,12 +309,21 @@ def test_single_block_gradient_runs_k3_not_k4_k5(cuda):
     out = flash_attention(q, k, v, causal=True)
     out.backward(do.unflatten(-1, (4, 64)))
     assert [f.launches - c for f, c in zip(kernels, counts)] == [1, 0, 0, 0]
-    o, lse = flash_attention_reference(q, k, v, causal=True)
-    grads = flash_attention_bwd_reference(
-        q, k, v, o, do.unflatten(-1, (4, 64)), lse, causal=True
-    )
-    for t, g in zip((q, k, v), grads):
-        _assert_close(t.grad, g, torch.float32)
+    if dtype == torch.float32:
+        o, lse = flash_attention_reference(q, k, v, causal=True)
+        grads = flash_attention_bwd_reference(
+            q, k, v, o, do.unflatten(-1, (4, 64)), lse, causal=True
+        )
+    else:
+        qkv3 = [t.detach() for t in (q, k, v)]
+        o, lse = flash_attention_fwd(*qkv3, causal=True)
+        grads = flash_attention_bwd_fused_reference(
+            *qkv3, o, do.unflatten(-1, (4, 64)), lse, causal=True
+        )
+    for name, t, g in zip(("dq", "dk", "dv"), (q, k, v), grads):
+        _assert_close(t.grad, g, dtype)
+        if dtype == torch.bfloat16:
+            _assert_limits(t.grad, g, ("K3", name))
 
 
 def _assert_limits(got, want, what, per_row=False):
@@ -369,21 +393,47 @@ def test_bf16_forward_refuses_head_dims_it_was_not_built_for(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_backward_is_the_same_bit_for_bit_twice(cuda, dtype, causal):
+def test_fused_backward_is_the_same_bit_for_bit_twice(cuda, dtype, causal, d):
     """K3 run twice on the same inputs gives dq, dk and dv bit for bit: the
     key tiles' partial dQ sums are added in a fixed order, not by atomics.
-    B2 S1000 H4 D64 (a partial last key tile)."""
-    qkv, do = _packed(cuda, dtype, b=2, s=1000, seed=6)
-    q, k, v = (t.unflatten(-1, (4, 64)) for t in qkv.split(256, dim=-1))
-    do = do.unflatten(-1, (4, 64))
+    B2 S1000 H4 (a partial last key tile)."""
+    qkv, do = _packed(cuda, dtype, b=2, s=1000, d=d, seed=6)
+    q, k, v = (t.unflatten(-1, (4, d)) for t in qkv.split(4 * d, dim=-1))
+    do = do.unflatten(-1, (4, d))
     o, lse = flash_attention_fwd(q, k, v, causal=causal)
     first = flash_attention_bwd_fused(q, k, v, o, do, lse, causal=causal)
     second = flash_attention_bwd_fused(q, k, v, o, do, lse, causal=causal)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_fused_backward_refuses_head_dims_it_was_not_built_for(cuda):
+    """bf16 head_dim 48 (16-byte rows, but no tensor-core instantiation) is
+    refused by K3's wrapper before anything launches; f32 at head_dim 48
+    runs on the CUDA-core kernel and matches the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    qkv = torch.randn(2, 70, 3 * 2 * 48, generator=g, device=cuda)
+    do = torch.randn(2, 70, 2, 48, generator=g, device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (t.unflatten(-1, (2, 48)) for t in qkv.to(dtype).split(96, dim=-1))
+        o, lse = flash_attention_reference(q, k, v, causal=True)
+        args = (q, k, v, o, do.to(dtype), lse.contiguous())
+        before = flash_attention_bwd_fused.launches
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match=r"head_dim 48.*\(32, 64, 128\)"):
+                flash_attention_bwd_fused(*args, causal=True)
+            assert flash_attention_bwd_fused.launches == before
+        else:
+            got = flash_attention_bwd_fused(*args, causal=True)
+            want = flash_attention_bwd_fused_reference(*args, causal=True)
+            torch.cuda.synchronize()
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                _assert_limits(a, w, name)
 
 
 @pytest.mark.cuda

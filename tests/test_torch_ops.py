@@ -601,6 +601,37 @@ def test_flash_bwd_fused_matches_jax_k3(case):
             np.testing.assert_allclose(t.float().numpy(), w, atol=tol)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [256, 1000])
+def test_plain_fused_backward_bf16_rounds_as_jax(s, causal):
+    """The plain one-block backward (the plain version of K3, which the bf16
+    tensor-core kernel is held to on the card) against JAX's
+    `_bwd_fused_kernel` (interpret mode) in bf16 at B1 H2 D64, with one block
+    of S on the JAX side, both from JAX's own forward residuals (O, lse).
+    Both prescale q, round P to dO's type before dV = Pᵀ dO, compute delta
+    in f32, round dS (from the unrounded f32 P) to q's type before
+    dK = dSᵀ q_scaled and dQ = dS K, and scale dQ once at the end, so dq, dk
+    and dv are bit-identical but for f32 summation order. Held: ≥ 0.99 of
+    each output's elements bit-identical and relative L2 ≤ 1e-3 (measured:
+    0.9992 – 1.0 and ≤ 9.5e-5)."""
+    b, h, d = 1, 2, 64
+    rng = np.random.RandomState(s + causal)
+    q, k, v, g = (rng.randn(b, s, h, d).astype(np.float32) for _ in range(4))
+    sm = 1.0 / math.sqrt(d)
+    jq, jk, jv, jg = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g))
+    out, res = jax_flash_fwd(jq, jk, jv, sm, causal, s, s)
+    want = jax_flash_bwd(sm, causal, s, s, res, jg)
+    lse = torch.from_numpy(np.array(res[-1]))  # [B*H, S] f32
+    o = torch.from_numpy(np.asarray(out, np.float32)).bfloat16()
+    tq, tk, tv, tg = (torch.from_numpy(x).bfloat16() for x in (q, k, v, g))
+    got = flash_attention_bwd_fused(tq, tk, tv, o, tg, lse, causal=causal)
+    for name, t, w in zip(("dq", "dk", "dv"), got, want):
+        assert t.dtype == torch.bfloat16, name
+        w32 = np.asarray(w, np.float32)
+        rel = np.linalg.norm(t.float().numpy() - w32) / np.linalg.norm(w32)
+        assert _bf16_share(t, w) >= 0.99 and rel <= 1e-3, (name, _bf16_share(t, w), rel)
+
+
 # S: the reference's `_pick_block` gives one block at 64, 96, 128, 1000,
 # 1024 and 2500 (128 does not divide 1000 or 2500), several at 1536, 2048
 # and 2304.
