@@ -10,7 +10,9 @@ Phases, each fatal on failure:
   2. build   — compile every CUDA kernel from ray_tpu_torch/ops/csrc, and
      count the tensor-core instructions (HMMA / HGMMA, by cuobjdump) of the
      bf16 forward kernel, of the bf16 dQ and dK/dV kernels and of every
-     profiling kernel (K8-K10): none fails the run;
+     profiling kernel (K8-K10): none fails the run; every function of K8's
+     and K10's libraries must hold HGMMA (wgmma) and UTMALDG (TMA loads)
+     and no HMMA;
   3. kernels — hold each kernel against its plain PyTorch version at the
      serving and training paths' GPT-2 125M shapes (H=12, D=64), with stated
      tolerances; time kernel, plain version, the bound and, where one
@@ -24,7 +26,9 @@ Phases, each fatal on failure:
      attn_dissect, attn_variants, attn_subtile) at the reference scripts'
      B24 S1024 H12 D64 bf16, each with its kernel's launch counter zeroed
      just before and read just after; then every K8 level and the two-head
-     variant, every K9 tile and every K10 T against its plain version;
+     variant, every K9 tile and every K10 T against its plain version, each
+     run twice (bit for bit), with its share of outputs bit-identical to the
+     plain version's and the earlier kernel's time (`earlier_ms`);
   5. train   — GPT-2 125M (bf16 compute on f32 params) takes 5 fused_adamw
      steps at B=8, S=1024 through the packed kernels (K6, K7): finite
      losses that fall, both kernels launched 12 per step, step time,
@@ -85,8 +89,19 @@ GRAD_FLOOR = 10 * 1e-8  # 10 x fused_adamw's eps: see _f32_parity
 # Times of the kernels before their tensor-core versions (f32 math on the
 # CUDA cores in both types), ms, on an H100 80GB HBM3 at 700 W (PERF.md):
 # K2 / K6 from this script's kernel phase run on commit 771fee6, K3 from its
-# run on commit 1349e5b. Keys: kernel, case, S, causal, dtype.
+# run on commit 1349e5b; K8 and K10 before wgmma (their mma.sync kernels)
+# from its profile phase run on commit f3a8580. Keys: kernel, case, S,
+# causal, dtype.
 EARLIER_MS = {
+    ("K8 attn_dissect", "L0", 1024, True, "bf16"): 0.3749,
+    ("K8 attn_dissect", "L1", 1024, True, "bf16"): 0.4048,
+    ("K8 attn_dissect", "L2", 1024, True, "bf16"): 0.4656,
+    ("K8 attn_dissect", "L3", 1024, True, "bf16"): 0.2535,
+    ("K8 attn_dissect", "L4", 1024, True, "bf16"): 0.4420,
+    ("K8 attn_dissect", "2h", 1024, True, "bf16"): 0.4040,
+    ("K10 attn_subtile", "T2", 1024, True, "bf16"): 0.4016,
+    ("K10 attn_subtile", "T4", 1024, True, "bf16"): 0.3241,
+    ("K10 attn_subtile", "T8", 1024, True, "bf16"): 0.2883,
     ("K3 flash_bwd_fused", "train", 1024, True, "bf16"): 4.112,
     ("K2 flash_fwd", "prefill", 128, True, "bf16"): 0.0486,
     ("K2 flash_fwd", "prefill", 128, True, "f32"): 0.0483,
@@ -199,7 +214,8 @@ def phase_build() -> None:
     report = _kernels.build()
     for name, info in report.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln or "entry function" in ln]
+                 if "registers" in ln or "spill" in ln or "entry function" in ln
+                 or "wgmma" in ln]
         log(f"[build] {name}: {info['seconds']:.1f}s")
         for ln in ptxas:
             log(f"[build]   {ln}")
@@ -207,27 +223,41 @@ def phase_build() -> None:
         f"({len(report)} compiled, {len(_kernels.KERNELS) - len(report)} cached)")
     # The tensor-core kernels, by library and name: the bf16 forward (K2,
     # K6), the bf16 dQ and dK/dV kernels (K4, K5, K7), the bf16 one-block
-    # backward (K3), and the profiling kernels (K8-K10) throughout ("" names
-    # every function). A name with no function, or a function with no HMMA /
-    # HGMMA instruction, fails.
+    # backward (K3) and K9 on mma.sync, K8 and K10 on wgmma with TMA loads,
+    # throughout ("" names every function). A name with no function, or a
+    # function with no HMMA / HGMMA instruction, fails; so does a wgmma
+    # library's function with no HGMMA, no UTMALDG, or any HMMA (a mma.sync
+    # path left beside the wgmma one).
     for lib, names in (("flash_fwd", ("flash_fwd_mma_kernel",)),
                        ("flash_bwd", ("flash_bwd_dq_mma_kernel",
                                       "flash_bwd_dkv_mma_kernel")),
                        ("flash_bwd_fused", ("flash_bwd_fused_mma_kernel",)),
                        ("attn_dissect", ("",)), ("attn_slim", ("",)),
                        ("attn_subtile", ("",))):
-        mma = tensor_core_instructions(_kernels, lib)
-        log(f"[build] {lib} tensor-core instructions (cuobjdump): {json.dumps(mma)}")
+        ops = sass_instructions(_kernels, lib)
+        log(f"[build] {lib} tensor-core and TMA instructions (cuobjdump): "
+            f"{json.dumps(ops)}")
         for name in names:
-            found = {fn: n for fn, n in mma.items() if name in fn}
-            if not found or not all(found.values()):
+            found = {fn: n for fn, n in ops.items() if name in fn}
+            if not found or not all(n["HMMA"] + n["HGMMA"] for n in found.values()):
                 fail(f"a {lib} kernel {name!r} has no HMMA / HGMMA instruction: "
-                     f"{found or mma}")
+                     f"{found or ops}")
+            if lib in WGMMA_LIBRARIES and not all(
+                    n["HGMMA"] and n["UTMALDG"] and not n["HMMA"]
+                    for n in found.values()):
+                fail(f"a {lib} kernel lacks HGMMA or UTMALDG, or has HMMA: {found}")
 
 
-def tensor_core_instructions(kernels, name: str) -> dict:
-    """HMMA / HGMMA instructions in each kernel function of one built
-    library, from the CUDA toolkit's cuobjdump --dump-sass."""
+# The libraries whose kernels run wgmma on TMA-loaded tiles (wgmma_tiles.cuh).
+WGMMA_LIBRARIES = ("attn_dissect", "attn_subtile")
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
+
+
+def sass_instructions(kernels, name: str) -> dict:
+    """{function: {op: count}} of the tensor-core instructions (HMMA:
+    mma.sync, HGMMA: wgmma) and TMA tile loads (UTMALDG) in each kernel
+    function of one built library, from the CUDA toolkit's cuobjdump
+    --dump-sass."""
     cuobjdump = str(Path(kernels._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", str(kernels._library_path(name))],
                           capture_output=True, text=True, timeout=120)
@@ -238,9 +268,11 @@ def tensor_core_instructions(kernels, name: str) -> dict:
         head = re.search(r"Function : (\S+)", line)
         if head:
             fn = head.group(1)
-            counts.setdefault(fn, 0)
-        elif fn is not None and re.search(r"\bHG?MMA\b", line):
-            counts[fn] += 1
+            counts.setdefault(fn, dict.fromkeys(SASS_OPS, 0))
+        elif fn is not None:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    counts[fn][op] += 1
     return counts
 
 
@@ -619,7 +651,10 @@ def profile_kernel_rows(rows: list, profiled: dict) -> None:
     timed here. Library: SDPA causal with scale 1 for K8's full softmax
     (level 4, two heads) and K10, SDPA causal for K9; none for K8's levels
     0-3, which are not attention. K8's levels 1-2 are held row by row as
-    well (`compare`'s per_row)."""
+    well (`compare`'s per_row). Each variant runs twice and must repeat bit
+    for bit; its row also carries the share of each output's elements
+    bit-identical to the plain version's and the earlier kernel's time
+    (EARLIER_MS)."""
     from ray_tpu_torch.ops import attn_profile as ap
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -655,12 +690,17 @@ def profile_kernel_rows(rows: list, profiled: dict) -> None:
                           q, k, v, t))),
                       lib_unscaled, False))
     for name, r, case, kern, plain, lib_ms, per_row in cases:
-        check_close(rows, name, kern(), plain(), "bf16", per_row=per_row,
+        got, want = kern(), plain()
+        check_close(rows, name, got, want, "bf16", per_row=per_row,
                     case=case, B=PROF_B, S=PROF_S)
+        check_bitwise_repeat(rows, got, kern(), f"{name} {case}")
         rows[-1].update(ms=r["ms"], plain_ms=time_ms(plain, reps=3), library_ms=lib_ms,
                         bound_ms=r["bound_ms"], bound_us=r["bound_ms"] * 1e3,
                         bound_by=r["bound_by"], tflops=r["tflops"],
-                        current_ms=r["current_ms"])
+                        current_ms=r["current_ms"], within_limits=True,
+                        earlier_ms=EARLIER_MS.get((name, case, PROF_S, True, "bf16")),
+                        bit_identical={n: (got[n] == want[n]).double().mean().item()
+                                       for n in got})
         log(json.dumps(rows[-1]))
     torch.cuda.empty_cache()
 

@@ -4,14 +4,15 @@ PyTorch versions, and the slim variant's autograd function.
 
 - K8 `attn_dissect` (``csrc/attn_dissect.cu``): the forward dissected,
   levels 0-4 (`benchmarks/profile_attn_dissect.py::make`) and two heads per
-  block (`::make2h(3)`).
+  block (`::make2h(3)`), on wgmma with TMA loads (``csrc/wgmma_tiles.cuh``).
 - K9 `flash_fwd_slim` (``csrc/attn_slim.cu``): the slim causal forward on
   prescaled q (`benchmarks/profile_attn_variants.py::slim_fwd`), over query
   and key tiles in {64, 128}; `slim_attention` is `make_variant`'s
   counterpart, K9 forward and the K4 + K5 backward.
 - K10 `attn_subtile` (``csrc/attn_subtile.cu``): causal attention without
   sm_scale whose rows are cut into T chunks, each scoring keys up to its
-  chunk's edge (`benchmarks/profile_attn_subtile.py::make_subtiled`).
+  chunk's edge (`benchmarks/profile_attn_subtile.py::make_subtiled`), on
+  wgmma with TMA loads like K8.
 
 All take contiguous [BH, S, D] bf16 (the scripts' layout). On CPU tensors
 each wrapper runs its plain version; on CUDA tensors it launches its kernel
@@ -55,7 +56,7 @@ _ARGTYPES = {
     },
 }
 HEAD_DIMS = (32, 64)  # head_dims the kernels are instantiated for
-ROW_TILE = 64  # query rows of a block of K8 and K10; K10's chunks take whole tiles
+ROW_TILE = 64  # query rows of a K8 / K10 warpgroup; S and K10's chunks take whole tiles
 SLIM_TILES = (64, 128)  # K9's query and key tile sizes
 DISSECT_LEVELS = (0, 1, 2, 3, 4)
 

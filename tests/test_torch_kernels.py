@@ -499,31 +499,95 @@ def test_bf16_backward_refuses_head_dims_it_was_not_built_for(cuda):
                 _assert_limits(a, w, name)
 
 
-def _bhsd(device, s, d=64, bh=6, seed=0):
+def _bhsd(device, s, d=64, bh=6, seed=0, head_scales=None):
     g = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn(bh, s, d, generator=g, device=device).to(torch.bfloat16)
-            for _ in range(3)]
+    out = [torch.randn(bh, s, d, generator=g, device=device) for _ in range(3)]
+    if head_scales is not None:
+        scale = torch.tensor(head_scales, device=device)[:, None, None]
+        out = [t * scale for t in out]
+    return [t.to(torch.bfloat16) for t in out]
+
+
+# K8's and K10's lengths: 64 and 192 end in a partial 128-key tile (and a
+# half block of query rows); 1024 is the profiling shape; 2048 sweeps 16
+# key tiles through the two-stage ring.
+_PROFILE_S = [64, 128, 192, 1024, 2048]
+_DISSECT_VARIANTS = [
+    (0, False), (1, False), (2, False), (3, False), (4, False), (3, True),
+]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [128, 1024])
-@pytest.mark.parametrize("level,two_heads", [
-    (0, False), (1, False), (2, False), (3, False), (4, False), (3, True),
-])
-def test_dissect_kernel_matches_plain(cuda, s, level, two_heads):
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("s", _PROFILE_S)
+@pytest.mark.parametrize("level,two_heads", _DISSECT_VARIANTS)
+@pytest.mark.parametrize("bh", [6, 3])
+def test_dissect_kernel_matches_plain(cuda, s, level, two_heads, d, bh):
     """K8 at every level and the two-head variant against its plain version
     by chip_smoke's LIMITS (relative to the output's RMS, which reaches
     ~1e31 at levels 1-2; there each row is also held to its own RMS, so
-    the rows with no masked key, ~1e2, are checked too)."""
-    q, k, v = _bhsd(cuda, s, seed=level)
+    the rows with no masked key, ~1e2, are checked too). An odd BH is
+    taken by the single-head levels; the two-head variant refuses it."""
+    q, k, v = _bhsd(cuda, s, d=d, bh=bh, seed=level)
+    if two_heads and bh % 2:
+        with pytest.raises(ValueError, match="even BH"):
+            ap.attn_dissect(q, k, v, level, two_heads=True)
+        return
     before = ap.attn_dissect.launches
     got = ap.attn_dissect(q, k, v, level, two_heads=two_heads)
     assert ap.attn_dissect.launches == before + 1
     want = ap.attn_dissect_reference(q, k, v, level, two_heads=two_heads)
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == torch.bfloat16
-    _assert_limits(got, want, ("K8", level, two_heads),
+    _assert_limits(got, want, ("K8", level, two_heads, d, s, bh),
                    per_row=level in (1, 2) and not two_heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64])
+def test_dissect_level4_pad_keys_stay_out_of_each_row(cuda, d):
+    """Level 4 at S192: the last 128-key tile is half past S, and TMA fills
+    those keys with zeros. A zero score is not a masked one: had exp(0 - m)
+    entered a row's sum, that row's O would shrink. Every row is held to
+    its own RMS against the plain version."""
+    q, k, v = _bhsd(cuda, 192, d=d, bh=5, seed=40 + d)
+    got = ap.attn_dissect(q, k, v, 4)
+    want = ap.attn_dissect_reference(q, k, v, 4)
+    torch.cuda.synchronize()
+    _assert_limits(got, want, ("K8", 4, d), per_row=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0, 4])
+def test_dissect_reads_only_its_own_head(cuda, level):
+    """Levels 0 and 4 at S192 with three heads whose inputs differ in scale
+    (x1, x4, x16), each row held to its own RMS: a key tile running past
+    S into the next head's rows (a 2-D [BH*S, D] tensor map would) puts
+    keys of another scale into a row, which shows in O."""
+    q, k, v = _bhsd(cuda, 192, bh=3, seed=50 + level, head_scales=[1.0, 4.0, 16.0])
+    got = ap.attn_dissect(q, k, v, level)
+    want = ap.attn_dissect_reference(q, k, v, level)
+    torch.cuda.synchronize()
+    _assert_limits(got, want, ("K8", level, "scaled heads"), per_row=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [192, 1024])
+def test_profiling_wgmma_kernels_repeat_bit_for_bit(cuda, s):
+    """K8 (every level, two heads) and K10 (every T whose chunks are whole
+    64-row tiles) give the same bits twice on the same inputs: each output
+    element is summed in one fixed order."""
+    q, k, v = _bhsd(cuda, s, seed=60)
+    for level, two_heads in _DISSECT_VARIANTS:
+        first = ap.attn_dissect(q, k, v, level, two_heads=two_heads)
+        assert torch.equal(first, ap.attn_dissect(q, k, v, level, two_heads=two_heads)), (
+            level, two_heads)
+    for T in (1, 2, 3, 4, 8):
+        if s % T or (s // T) % 64:
+            continue
+        first = ap.attn_subtile(q, k, v, T)
+        again = ap.attn_subtile(q, k, v, T)
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), T
 
 
 @pytest.mark.cuda
@@ -554,21 +618,24 @@ def test_slim_prescale_is_the_plain_prescale(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [128, 1024])
-@pytest.mark.parametrize("T", [2, 4, 8])
-def test_subtile_kernel_matches_plain(cuda, s, T):
-    """K10 at every T against its plain version: O and lse by LIMITS. At
-    S128 only T = 2 cuts whole 64-row tiles; T = 4 and 8 are refused."""
-    q, k, v = _bhsd(cuda, s, seed=T)
-    if (s // T) % 64:
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("s", _PROFILE_S)
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("bh", [6, 3])
+def test_subtile_kernel_matches_plain(cuda, s, T, d, bh):
+    """K10 at every T against its plain version: O and lse by LIMITS. T
+    must cut S into chunks of whole 64-row tiles (at S192 only T = 1 and
+    3, at S128 T = 1 and 2, at S64 T = 1); the others are refused."""
+    q, k, v = _bhsd(cuda, s, d=d, bh=bh, seed=T)
+    if s % T or (s // T) % 64:
         with pytest.raises(ValueError, match="whole 64-row tiles"):
             ap.attn_subtile(q, k, v, T)
         return
     o, lse = ap.attn_subtile(q, k, v, T)
     want_o, want_lse = ap.attn_subtile_reference(q, k, v, T)
     torch.cuda.synchronize()
-    _assert_limits(o, want_o, ("K10", "o"))
-    _assert_limits(lse, want_lse, ("K10", "lse"))
+    _assert_limits(o, want_o, ("K10", "o", T, d, s, bh))
+    _assert_limits(lse, want_lse, ("K10", "lse", T, d, s, bh))
 
 
 @pytest.mark.cuda
