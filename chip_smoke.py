@@ -9,10 +9,10 @@ Phases, each fatal on failure:
   1. device  — the card's name and power limit (nvidia-smi) and torch's name;
   2. build   — compile every CUDA kernel from ray_tpu_torch/ops/csrc, and
      count the tensor-core instructions (HMMA / HGMMA, by cuobjdump) of the
-     bf16 forward kernel, of the bf16 dQ and dK/dV kernels and of every
-     profiling kernel (K8-K10): none fails the run; every function of K8's
-     and K10's libraries must hold HGMMA (wgmma) and UTMALDG (TMA loads)
-     and no HMMA;
+     bf16 forward kernel, of the bf16 dQ and dK/dV kernels, of K1's bf16
+     suffix kernel and of every profiling kernel (K8-K10): none fails the
+     run; every function of K8's, K9's and K10's libraries must hold HGMMA
+     (wgmma) and UTMALDG (TMA loads) and no HMMA;
   3. kernels — hold each kernel against its plain PyTorch version at the
      serving and training paths' GPT-2 125M shapes (H=12, D=64), with stated
      tolerances; time kernel, plain version, the bound and, where one
@@ -21,7 +21,9 @@ Phases, each fatal on failure:
      time of the CUDA-core kernel they replaced (`earlier_ms`); K3 at the
      trainer's shape also has its two launches timed apart, with its
      workspace and peak memory, and is timed once more at head_dim 128; K3, K4, K5 and K7 run twice on the same inputs and must
-     give dq, dk and dv bit for bit;
+     give dq, dk and dv bit for bit, K1 (decode, verify, suffix, every pool
+     dtype) its output, whose rows also carry the device time of each of
+     its launches (the split kernel and its merge, or a suffix kernel);
   4. profile — the profiling entry points (ray_tpu_torch.profiling:
      attn_dissect, attn_variants, attn_subtile) at the reference scripts'
      B24 S1024 H12 D64 bf16, each with its kernel's launch counter zeroed
@@ -45,7 +47,9 @@ Phases, each fatal on failure:
      step against the plain attention path;
   7. server  — LLMServer serves GPT-2 125M (random seeded weights) to 8
      concurrent requests; asserts they all finish, the prefix cache hit,
-     and both kernels launched on that run; then f32 on the kernels must
+     and both kernels launched on that run; the same traffic again under
+     torch.profiler gives the card's busy share and K1's kernels' device
+     time; then f32 on the kernels must
      be token-identical to f32 on the plain versions, one request at a
      time through the servers and all 8 live together in one batch.
 The last two lines are the kernels JSON and the {"ok": true, ...} contract.
@@ -90,9 +94,24 @@ GRAD_FLOOR = 10 * 1e-8  # 10 x fused_adamw's eps: see _f32_parity
 # CUDA cores in both types), ms, on an H100 80GB HBM3 at 700 W (PERF.md):
 # K2 / K6 from this script's kernel phase run on commit 771fee6, K3 from its
 # run on commit 1349e5b; K8 and K10 before wgmma (their mma.sync kernels)
-# from its profile phase run on commit f3a8580. Keys: kernel, case, S,
-# causal, dtype.
+# from its profile phase run on commit f3a8580; K1 before its split and
+# suffix kernels (one CUDA-core kernel) and K9 before wgmma (mma.sync) from
+# its kernel and profile phases run on commit e03bd87. Keys: kernel, case,
+# S, causal, dtype (K1: the pools' dtype).
 EARLIER_MS = {
+    ("K1 paged_attention", "decode", 1, True, "bf16"): 0.0788,
+    ("K1 paged_attention", "decode", 1, True, "f32"): 0.0955,
+    ("K1 paged_attention", "decode", 1, True, "int8"): 0.0816,
+    ("K1 paged_attention", "verify", 5, True, "bf16"): 0.1036,
+    ("K1 paged_attention", "verify", 5, True, "f32"): 0.1181,
+    ("K1 paged_attention", "verify", 5, True, "int8"): 0.1109,
+    ("K1 paged_attention", "suffix", 256, True, "bf16"): 0.0997,
+    ("K1 paged_attention", "suffix", 256, True, "f32"): 0.1001,
+    ("K1 paged_attention", "suffix", 256, True, "int8"): 0.1089,
+    ("K9 flash_fwd_slim", "64x64", 1024, True, "bf16"): 0.2345,
+    ("K9 flash_fwd_slim", "64x128", 1024, True, "bf16"): 0.2972,
+    ("K9 flash_fwd_slim", "128x64", 1024, True, "bf16"): 0.2380,
+    ("K9 flash_fwd_slim", "128x128", 1024, True, "bf16"): 0.2800,
     ("K8 attn_dissect", "L0", 1024, True, "bf16"): 0.3749,
     ("K8 attn_dissect", "L1", 1024, True, "bf16"): 0.4048,
     ("K8 attn_dissect", "L2", 1024, True, "bf16"): 0.4656,
@@ -223,8 +242,8 @@ def phase_build() -> None:
         f"({len(report)} compiled, {len(_kernels.KERNELS) - len(report)} cached)")
     # The tensor-core kernels, by library and name: the bf16 forward (K2,
     # K6), the bf16 dQ and dK/dV kernels (K4, K5, K7), the bf16 one-block
-    # backward (K3) and K9 on mma.sync, K8 and K10 on wgmma with TMA loads,
-    # throughout ("" names every function). A name with no function, or a
+    # backward (K3) and K1's bf16 suffix kernel on mma.sync, K8, K9 and K10
+    # on wgmma with TMA loads, throughout ("" names every function). A name with no function, or a
     # function with no HMMA / HGMMA instruction, fails; so does a wgmma
     # library's function with no HGMMA, no UTMALDG, or any HMMA (a mma.sync
     # path left beside the wgmma one).
@@ -232,6 +251,7 @@ def phase_build() -> None:
                        ("flash_bwd", ("flash_bwd_dq_mma_kernel",
                                       "flash_bwd_dkv_mma_kernel")),
                        ("flash_bwd_fused", ("flash_bwd_fused_mma_kernel",)),
+                       ("paged_attention", ("paged_suffix_mma_kernel",)),
                        ("attn_dissect", ("",)), ("attn_slim", ("",)),
                        ("attn_subtile", ("",))):
         ops = sass_instructions(_kernels, lib)
@@ -249,7 +269,7 @@ def phase_build() -> None:
 
 
 # The libraries whose kernels run wgmma on TMA-loaded tiles (wgmma_tiles.cuh).
-WGMMA_LIBRARIES = ("attn_dissect", "attn_subtile")
+WGMMA_LIBRARIES = ("attn_dissect", "attn_slim", "attn_subtile")
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
 
 
@@ -318,6 +338,12 @@ def _paged_case(gen, b, s, ctx, dtype, kv):
     return q, kc, vc, tables, lens, nk, nv, ks, vs
 
 
+# K1's kernels: decode and verify launch the split kernel (and its merge when
+# the table spans more than one partition), a suffix one of the other two.
+K1_LAUNCHES = ("paged_split_kernel", "paged_merge_kernel",
+               "paged_suffix_mma_kernel", "paged_attention_kernel")
+
+
 def phase_kernels() -> list:
     from ray_tpu_torch.ops.attention import paged_attention
     from ray_tpu_torch.ops.flash_attention import (
@@ -353,9 +379,12 @@ def phase_kernels() -> list:
                 qs, kc, vc, tables, lens, new_k=nk, new_v=nv, sm_scale=1.0,
                 k_scale=ks, v_scale=vs,
             )
-            check_close(rows, "K1 paged_attention", {"o": kern()}, {"o": plain()},
+            got = {"o": kern()}
+            check_close(rows, "K1 paged_attention", got, {"o": plain()},
                         kv, case=label, B=b, S=s, ctx_max=max(ctx))
+            check_bitwise_repeat(rows, got, {"o": kern()}, f"K1 {label} {kv}")
             ms, plain_ms = time_ms(kern), time_ms(plain, reps=10)
+            launches_ms = device_ms_by_kernel(kern, K1_LAUNCHES)
             qb = dtype.itemsize
             kvb = 1 if kv == "int8" else qb
             tokens = sum(ctx)
@@ -368,7 +397,10 @@ def phase_kernels() -> list:
             pairs = sum(s * c for c in ctx) + b * s * (s + 1) // 2
             bms, by = bound(nbytes, 4 * D * H * pairs, dtype)
             rows[-1].update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                            bound_ms=bms, bound_us=bms * 1e3, bound_by=by)
+                            bound_ms=bms, bound_us=bms * 1e3, bound_by=by,
+                            launches_ms={k: v for k, v in launches_ms.items() if v},
+                            earlier_ms=EARLIER_MS.get(
+                                ("K1 paged_attention", label, s, True, kv)))
             log(json.dumps(rows[-1]))
     # Prefill lengths (S = 200 and 1000 end inside a 64-row tile), and one
     # non-causal row.
@@ -654,7 +686,8 @@ def profile_kernel_rows(rows: list, profiled: dict) -> None:
     well (`compare`'s per_row). Each variant runs twice and must repeat bit
     for bit; its row also carries the share of each output's elements
     bit-identical to the plain version's and the earlier kernel's time
-    (EARLIER_MS)."""
+    (EARLIER_MS), and K9's the device time of its kernel alone (`kernel_ms`:
+    the row's time includes the wrapper's prescale of q)."""
     from ray_tpu_torch.ops import attn_profile as ap
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -694,6 +727,9 @@ def profile_kernel_rows(rows: list, profiled: dict) -> None:
         check_close(rows, name, got, want, "bf16", per_row=per_row,
                     case=case, B=PROF_B, S=PROF_S)
         check_bitwise_repeat(rows, got, kern(), f"{name} {case}")
+        if name == "K9 flash_fwd_slim":  # the kernel apart from q's prescale
+            rows[-1]["kernel_ms"] = device_ms_by_kernel(
+                kern, ("flash_fwd_slim_kernel",))["flash_fwd_slim_kernel"]
         rows[-1].update(ms=r["ms"], plain_ms=time_ms(plain, reps=3), library_ms=lib_ms,
                         bound_ms=r["bound_ms"], bound_us=r["bound_ms"] * 1e3,
                         bound_by=r["bound_by"], tflops=r["tflops"],
@@ -1247,10 +1283,15 @@ def phase_server() -> dict:
     summary["profiled_wall_s"] = wall_p
     summary["device_busy_share"] = busy_s / wall_p
     summary["top_kernels_ms"] = {k[:60]: v / 1e3 for k, v in top}
+    # K1's kernels (K1_LAUNCHES) apart: their device time in the run.
+    summary["k1_device_ms"] = {
+        n: sum(v for k, v in device_us.items() if n in k) / 1e3
+        for n in K1_LAUNCHES}
     log("[server] profiled: " + json.dumps({
         "wall_s": wall_p, "device_busy_s": busy_s,
         "device_busy_share": busy_s / wall_p,
         "top_kernels_ms": summary["top_kernels_ms"],
+        "k1_device_ms": summary["k1_device_ms"],
     }))
 
     # bf16: agreement with the plain path (reported, not asserted: the

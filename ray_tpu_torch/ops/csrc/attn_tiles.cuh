@@ -1,8 +1,8 @@
 // The bf16 attention kernels' tile machinery, in one place: the forward
 // flash_fwd_mma_kernel (flash_fwd.cu: K2, K6), the blockwise backward
 // (flash_bwd.cu: K4, K5, K7), the one-block backward (flash_bwd_fused.cu:
-// K3) and the profiling kernels (attn_dissect.cu: K8, attn_slim.cu: K9,
-// attn_subtile.cu: K10) are built from it. Warps of
+// K3) and the paged suffix kernel (paged_attention.cu: K1, whose K and V
+// tiles are gathered through a block table) are built from it. Warps of
 // 16 query rows keep q in registers as m16n8k16 A fragments; K and V tiles
 // pass through a two-stage cp.async ring of rows padded by 16 bytes;
 // S = Q K^T and O += P V run on mma.sync with f32 accumulators, and P is
@@ -10,7 +10,7 @@
 // its five products as these two, on other operands.
 //
 // Operands are read through a row stride (the [B, S, H, D] layouts of the
-// forward, the packed qkv, or the profiling scripts' contiguous [BH, S, D])
+// forward and the paged suffix, or the packed qkv)
 // with a unit stride along D; rows at or past the operand's length read as
 // zeros and are never loaded or stored.
 #pragma once

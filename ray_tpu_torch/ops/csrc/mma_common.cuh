@@ -1,6 +1,7 @@
 // Shared tensor-core building blocks of the bf16 attention kernels
 // (flash_fwd.cu: K2, K6; flash_bwd.cu: K4, K5, K7; flash_bwd_fused.cu: K3;
-// attn_dissect.cu: K8; attn_slim.cu: K9; attn_subtile.cu: K10): cp.async
+// paged_attention.cu: K1; attn_dissect.cu: K8; attn_slim.cu: K9;
+// attn_subtile.cu: K10): cp.async
 // copies, ldmatrix, the m16n8k16 bf16 mma.sync with an f32 accumulator, and
 // the quad reductions that take a row's max and sum across the four lanes
 // holding it.

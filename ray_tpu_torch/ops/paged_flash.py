@@ -1,18 +1,25 @@
-"""Fused paged attention for the serving hot path: a hand-written CUDA
-kernel (``csrc/paged_attention.cu``) walking each sequence's block table.
+"""Fused paged attention for the serving hot path: hand-written CUDA
+kernels (``csrc/paged_attention.cu``) walking each sequence's block table.
 
 The plain path (`ops.paged_attention`) gathers whole pages —
 ``k_cache[block_tables]`` materializes [B, nb*bs, H, D] every step — and
-runs a full-matrix softmax over [B, H, Q, K] logits. The kernel reads each
-cache block through the table once, masks at the context length, and folds
-it into an f32 online softmax; neither the gathered pages nor the logits
-reach device memory. The new tokens' K/V (not yet scattered into the pool)
-are folded in last under a causal mask. Rows with no valid key come out as
-exact zeros, matching `finalize_partial`'s l == 0 hygiene.
+runs a full-matrix softmax over [B, H, Q, K] logits. The kernels read each
+cache block through the table once, mask at the context length, and fold it
+into an f32 online softmax; neither the gathered pages nor the logits reach
+device memory. The new tokens' K/V (not yet scattered into the pool) are
+folded in causally. Rows with no valid key come out as exact zeros,
+matching `finalize_partial`'s l == 0 hygiene.
 
-Covers both generation shapes of ray_tpu_torch.llm: decode (S == 1) and
-prefix-aware partial prefill (S > 1: the uncached suffix attends the cached
-prefix through the table and itself causally).
+Covers both generation shapes of ray_tpu_torch.llm, by the number of query
+rows S:
+- decode and verify (S <= SPLIT_MAX_S): the context is split into
+  partitions of PART_PAGES pages, one block each, whose partial softmax
+  states a second kernel merges in partition order (`split_plan`; the plain
+  form of that algorithm is `paged_attention_split_reference`);
+- prefix-aware partial prefill (S > SPLIT_MAX_S: the uncached suffix
+  attends the cached prefix through the table and itself causally): tiles
+  of 64 query rows on the tensor cores for bf16 q with bf16 or int8 pools
+  (head_dim 32, 64 or 128), CUDA-core f32 math for f32 q or f32 pools.
 
 int8 KV cache: the pools store int8 with per-token, per-head bf16 scales
 (written by `quantize_kv` at scatter time — per-token scales are the only
@@ -25,13 +32,20 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.ops import _kernels
-from ray_tpu_torch.ops.attention import paged_attention, validate_kv_scales
+from ray_tpu_torch.ops.attention import (
+    _chunk_attn_partial,
+    dequantize_kv,
+    finalize_partial,
+    merge_partials,
+    paged_attention,
+    validate_kv_scales,
+)
 
 # Storage dtype for the KV-cache scale tensors. bf16 keeps the scale
 # overhead at 2 bytes per (token, head). All scale MATH is f32;
@@ -41,10 +55,48 @@ KV_SCALE_DTYPE = torch.bfloat16
 
 _ARGTYPES = {
     "paged_attention_launch": [ctypes.c_int, ctypes.c_int]
-    + [ctypes.c_void_p] * 10
-    + [ctypes.c_int] * 6
-    + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 11
+    + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p],
 }
+
+# Decode and verify: up to this many query rows go through the split kernel
+# (its SPLIT_MAX_ROWS); longer suffixes through the suffix kernels.
+SPLIT_MAX_S = 8
+# Pages of the context a partition of the split kernel covers.
+PART_PAGES = 16
+# head_dims of the bf16 suffix kernel (tensor cores).
+SUFFIX_HEAD_DIMS = (32, 64, 128)
+
+
+class SplitPlan(NamedTuple):
+    """How the split kernel cuts a call: `part_pages` pages (`part_tokens`
+    tokens) a partition, `n_part` partitions, a grid of (B * H, n_part)
+    blocks, and the f32 partials' workspace [B, H, n_part, S, D + 2], None
+    when one partition covers the whole table (each slot is then written
+    directly). Everything follows from the shapes alone — the table's width
+    nb, the page size bs and S — never from the context lengths, so the host
+    reads nothing back from the card."""
+
+    part_pages: int
+    part_tokens: int
+    n_part: int
+    grid: Tuple[int, int]
+    workspace: Optional[Tuple[int, int, int, int, int]]
+
+
+def split_plan(
+    b: int, s: int, h: int, d: int, nb: int, bs: int
+) -> Optional[SplitPlan]:
+    """The split kernel's plan for q [b, s, h, d] over tables of nb pages of
+    bs tokens, or None when S is above SPLIT_MAX_S (the suffix kernels)."""
+    if s > SPLIT_MAX_S:
+        return None
+    n_part = -(-nb // PART_PAGES)
+    workspace = (b, h, n_part, s, d + 2) if n_part > 1 else None
+    return SplitPlan(
+        PART_PAGES, PART_PAGES * bs, n_part, (b * h, n_part), workspace
+    )
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -118,6 +170,12 @@ def _check_kernel_inputs(q, k_cache, v_cache, block_tables, context_lens,
         raise ValueError("block_tables [B, nb] / context_lens [B] mismatch q")
     if d > 128:
         raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
+    if (s > SPLIT_MAX_S and q.dtype == torch.bfloat16
+            and k_cache.dtype != torch.float32 and d not in SUFFIX_HEAD_DIMS):
+        raise ValueError(
+            f"head_dim {d}: the bf16 suffix kernel (S > {SPLIT_MAX_S}) is "
+            f"built for {SUFFIX_HEAD_DIMS}"
+        )
     # The kernel stages rows in 16-byte units.
     for name in ("q", "k_cache", "new_k"):
         t = tensors[name]
@@ -149,11 +207,14 @@ def paged_flash_attention(
     Same contract as :func:`ray_tpu_torch.ops.paged_attention` — q
     [B, S, H, D], k/v_cache [N, bs, H, D] pools, block_tables [B, nb]
     (0-padded), context_lens [B] — except `new_k`/`new_v` are REQUIRED.
-    q is prescaled by sm_scale in its storage dtype before the launch (the
-    reference scales the f32 logits instead; the two round differently).
+    q is prescaled by sm_scale and rounded to its storage dtype (by the
+    kernels as they stage it; the reference scales the f32 logits instead,
+    and the two round differently).
 
-    CUDA tensors launch the kernel (or raise); CPU tensors run the plain
-    version, `paged_attention`, on the same prescaled q.
+    CUDA tensors launch the kernels (or raise): the split kernel and its
+    merge at S <= SPLIT_MAX_S (`split_plan`), else a suffix kernel; the
+    launch counter moves once per call. CPU tensors run the plain version,
+    `paged_attention`, on the same prescaled q.
     """
     if new_k is None or new_v is None:
         raise ValueError(
@@ -165,8 +226,8 @@ def paged_flash_attention(
     b, s, h, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    q = (q.float() * sm_scale).to(q.dtype)
     if q.device.type == "cpu":
+        q = (q.float() * sm_scale).to(q.dtype)
         return paged_attention(
             q, k_cache, v_cache, block_tables, context_lens,
             new_k=new_k, new_v=new_v, sm_scale=1.0,
@@ -174,11 +235,17 @@ def paged_flash_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_attention: unsupported device {q.device}")
+    q = q.contiguous()  # the model's q is a view of its qkv projection
     _check_kernel_inputs(q, k_cache, v_cache, block_tables, context_lens,
                          new_k, new_v, k_scale, v_scale)
     out = torch.empty_like(q)
     if b * s == 0:
         return out
+    nb, bs = block_tables.shape[1], k_cache.shape[1]
+    plan = split_plan(b, s, h, d, nb, bs)
+    workspace = None
+    if plan is not None and plan.workspace is not None:
+        workspace = torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
     lib = _kernels.library("paged_attention", _ARGTYPES)
     err = lib.paged_attention_launch(
         _kernels.dtype_code(q.dtype), _kernels.dtype_code(k_cache.dtype),
@@ -187,7 +254,8 @@ def paged_flash_attention(
         None if v_scale is None else v_scale.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(),
         new_k.data_ptr(), new_v.data_ptr(), out.data_ptr(),
-        b, s, h, d, k_cache.shape[1], block_tables.shape[1],
+        None if workspace is None else workspace.data_ptr(),
+        b, s, h, d, bs, nb, 0 if plan is None else plan.part_pages, sm_scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _kernels.check(err, "paged_attention")
@@ -196,6 +264,56 @@ def paged_flash_attention(
 
 
 paged_flash_attention.launches = 0
+
+
+def paged_attention_split_reference(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    *,
+    new_k: torch.Tensor,
+    new_v: torch.Tensor,
+    sm_scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of the split kernel's algorithm (tests use it; the
+    serving path does not): the gathered context cut into the partitions of
+    `split_plan` (PART_PAGES pages each, whatever S), partition 0 also
+    holding the new tokens under the causal mask; one f32 partial
+    (o, m, l) per partition (`_chunk_attn_partial`), merged in partition
+    order by `merge_partials` and normalised by `finalize_partial`. A
+    partition past the context has m = NEG_INF and l = 0 and merges to
+    nothing. Same contract as `paged_attention` with new_k / new_v required;
+    int8 pools are dequantized as there. Returns [B, S, H, D] in q's dtype."""
+    validate_kv_scales(k_cache, v_cache, k_scale, v_scale)
+    b, s, h, d = q.shape
+    nb, bs = block_tables.shape[1], k_cache.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    tables = block_tables.long()
+    k_ctx = k_cache[tables].reshape(b, nb * bs, h, d)
+    v_ctx = v_cache[tables].reshape(b, nb * bs, h, d)
+    if k_scale is not None:
+        k_ctx = dequantize_kv(k_ctx, k_scale[tables].reshape(b, nb * bs, h)).to(q.dtype)
+        v_ctx = dequantize_kv(v_ctx, v_scale[tables].reshape(b, nb * bs, h)).to(q.dtype)
+    pt = PART_PAGES * bs
+    lens = context_lens.to(q.device).clamp(0, nb * bs)
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    acc = None
+    for t0 in range(0, nb * bs, pt):
+        pos = torch.arange(t0, min(t0 + pt, nb * bs), device=q.device)
+        mask = (pos[None, :] < lens[:, None])[:, None, None, :].expand(b, 1, s, -1)
+        k, v = k_ctx[:, t0:t0 + pt], v_ctx[:, t0:t0 + pt]
+        if t0 == 0:  # partition 0 also folds the new tokens, causally
+            k = torch.cat([k.float(), new_k.float()], dim=1)
+            v = torch.cat([v.float(), new_v.float()], dim=1)
+            mask = torch.cat([mask, causal[None, None].expand(b, 1, s, s)], dim=-1)
+        part = _chunk_attn_partial(q, k, v, sm_scale, mask)
+        acc = part if acc is None else merge_partials(*acc, *part)
+    return finalize_partial(acc[0], acc[1], acc[2]).to(q.dtype)
 
 
 def paged_attention_impl(

@@ -64,12 +64,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _paged_inputs(device, dtype, kv, b=3, s=5, h=4, d=64, bs=16, nb=4):
+def _paged_inputs(device, dtype, kv, b=3, s=5, h=4, d=64, bs=16, nb=4,
+                  lens=(0, 17, 64)):
     rng = np.random.RandomState(11)
     t = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32))
     q, nk, nv = t(b, s, h, d), t(b, s, h, d), t(b, s, h, d)
     kc, vc = t(b * nb + 1, bs, h, d), t(b * nb + 1, bs, h, d)
-    lens = torch.tensor([0, 17, 64][:b], dtype=torch.int32)
+    lens = torch.tensor(list(lens)[:b], dtype=torch.int32)
     tables = torch.from_numpy(rng.permutation(np.arange(1, b * nb + 1)).reshape(b, nb))
     used = (lens + bs - 1) // bs
     tables = torch.where(torch.arange(nb)[None] < used[:, None], tables, 0).int()
@@ -96,11 +97,28 @@ def test_paged_kernel_matches_plain(cuda, kv, s):
     got = paged_flash_attention(q, kc, vc, tables, lens, new_k=nk, new_v=nv,
                                 k_scale=ks, v_scale=vs)
     assert paged_flash_attention.launches == before + 1
-    qs = (q.float() / 8.0).to(q.dtype)  # the wrapper's prescale, D = 64
+    qs = (q.float() / 8.0).to(q.dtype)  # the kernels' prescale, D = 64
     want = paged_attention(qs, kc, vc, tables, lens, new_k=nk, new_v=nv,
                            sm_scale=1.0, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 40])
+def test_paged_kernel_takes_q_as_a_view_of_qkv(cuda, s):
+    """The model hands the kernel q as a strided view of its packed qkv
+    projection: the same output as a contiguous q, on the split (S = 1) and
+    the suffix (S = 40) paths."""
+    q, kc, vc, tables, lens, nk, nv, _, _ = _paged_inputs(
+        cuda, torch.bfloat16, "bf16", s=s)
+    qkv = torch.cat([q, nk, nv], dim=-1)  # [B, S, H, 3D]
+    view = qkv[..., :64]
+    assert not view.is_contiguous()
+    got = paged_flash_attention(view, kc, vc, tables, lens, new_k=nk, new_v=nv)
+    want = paged_flash_attention(q, kc, vc, tables, lens, new_k=nk, new_v=nv)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -110,6 +128,81 @@ def test_paged_kernel_refuses_what_it_cannot_take(cuda):
         paged_flash_attention(q, kc, vc, tables, lens, new_k=nk.transpose(1, 2).contiguous().transpose(1, 2), new_v=nv)
     with pytest.raises(ValueError, match="int32"):
         paged_flash_attention(q, kc, vc, tables.long(), lens, new_k=nk, new_v=nv)
+
+
+# Contexts at the split kernel's partition edges (PART_PAGES pages of 16
+# tokens: 256 tokens a partition), at 0, and a full table of 48 pages.
+_SPLIT_CTX = [0, 1, 255, 256, 257, 511, 512, 768]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("s", [1, 5, 8, 9, 40])
+def test_paged_split_and_suffix_kernels_match_plain_twice(cuda, kv, s):
+    """Both sides of the decode/suffix threshold (SPLIT_MAX_S = 8): the
+    split kernel and its merge (S <= 8) and the suffix kernels (S > 8), with
+    pages in random order, contexts at 0 and at the partition edges, every
+    pool dtype. Held to chip_smoke's LIMITS against the plain version, and
+    the same bit for bit on a second run (the partitions merge in a fixed
+    order, without atomics)."""
+    from ray_tpu_torch.ops.paged_flash import SPLIT_MAX_S, split_plan
+
+    dtype = torch.float32 if kv == "f32" else torch.bfloat16
+    b, nb = len(_SPLIT_CTX), 48
+    q, kc, vc, tables, lens, nk, nv, ks, vs = _paged_inputs(
+        cuda, dtype, kv, b=b, s=s, nb=nb, lens=_SPLIT_CTX)
+    plan = split_plan(b, s, 4, 64, nb, 16)
+    assert (plan is None) == (s > SPLIT_MAX_S)
+    call = lambda: paged_flash_attention(q, kc, vc, tables, lens, new_k=nk,
+                                         new_v=nv, k_scale=ks, v_scale=vs)
+    before = paged_flash_attention.launches
+    got, again = call(), call()
+    assert paged_flash_attention.launches == before + 2
+    qs = (q.float() / 8.0).to(q.dtype)  # the kernels' prescale, D = 64
+    want = paged_attention(qs, kc, vc, tables, lens, new_k=nk, new_v=nv,
+                           sm_scale=1.0, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_limits(got, want, ("K1", kv, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("d", [32, 128])
+def test_paged_suffix_kernel_head_dims(cuda, kv, d):
+    """The bf16 suffix kernel at its other head_dims (64 above), a suffix of
+    70 rows (two query tiles, the second partial) over contexts that end
+    inside a key tile."""
+    q, kc, vc, tables, lens, nk, nv, ks, vs = _paged_inputs(
+        cuda, torch.bfloat16, kv, b=3, s=70, d=d, nb=8, lens=[0, 37, 128])
+    got = paged_flash_attention(q, kc, vc, tables, lens, new_k=nk, new_v=nv,
+                                k_scale=ks, v_scale=vs)
+    qs = (q.float() * d ** -0.5).to(q.dtype)
+    want = paged_attention(qs, kc, vc, tables, lens, new_k=nk, new_v=nv,
+                           sm_scale=1.0, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    _assert_limits(got, want, ("K1 suffix", kv, d))
+
+
+@pytest.mark.cuda
+def test_paged_suffix_kernel_refuses_other_head_dims(cuda):
+    """A bf16 suffix at a head_dim the tensor-core kernel is not built for
+    raises before any launch; decode at that head_dim takes the split
+    kernel."""
+    q, kc, vc, tables, lens, nk, nv, _, _ = _paged_inputs(
+        cuda, torch.bfloat16, "bf16", s=40, d=48)
+    before = paged_flash_attention.launches
+    with pytest.raises(ValueError, match="suffix kernel"):
+        paged_flash_attention(q, kc, vc, tables, lens, new_k=nk, new_v=nv)
+    assert paged_flash_attention.launches == before
+    one = [t[:, :1].contiguous() for t in (q, nk, nv)]
+    got = paged_flash_attention(one[0], kc, vc, tables, lens, new_k=one[1],
+                                new_v=one[2])
+    qs = (one[0].float() * 48 ** -0.5).to(q.dtype)
+    want = paged_attention(qs, kc, vc, tables, lens, new_k=one[1],
+                           new_v=one[2], sm_scale=1.0)
+    torch.cuda.synchronize()
+    _assert_limits(got, want, ("K1 split", 48))
 
 
 @pytest.mark.cuda
@@ -603,6 +696,23 @@ def test_slim_kernel_matches_plain(cuda, s, block_q, block_k, d):
     torch.cuda.synchronize()
     _assert_limits(o, want_o, ("K9", "o"))
     _assert_limits(lse, want_lse, ("K9", "lse"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_q,block_k", [(64, 64), (64, 128), (128, 64), (128, 128)])
+@pytest.mark.parametrize("d", [32, 64])
+def test_slim_kernel_head_group_tail_repeats_bit_for_bit(cuda, block_q, block_k, d):
+    """K9 with BH = 19: one group of 16 heads and a tail of 3 (block_tile
+    takes the heads 16 at a time). Every tile and both D, held to LIMITS
+    against the plain version and the same bit for bit on a second run."""
+    q, k, v = _bhsd(cuda, 256, d=d, bh=19, seed=70 + d)
+    o, lse = ap.flash_fwd_slim(q, k, v, block_q=block_q, block_k=block_k)
+    o2, lse2 = ap.flash_fwd_slim(q, k, v, block_q=block_q, block_k=block_k)
+    want_o, want_lse = ap.flash_fwd_slim_reference(q, k, v, block_k=block_k)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _assert_limits(o, want_o, ("K9", "o", block_q, block_k, d))
+    _assert_limits(lse, want_lse, ("K9", "lse", block_q, block_k, d))
 
 
 @pytest.mark.cuda
