@@ -51,7 +51,18 @@ Phases, each fatal on failure:
      torch.profiler gives the card's busy share and K1's kernels' device
      time; then f32 on the kernels must
      be token-identical to f32 on the plain versions, one request at a
-     time through the servers and all 8 live together in one batch.
+     time through the servers and all 8 live together in one batch;
+  8. modes   — the serving modes on the same model (bf16 unless said): (a)
+     the server phase's traffic with async scheduling off, on, on, off
+     (tokens/s, TTFT, step and host-gap p50, the chained share, and at how
+     many chained dispatches the step chained from was still running);
+     decode_async enqueued on a parked card under torch's sync debug mode;
+     (b) ngram k = 4 and a 2-layer draft at k = 8 on a repetitive and a
+     random prompt set (acceptance; K1's split and suffix kernels both
+     launched by verify at k = 8); (c) async with ngram; (d) in f32, one
+     deterministic batch token-identical across the sync kernel path, the
+     plain path, async, ngram, a draft with the target's weights (every
+     proposal accepted) and async + ngram.
 The last two lines are the kernels JSON and the {"ok": true, ...} contract.
 """
 
@@ -1340,6 +1351,352 @@ def phase_server() -> dict:
     return summary
 
 
+def _spec_prompt_sets(rng) -> dict:
+    """The reference microbenchmark's two speculation sets
+    (benchmarks/microbenchmark.py): "repetitive", 8 prompts each a 6-token
+    phrase repeated to 32 tokens, and "random", 8 x 32 tokens."""
+    vocab = 50257
+    repetitive = [(list(rng.randint(0, vocab, 6)) * 6)[:32] for _ in range(8)]
+    return {"repetitive": repetitive,
+            "random": [list(rng.randint(0, vocab, 32)) for _ in range(8)]}
+
+
+def _k1_zero() -> None:
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+
+    paged_flash_attention.launches = 0
+    paged_flash_attention.routes.update(dict.fromkeys(paged_flash_attention.routes, 0))
+    flash_attention_fwd.launches = 0
+
+
+def _k1_read() -> dict:
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+
+    return {"K1 paged_attention": paged_flash_attention.launches,
+            "K1 routes": dict(paged_flash_attention.routes),
+            "K2 flash_fwd": flash_attention_fwd.launches}
+
+
+def _instrument_runner(server) -> dict:
+    """Wrap the engine's runner (instance attributes, the engine calls
+    through them): at each chained decode_async, whether the step it chains
+    from is still running on the card; after each fresh or chained
+    dispatch, whether that step is (its enqueue did not wait for it); and
+    K1's launches inside verify by route and fed width."""
+    from ray_tpu_torch.llm.model_runner import DeviceTokens
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+
+    runner = server.engine.runner
+    seen = {"chained_pending": [], "own_pending": [], "enqueue_s": [],
+            "verify_routes": {}}
+    decode_async, verify = runner.decode_async, runner.verify
+
+    def wrapped_decode_async(tokens, *args):
+        if isinstance(tokens, DeviceTokens):
+            seen["chained_pending"].append(tokens.pending())
+        t0 = time.perf_counter()
+        out = decode_async(tokens, *args)
+        seen["enqueue_s"].append(time.perf_counter() - t0)
+        seen["own_pending"].append(out.pending())
+        return out
+
+    def wrapped_verify(tokens, *args):
+        before = dict(paged_flash_attention.routes)
+        out = verify(tokens, *args)
+        per = seen["verify_routes"].setdefault(tokens.shape[1], {})
+        for route, n in paged_flash_attention.routes.items():
+            per[route] = per.get(route, 0) + n - before[route]
+        return out
+
+    runner.decode_async, runner.verify = wrapped_decode_async, wrapped_verify
+    return seen
+
+
+def _share(flags) -> float:
+    return sum(flags) / len(flags) if flags else 0.0
+
+
+def _mode_run(server, prompts, n_new, seen=None) -> tuple:
+    """One run of `prompts` through the server (each from its own thread),
+    the K1 / K2 counters zeroed just before and read just after → (the
+    run's figures, its tokens): tokens/s, TTFT p50, step p50 and host-gap
+    p50 from the run's flight records; the chained share; the speculation
+    counts (summed over the batch at each verify step)."""
+    server.reset_prefix_cache()
+    first = server.metrics()["steps"]
+    if seen is not None:
+        for v in seen.values():
+            v.clear()
+    _k1_zero()
+    results, ttft, wall = _concurrent(server, prompts, n_new)
+    launches = _k1_read()
+    if any(r is None or len(r) != n_new for r in results):
+        fail(f"not every request finished with {n_new} tokens: "
+             f"{[None if r is None else len(r) for r in results]}")
+    steps = [r for r in server.flight_record()["steps"] if r["step"] >= first]
+    gaps = [r["host_gap_s"] for r in steps if r["host_gap_s"] is not None]
+    dispatching = [r for r in steps if "decode" in r["phase"] or "verify" in r["phase"]]
+    verify = [r["speculation"] for r in steps if "speculation" in r]
+    proposed = sum(v["proposed"] for v in verify)
+    accepted = sum(v["accepted"] for v in verify)
+    out = {
+        "tokens_per_s": n_new * len(prompts) / wall,
+        "ttft_p50_s": statistics.median(ttft),
+        "step_p50_s": statistics.median(r["duration_s"] for r in steps),
+        "host_gap_p50_s": statistics.median(gaps) if gaps else None,
+        "steps": len(steps),
+        "chained_share": _share([bool(r.get("chained")) for r in dispatching]),
+        "verify_steps": len(verify),
+        "accepted_per_verify_step": accepted / len(verify) if verify else None,
+        "emitted_per_verify_step": (
+            sum(v["emitted"] for v in verify) / len(verify) if verify else None),
+        "acceptance_rate": accepted / proposed if proposed else None,
+        "launches": launches,
+    }
+    if seen is not None:
+        out["chained_dispatches"] = len(seen["chained_pending"])
+        out["chained_pending_share"] = _share(seen["chained_pending"])
+        out["dispatch_pending_share"] = _share(seen["own_pending"])
+        out["decode_async_enqueue_p50_s"] = (
+            statistics.median(seen["enqueue_s"]) if seen["enqueue_s"] else None)
+        out["verify_routes"] = {w: dict(r) for w, r in seen["verify_routes"].items()}
+    return out, results
+
+
+def _agreement(got, want) -> float:
+    """Share of generated tokens equal at the same position (bf16 runs of
+    another batch composition or fed width may flip near-ties)."""
+    return float(np.mean([a == b for x, y in zip(got, want) for a, b in zip(x, y)]))
+
+
+def _serving_server(ecfg, params=None, draft_params=None):
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    server = LLMServer(gpt2_125m(), ecfg, params=params, seed=0,
+                       draft_params=draft_params)
+    return server, _instrument_runner(server)
+
+
+def _top2_margin(model, prompt, toks, j) -> float:
+    """The top-2 logit margin of the model (f32, plain attention) at the
+    position that emits generated token j."""
+    ids = torch.tensor([list(prompt) + list(toks[:j])],
+                       device=next(model.parameters()).device)
+    with torch.no_grad():
+        top = torch.topk(model(ids)[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _decode_async_enqueue_check(runner) -> dict:
+    """decode_async enqueues without a stream synchronise: with the card
+    parked on a spin kernel, a fresh and a chained dispatch return while
+    the card is still busy (their steps pending), under torch's sync debug
+    mode "error" (which raises on any synchronising call). Both then match
+    the synchronous decode on the same inputs (every slot on the null
+    block, so both orders leave the pools alike)."""
+    ecfg = runner.engine_config
+    slots, nb = ecfg.max_decode_slots, ecfg.max_blocks_per_seq
+    tokens = np.arange(1, slots + 1, dtype=np.int32) * 997
+    zeros = np.zeros((slots,), np.int32)
+    tables = np.zeros((slots, nb), np.int32)
+    want = runner.decode(tokens, zeros, tables, zeros)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning on the card
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = runner.decode_async(tokens, zeros, tables, zeros)
+        chained = runner.decode_async(first, zeros, tables, zeros)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    pending = (first.pending(), chained.pending())
+    got, got2 = first.fetch(), chained.fetch()
+    want2 = runner.decode(got, zeros, tables, zeros)
+    if not all(pending):
+        fail(f"decode_async waited for the card: pending after enqueue {pending}")
+    if not (np.array_equal(got, want) and np.array_equal(got2, want2)):
+        fail("decode_async (fresh or chained) differs from decode")
+    return {"enqueue_ms": enqueue_ms, "pending_after_enqueue": list(pending)}
+
+
+def phase_serving_modes() -> dict:
+    """Async decode and speculation on GPT-2 125M at full width: (a) async
+    off / on / on / off on the server phase's traffic; (b) ngram k = 4 and
+    a 2-layer draft at k = 8 on the repetitive and random sets; (c) async
+    with ngram; (d) f32 token identity of async, ngram, draft (the target's
+    own weights) and async + ngram against the sync kernel path and the
+    plain path, on one deterministic batch."""
+    import dataclasses
+
+    from ray_tpu_torch.llm import LLMEngine
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    t_phase = time.perf_counter()
+    n_new = 32
+    summary = {}
+    prompts = _prompts(np.random.RandomState(0))
+    sets = _spec_prompt_sets(np.random.RandomState(1))
+    base = _engine_config()
+
+    # (a) async off / on / on / off, one server each on the same weights.
+    off, _ = _serving_server(base)
+    weights = off.engine.runner.model.state_dict()
+    on, seen = _serving_server(dataclasses.replace(base, async_scheduling=True),
+                               params=weights)
+    runs, tokens = [], {}
+    for label, server in (("off", off), ("on", on), ("on", on), ("off", off)):
+        r, toks = _mode_run(server, prompts, n_new, seen if server is on else None)
+        r["async"] = label
+        if label in tokens:
+            r["bf16_agreement_with_first_" + label] = _agreement(toks, tokens[label])
+        tokens.setdefault(label, toks)
+        if label == "on":
+            r["bf16_agreement_with_off"] = _agreement(toks, tokens["off"])
+        runs.append(r)
+        log("[modes] (a) async " + json.dumps(r))
+    for r in runs:
+        if r["async"] == "on" and (r["chained_share"] <= 0
+                                   or not r["chained_dispatches"]):
+            fail(f"async run never chained: {r}")
+        for k in ("K1 paged_attention", "K2 flash_fwd"):
+            if r["launches"][k] <= 0:
+                fail(f"(a) {k} was not launched in an async {r['async']} run")
+    summary["async"] = runs
+    # Why nothing overlaps: one more async run under torch.profiler gives
+    # the card's busy time per decode dispatch, beside the host's enqueue.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r, _ = _mode_run(on, prompts, n_new, seen)
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    dispatches = len(seen["enqueue_s"])
+    summary["async_profiled"] = {
+        "device_busy_ms": busy_ms, "wall_s": n_new * len(prompts) / r["tokens_per_s"],
+        "decode_dispatches": dispatches,
+        "device_busy_ms_per_dispatch": busy_ms / max(dispatches, 1),
+        "decode_async_enqueue_p50_ms": (r["decode_async_enqueue_p50_s"] or 0) * 1e3,
+    }
+    log("[modes] (a) async profiled " + json.dumps(summary["async_profiled"]))
+    summary["decode_async_enqueue"] = _decode_async_enqueue_check(on.engine.runner)
+    log("[modes] decode_async enqueue: " + json.dumps(summary["decode_async_enqueue"]))
+    # The speculation sets without speculation: (b)'s yardstick.
+    plain_sets = {}
+    for name, ps in sets.items():
+        r, plain_sets[name] = _mode_run(off, ps, n_new)
+        summary[f"off {name}"] = r
+        log(f"[modes] (b) off {name} " + json.dumps(r))
+    _free(off, on)
+
+    # (b) speculation: ngram k = 4, a 2-layer draft at k = 8.
+    spec_runs = {}
+    for mode, k in (("ngram", 4), ("draft", 8)):
+        ecfg = dataclasses.replace(base, speculation=mode, num_speculative_tokens=k,
+                                   draft_model_config=(gpt2_125m(num_layers=2)
+                                                       if mode == "draft" else None))
+        server, seen = _serving_server(ecfg, params=weights)
+        for name, ps in sets.items():
+            r, toks = _mode_run(server, ps, n_new, seen)
+            r.update(mode=mode, k=k, prompts=name,
+                     tokens_per_s_over_off=(r["tokens_per_s"]
+                                            / summary[f"off {name}"]["tokens_per_s"]),
+                     bf16_agreement_with_off=_agreement(toks, plain_sets[name]))
+            spec_runs[f"{mode} k={k} {name}"] = r
+            log(f"[modes] (b) {mode} k={k} {name} " + json.dumps(r))
+            if r["verify_steps"] <= 0:
+                fail(f"(b) {mode} {name}: no verify step ran")
+            if k == 8:
+                wide = r["verify_routes"].get(9, {})
+                narrow = {w: v for w, v in r["verify_routes"].items() if w <= 8}
+                if wide.get("suffix_mma", 0) <= 0 or not any(
+                        v.get("split", 0) > 0 for v in narrow.values()):
+                    fail(f"(b) verify at k=8 did not launch both K1 routes: "
+                         f"{r['verify_routes']}")
+        _free(server)
+    summary["speculation"] = spec_runs
+
+    # (c) async with ngram: every verify step flushes the pipeline.
+    server, seen = _serving_server(
+        dataclasses.replace(base, async_scheduling=True, speculation="ngram"),
+        params=weights)
+    r, toks = _mode_run(server, sets["repetitive"], n_new, seen)
+    r["bf16_agreement_with_off"] = _agreement(toks, plain_sets["repetitive"])
+    log("[modes] (c) async + ngram k=4 repetitive " + json.dumps(r))
+    summary["async_ngram"] = r
+    _free(server)
+
+    # (d) f32 identity on one deterministic batch (the engines' own
+    # generate): the server phase's prompts and the repetitive set.
+    batch = prompts + sets["repetitive"]
+    f32 = gpt2_125m(dtype=torch.float32)
+    ref_engine = LLMEngine(f32, base, seed=0)
+    f32_weights = ref_engine.runner.model.state_dict()
+    want = ref_engine.generate(batch, max_new_tokens=n_new)
+    plain_engine = LLMEngine(gpt2_125m(dtype=torch.float32, attention_impl="reference"),
+                             _replace_attn(), params=f32_weights)
+    plain = plain_engine.generate(batch, max_new_tokens=n_new)
+    modes = {
+        "async": (dataclasses.replace(base, async_scheduling=True), None),
+        "ngram k=4": (dataclasses.replace(base, speculation="ngram"), None),
+        "draft k=8 (target weights)": (dataclasses.replace(
+            base, speculation="draft", num_speculative_tokens=8,
+            draft_model_config=f32), f32_weights),
+        "async + ngram k=4": (dataclasses.replace(
+            base, async_scheduling=True, speculation="ngram"), None),
+    }
+    identity = {"sync kernel path == plain path": want == plain}
+    findings = []
+    if want != plain:
+        findings.append(("plain", plain))
+    for label, (ecfg, draft_params) in modes.items():
+        eng = LLMEngine(f32, ecfg, params=f32_weights, draft_params=draft_params)
+        _k1_zero()
+        got = eng.generate(batch, max_new_tokens=n_new)
+        stats, launched = eng.stats(), _k1_read()
+        entry = {"identical": got == want, "K1 launches": launched["K1 paged_attention"],
+                 "K1 routes": launched["K1 routes"]}
+        if ecfg.speculation != "off":
+            entry.update(proposed=stats["spec_proposed_tokens"],
+                         accepted=stats["spec_accepted_tokens"],
+                         verify_steps=stats["spec_verify_steps"])
+        if ecfg.async_scheduling:
+            chained = [r for r in eng.flight_recorder.snapshot()["steps"] if r["chained"]]
+            entry["chained_steps"] = len(chained)
+        log(f"[modes] (d) f32 {label}: " + json.dumps(entry))
+        identity[label] = entry
+        if got != want:
+            findings.append((label, got))
+        if label.startswith("draft") and stats["spec_accepted_tokens"] != stats[
+                "spec_proposed_tokens"]:
+            fail(f"(d) draft with the target's weights accepted "
+                 f"{stats['spec_accepted_tokens']} of {stats['spec_proposed_tokens']}")
+        if launched["K1 paged_attention"] <= 0:
+            fail(f"(d) {label}: K1 was not launched")
+        del eng
+        torch.cuda.empty_cache()
+    for label, got in findings:
+        for i, (x, y) in enumerate(zip(got, want)):
+            if x != y:
+                j = next(t for t, (a, b) in enumerate(zip(x + [None], y + [None]))
+                         if a != b)
+                margin = _top2_margin(plain_engine.runner.model, batch[i], y, j)
+                log(f"[modes] (d) f32 {label} differs on request {i} at token {j} "
+                    f"(top-2 logit margin there {margin:.3g})")
+        fail(f"(d) f32 {label} is not token-identical to the sync kernel path")
+    summary["f32_identity"] = identity
+    del ref_engine, plain_engine
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[modes] f32 token-identical: async, ngram k=4, draft k=8 (accepted == "
+        f"proposed), async + ngram ({len(batch)} requests x {n_new} tokens); "
+        f"phase wall {summary['wall_s']:.1f}s")
+    return summary
+
+
 def _replace_attn():
     import dataclasses
 
@@ -1436,6 +1793,7 @@ def main() -> int:
     trainer = phase_trainer()
     launches["K3 flash_bwd_fused"] = trainer["launches"]["K3 flash_bwd_fused"]
     launches.update(phase_server()["launches"])
+    phase_serving_modes()
     launches.update(profile["launches"])
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches)))

@@ -2,13 +2,16 @@
 
   * cache.py — refcounted, content-addressed block allocator over the
     preallocated paged KV pools (automatic prefix caching)
-  * model_runner.py — prefill / partial-prefill / decode / block-copy
-    step programs for the GPT model, over in-place device pools
+  * model_runner.py — prefill / partial-prefill / decode / verify /
+    block-copy step programs for the GPT model, over in-place device pools,
+    and the async decode dispatch
   * scheduler.py — iteration-level prefix-aware admission, continuation,
     preemption
   * engine.py — LLMEngine core + LLMServer (in-process background loop)
   * observability.py — per-request lifecycle spans, latency-histogram
     boundaries, and the engine flight recorder
+  * spec/ — speculative decoding proposers (n-gram prompt lookup, draft
+    model) feeding the engine's k-token verify-with-rollback phase
 """
 
 from ray_tpu_torch.llm.cache import (
@@ -32,6 +35,7 @@ from ray_tpu_torch.llm.scheduler import (
     Scheduler,
     Sequence,
 )
+from ray_tpu_torch.llm.spec import NgramProposer, Proposer, build_proposer
 
 __all__ = [
     "BlockAllocator",
@@ -47,10 +51,13 @@ __all__ = [
     "LLMEngine",
     "LLMServer",
     "NULL_BLOCK",
+    "NgramProposer",
+    "Proposer",
     "Request",
     "Scheduler",
     "Sequence",
     "blocks_for_tokens",
+    "build_proposer",
     "hash_block_tokens",
     "prefix_block_hashes",
 ]

@@ -5,9 +5,9 @@ same EngineConfig describes the same engine in both packages. The fixed
 decode batch slots, block-table width and power-of-two prefill buckets
 kept XLA's compiled-program count O(1); the port keeps them because they
 fix every kernel launch shape (and so the warmup's coverage) in the same
-way. Options outside the port's current slice (speculation, async
-scheduling, the KV fabric, non-unified roles, tensor parallelism) still
-validate here, and LLMEngine refuses them by name.
+way. Options outside the port so far (the KV fabric, non-unified roles,
+tensor parallelism) still validate here, and LLMEngine refuses them by
+name.
 """
 
 from __future__ import annotations
@@ -149,7 +149,7 @@ class EngineConfig:
     # the knob exists so speculative decoding can reject non-greedy
     # configurations explicitly until rejection sampling lands.
     sampling: str = "greedy"
-    # Speculative decoding (ROADMAP: the speculation slice): "off" decodes one token per
+    # Speculative decoding (ray_tpu_torch.llm.spec): "off" decodes one token per
     # sequence per step; "ngram" proposes continuations by matching the
     # sequence's own token history against its tail (prompt lookup — no
     # draft model, pure host-side matching); "draft" runs a second,

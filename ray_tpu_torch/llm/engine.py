@@ -14,9 +14,9 @@ counters, decode batch occupancy, cache utilization, and queue depth, plus
 (queue/prefill/decode/preempt), TTFT / time-per-output-token / queue / e2e
 latency histograms, and a flight-recorder ring of per-step records.
 
-Options outside this slice of the port are refused at construction, each
-naming its ROADMAP item: speculation, async scheduling, the KV fabric,
-non-unified engine roles, and tensor parallelism.
+Options outside the port so far are refused at construction, each naming
+its ROADMAP item: the KV fabric, non-unified engine roles, and tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import threading
 import time
 import uuid
 from collections import deque
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 
@@ -53,6 +53,7 @@ from ray_tpu_torch.llm.scheduler import (
     Scheduler,
     Sequence,
 )
+from ray_tpu_torch.llm.spec import build_proposer
 from ray_tpu_torch.models.gpt import GPTConfig
 from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram, get_or_create
@@ -62,10 +63,6 @@ def _refuse_unported(ecfg: EngineConfig) -> None:
     """Raise for every option whose engine path is not ported yet
     (GPTRunner refuses tensor_parallel_size > 1 itself)."""
     refused = (
-        (ecfg.speculation != "off", f"speculation={ecfg.speculation!r}",
-         "the speculation slice (verify program + spec/)"),
-        (ecfg.async_scheduling, "async_scheduling=True",
-         "the async decode slice (decode_async)"),
         (ecfg.kv_fabric is not None, "kv_fabric",
          "the KV fabric slice"),
         (ecfg.engine_role != "unified", f"engine_role={ecfg.engine_role!r}",
@@ -79,9 +76,38 @@ def _refuse_unported(ecfg: EngineConfig) -> None:
             )
 
 
+class _InflightStep:
+    """One dispatched-but-uncommitted decode step (async_scheduling).
+
+    Holds everything the deferred commit needs: the batch exactly as it
+    was dispatched (slot order matters — the chained token input is
+    slot-aligned), the step's `DeviceTokens` (device tensor + the host
+    copy in flight), and the engine step index at dispatch time (failure
+    attribution: a commit-time exception is pinned on the step that
+    DISPATCHED the program, one step before it surfaces). `commit_idx`
+    is the partial-commit resume pointer — after a poison dead-letter
+    mid-commit, the retry resumes the loop exactly where it stopped.
+    """
+
+    __slots__ = (
+        "seqs", "rids", "tokens_dev", "tokens_host",
+        "dispatch_step", "commit_idx",
+    )
+
+    def __init__(self, seqs, rids, tokens_dev, dispatch_step):
+        self.seqs: List[Sequence] = seqs
+        self.rids: List[str] = rids
+        self.tokens_dev = tokens_dev
+        self.tokens_host: Optional[np.ndarray] = None
+        self.dispatch_step = dispatch_step
+        self.commit_idx = 0
+
+
 class LLMEngine:
     """Not thread-safe; callers serialize access (LLMServer holds a lock).
-    ``device`` defaults to CUDA and raises without it."""
+    ``device`` defaults to CUDA and raises without it; the draft model of
+    ``speculation="draft"`` runs on the same device, its weights from
+    ``draft_params`` (a state dict) or seeded like the target's."""
 
     def __init__(
         self,
@@ -90,6 +116,7 @@ class LLMEngine:
         params=None,
         seed: int = 0,
         device=None,
+        draft_params=None,
     ):
         self.model_config = model_config or GPTConfig()
         self.engine_config = engine_config or EngineConfig()
@@ -97,6 +124,13 @@ class LLMEngine:
         self.runner = GPTRunner(
             self.model_config, self.engine_config, params=params, seed=seed,
             device=device,
+        )
+        # Speculative decoding (ray_tpu_torch.llm.spec): None when off. The
+        # proposer only produces guesses; _run_verify scores them against
+        # this engine's own model, so outputs never depend on it.
+        self._spec = build_proposer(
+            self.engine_config, seed=seed, draft_params=draft_params,
+            device=self.runner.device,
         )
         self.allocator = BlockAllocator(
             self.engine_config.num_blocks,
@@ -194,6 +228,25 @@ class LLMEngine:
             "max_prefill_tokens_per_step per engine step)",
             tag_keys=("engine",),
         )
+        self._spec_proposed = get_or_create(
+            Counter,
+            "llm_engine_spec_proposed_tokens",
+            "Speculative tokens scored by the verify program",
+            tag_keys=("engine",),
+        )
+        self._spec_accepted = get_or_create(
+            Counter,
+            "llm_engine_spec_accepted_tokens",
+            "Speculative tokens that matched the target argmax and were "
+            "committed (excludes the always-emitted correction/bonus token)",
+            tag_keys=("engine",),
+        )
+        self._spec_acceptance = get_or_create(
+            Gauge,
+            "llm_engine_spec_acceptance_rate",
+            "Cumulative accepted / proposed speculative tokens",
+            tag_keys=("engine",),
+        )
         # Request-level latency histograms (the serving SLO trio + queue):
         # observed only at lifecycle boundaries, never per token.
         self._h_ttft = get_or_create(
@@ -229,19 +282,22 @@ class LLMEngine:
             Histogram,
             "llm_engine_step_seconds",
             "One engine phase dispatch (prefill per chunk per sequence, "
-            "decode per batched step); chunk=cont marks a mid-prompt "
-            "prefill chunk, chunk=final the dispatch that completes a "
-            "prompt (n/a for decode)",
+            "decode or speculative verify per batched step); chunk=cont "
+            "marks a mid-prompt prefill chunk, chunk=final the dispatch "
+            "that completes a prompt (n/a for decode/verify)",
             boundaries=STEP_SECONDS_BOUNDARIES,
             tag_keys=("engine", "phase", "attn_impl", "chunk"),
         )
         self._h_host_gap = get_or_create(
             Histogram,
             "llm_engine_step_host_gap_seconds",
-            "Host time between consecutive decode device dispatches: how "
-            "long the previous step's results had been sitting on host "
-            "before the next program was queued — the device's "
-            "scheduling-induced idle window.",
+            "Host time between consecutive decode/verify device "
+            "dispatches: how long the previous step's results had been "
+            "sitting on host before the next program was queued — the "
+            "device's scheduling-induced idle window, and the number "
+            "async_scheduling exists to shrink. A chained async dispatch "
+            "issued BEFORE the previous step's results were fetched "
+            "records 0.",
             boundaries=HOST_GAP_SECONDS_BOUNDARIES,
             tag_keys=("engine",),
         )
@@ -262,9 +318,11 @@ class LLMEngine:
                 "attn_impl": (
                     "n/a" if phase == "prefill" else self._attn_impl
                 ),
-                "chunk": "n/a" if phase == "decode" else "final",
+                "chunk": (
+                    "n/a" if phase in ("decode", "verify") else "final"
+                ),
             }
-            for phase in ("prefill", "partial_prefill", "decode")
+            for phase in ("prefill", "partial_prefill", "decode", "verify")
         }
         self._chunk_step_tags = {
             phase: {**self._step_tags[phase], "chunk": "cont"}
@@ -282,7 +340,10 @@ class LLMEngine:
             self.engine_config.flight_recorder_capacity
         )
         self._req_traces: Dict[str, RequestTrace] = {}
-        if self._instrument:
+        if self._instrument or self._spec is not None:
+            # Preemption must also drop a stateful proposer's per-request
+            # resources (draft KV blocks) — the resume re-prefills both
+            # caches — so the hook installs whenever either plane needs it.
             self.scheduler.on_preempt = self._note_preempt
         # Poison-request isolation: records of requests failed in isolation
         # after an attributable step exception, newest last.
@@ -306,10 +367,24 @@ class LLMEngine:
         self._prefill_chunk_dispatches = 0  # prefill program dispatches
         self._chunked_prefill_requests = 0  # prompts that took > 1 chunk
         self._cache_hit_tokens = 0
-        # Host-gap apparatus: perf_counter stamp of the moment the previous
-        # decode results became host-readable, the per-step gap/dispatch/
-        # commit fields the flight record carries, and the cumulative
-        # aggregates stats() exposes.
+        self._spec_proposed_total = 0
+        self._spec_accepted_total = 0
+        self._spec_emitted_total = 0
+        self._verify_steps = 0
+        # Async (double-buffered) step loop state. `_inflight` holds
+        # dispatched-but-uncommitted decode records, oldest first; depth
+        # is transiently 2 between a chained dispatch and the commit of
+        # the record it chained from. Always empty with async off.
+        self._async = self.engine_config.async_scheduling
+        self._inflight: Deque[_InflightStep] = deque()
+        # Dispatch index of the record being committed right now: a
+        # commit-time failure is attributed one step late, against the
+        # step that dispatched the failing program (failure_step()).
+        self._attribution_step: Optional[int] = None
+        # Host-gap apparatus (both loop modes): perf_counter stamp of the
+        # moment the previous decode/verify results became host-readable,
+        # the per-step gap/dispatch/commit fields the flight record
+        # carries, and the cumulative aggregates stats() exposes.
         self._last_ready_t: Optional[float] = None
         self._step_gap: Optional[float] = None
         self._step_dispatch_wall: Optional[float] = None
@@ -319,16 +394,30 @@ class LLMEngine:
         self._host_gap_total = 0.0
         self._host_gap_count = 0
         self._host_gap_last: Optional[float] = None
-        # Preallocated per-step decode input buffers, zero-filled and
-        # repopulated each dispatch (the steady decode loop does no numpy
-        # allocation for its inputs). Reuse is safe: runner.decode returns
-        # only after the step's tokens are on the host.
+        # Preallocated per-step decode/verify input buffers, zero-filled
+        # and repopulated each dispatch (the steady decode loop does no
+        # numpy allocation for its inputs). Reuse is safe: the sync runner
+        # returns only after the step's tokens are on the host, and
+        # decode_async copies them into its own staging buffers at dispatch.
         slots = self.engine_config.max_decode_slots
         nb = self.engine_config.max_blocks_per_seq
         self._dec_tokens = np.zeros((slots,), np.int32)
         self._dec_positions = np.zeros((slots,), np.int32)
         self._dec_block_tables = np.zeros((slots, nb), np.int32)
         self._dec_context_lens = np.zeros((slots,), np.int32)
+        self._verify_inputs = (
+            {
+                s: (
+                    np.zeros((slots, s), np.int32),
+                    np.zeros((slots, nb), np.int32),
+                    np.zeros((slots,), np.int32),
+                    np.zeros((slots,), np.int32),
+                )
+                for s in self.engine_config.verify_buckets()
+            }
+            if self._spec is not None
+            else {}
+        )
         self._start = time.monotonic()
 
     # ---------------- request lifecycle ----------------
@@ -458,7 +547,10 @@ class LLMEngine:
         return False
 
     def has_work(self) -> bool:
-        return self.scheduler.has_work()
+        # An in-flight async record is work even when the scheduler is
+        # empty (every member aborted mid-flight): one more step drains
+        # it, so callers' step loops never strand a dispatched program.
+        return self.scheduler.has_work() or bool(self._inflight)
 
     # ---------------- poison-request isolation ----------------
 
@@ -473,7 +565,14 @@ class LLMEngine:
         return None
 
     def failure_step(self) -> int:
-        """Step index a failure surfacing now is attributed to."""
+        """Step index a failure surfacing NOW should be attributed to.
+        Under async_scheduling a decode program's commit runs one step
+        after its dispatch, so an exception raised inside the commit loop
+        belongs to the in-flight record's DISPATCH index (where the
+        failing program and its batch actually ran) — not the current
+        step counter. Outside a commit this is simply the current step."""
+        if self._attribution_step is not None:
+            return self._attribution_step
         return self._steps
 
     def fail_request(self, request_id: str, exc: BaseException) -> bool:
@@ -544,8 +643,12 @@ class LLMEngine:
         Request.deadline_s). Runs at the top of step(), so a queued request
         whose deadline passed is dropped BEFORE schedule_prefills can feed
         it to a prefill program, and a decoding one goes through the normal
-        finish teardown. Engines that have never seen a deadline pay one
-        int compare."""
+        finish teardown — KV blocks, draft-mirror blocks, and any
+        lookahead reservation reclaimed within this step. Under
+        async_scheduling the sweep precedes the chain attempt: an expiry
+        is a batch-composition change, so the pipeline flushes and
+        _commit_head's inactive-skip drops the in-flight orphan token.
+        Engines that have never seen a deadline pay one int compare."""
         if not self._deadline_count:
             return
         now = time.monotonic()
@@ -588,6 +691,8 @@ class LLMEngine:
         finished sequences. A sequence mid-chunk stays `prefilling` — it
         never enters the decode batch, so a chunk failure (or a step
         retry) simply re-plans from its committed num_cached."""
+        if self._async:
+            return self._step_async()
         ecfg = self.engine_config
         preempted_before = self.scheduler.num_preemptions
         self._current_rid = None
@@ -597,7 +702,7 @@ class LLMEngine:
         # the duration.
         t_step = time.time() if instrument else 0.0
         t_step_p = time.perf_counter() if instrument else 0.0
-        bytes_before = self.runner.host_transfer_bytes() if instrument else 0
+        bytes_before = self._host_transfer_bytes() if instrument else 0
         self._step_gap = None
         self._step_dispatch_wall = None
         self._step_commits = []
@@ -616,23 +721,94 @@ class LLMEngine:
         step_hit_tokens = self._run_prefill_chunks(plans, prefill_info)
 
         decoding = self.scheduler.schedule_decode()
+        spec_info: Optional[dict] = None
         if decoding:
-            self._run_decode(decoding)
+            if self._spec is not None:
+                spec_info = self._run_verify(decoding)
+            if spec_info is None:
+                # Speculation off, or no sequence had proposals this step:
+                # the plain decode program is exactly equivalent for one
+                # fed token per slot.
+                self._run_decode(decoding)
         else:
             # No decode this step: the next dispatch follows an idle
             # stretch, not host scheduling work — don't count it as gap.
             self._last_ready_t = None
 
         self._steps += 1
+        preempted, occupancy, backlog = self._step_gauges(
+            preempted_before, step_hit_tokens, decoding
+        )
+        if instrument:
+            decode_label = "verify" if spec_info is not None else "decode"
+            phase = "+".join(
+                p
+                for p, on in (("prefill", plans), (decode_label, decoding))
+                if on
+            ) or "idle"
+            record = {
+                "step": self._steps - 1,
+                "phase": phase,
+                "attn_impl": self._attn_impl,
+                "tensor_parallel_size": self._tp,
+                # Explicit host<->device bytes this step moved (program
+                # inputs + sampled tokens, target AND draft runner).
+                "host_transfer_bytes": (
+                    self._host_transfer_bytes() - bytes_before
+                ),
+                "batch_size": len(decoding),
+                "num_prefills": len(plans),
+                "prefills": prefill_info,
+                # With chunking on, tokens_in (the prompt tokens fed
+                # this step) never exceeds prefill_budget.
+                "tokens_in": sum(p["tokens"] for p in prefill_info),
+                "prefill_budget": self._prefill_budget,
+                "prefill_backlog_tokens": backlog,
+                "tokens_out": sum(1 for p in prefill_info if p["final"])
+                + (
+                    spec_info["emitted"]
+                    if spec_info is not None
+                    else len(decoding)
+                ),
+                "cache_hit_tokens": step_hit_tokens,
+                "preempted": preempted,
+                "queue_depth": len(self.scheduler.waiting),
+                "duration_s": round(time.perf_counter() - t_step_p, 6),
+                "time": t_step,
+                "dispatch_time": self._step_dispatch_wall,
+                "commits": self._step_commits,
+                "host_gap_s": self._step_gap,
+                "ready_time": self._step_ready_wall,
+                "prefill_s": round(self._step_prefill_s, 6),
+            }
+            if spec_info is not None:
+                # Verify record: which proposer ran, how wide the fed
+                # bucket was, and the proposed/accepted/emitted counts.
+                record["speculation"] = spec_info
+            self.flight_recorder.record_step(record)
+        return self._step_result(
+            plans, decoding, occupancy, preempted, step_hit_tokens, backlog
+        )
+
+    def _step_gauges(self, preempted_before, step_hit_tokens, decoding):
+        """The per-step metric updates both loops share → (preempted,
+        occupancy, prefill backlog tokens)."""
+        ecfg = self.engine_config
         # A stepping engine exports its whole metric family: counters and
         # histograms that happen not to fire after a registry reset must
         # still re-register, or their series vanish from the exposition.
-        for metric in (
+        family = (
             self._preemptions, self._prefix_hits, self._tokens_generated,
             self._dead_letter_count, self._shed_count, self._expired_count,
             self._h_ttft, self._h_tpot,
             self._h_queue, self._h_e2e, self._h_step, self._h_host_gap,
-        ):
+        )
+        if self._spec is not None:
+            family = family + (
+                self._spec_proposed, self._spec_accepted,
+                self._spec_acceptance,
+            )
+        for metric in family:
             metric._ensure_registered()
         preempted = self.scheduler.num_preemptions - preempted_before
         if preempted:
@@ -653,43 +829,11 @@ class LLMEngine:
         )
         backlog = self.scheduler.prefill_backlog_tokens()
         self._prefill_backlog.set(backlog, tags=self._metric_tags)
-        if instrument:
-            phase = "+".join(
-                p for p, on in (("prefill", plans), ("decode", decoding)) if on
-            ) or "idle"
-            self.flight_recorder.record_step(
-                {
-                    "step": self._steps - 1,
-                    "phase": phase,
-                    "attn_impl": self._attn_impl,
-                    "tensor_parallel_size": self._tp,
-                    # Explicit host<->device bytes this step moved
-                    # (program inputs + sampled tokens).
-                    "host_transfer_bytes": (
-                        self.runner.host_transfer_bytes() - bytes_before
-                    ),
-                    "batch_size": len(decoding),
-                    "num_prefills": len(plans),
-                    "prefills": prefill_info,
-                    # With chunking on, tokens_in (the prompt tokens fed
-                    # this step) never exceeds prefill_budget.
-                    "tokens_in": sum(p["tokens"] for p in prefill_info),
-                    "prefill_budget": self._prefill_budget,
-                    "prefill_backlog_tokens": backlog,
-                    "tokens_out": sum(1 for p in prefill_info if p["final"])
-                    + len(decoding),
-                    "cache_hit_tokens": step_hit_tokens,
-                    "preempted": preempted,
-                    "queue_depth": len(self.scheduler.waiting),
-                    "duration_s": round(time.perf_counter() - t_step_p, 6),
-                    "time": t_step,
-                    "dispatch_time": self._step_dispatch_wall,
-                    "commits": self._step_commits,
-                    "host_gap_s": self._step_gap,
-                    "ready_time": self._step_ready_wall,
-                    "prefill_s": round(self._step_prefill_s, 6),
-                }
-            )
+        return preempted, occupancy, backlog
+
+    def _step_result(
+        self, plans, decoding, occupancy, preempted, step_hit_tokens, backlog
+    ) -> dict:
         return {
             "num_prefilled": len(plans),
             "num_decoding": len(decoding),
@@ -702,28 +846,27 @@ class LLMEngine:
             "prefill_backlog_tokens": backlog,
         }
 
+    def _host_transfer_bytes(self) -> int:
+        """Cumulative explicit host<->device bytes across the target
+        runner AND the draft-model runner: the per-step delta rides the
+        flight records."""
+        total = self.runner.host_transfer_bytes()
+        spec_runner = getattr(self._spec, "runner", None)
+        if spec_runner is not None:
+            total += spec_runner.host_transfer_bytes()
+        return total
+
     def _run_decode(self, decoding: List[Sequence]) -> None:
         """One iteration-level decode dispatch: every running sequence
         advances exactly one token through the batched decode program."""
         ecfg = self.engine_config
         instrument = self._instrument
         t_decode = time.perf_counter() if instrument else 0.0
-        tokens = self._dec_tokens
-        positions = self._dec_positions
-        block_tables = self._dec_block_tables
-        context_lens = self._dec_context_lens
-        tokens.fill(0)
-        positions.fill(0)
-        block_tables.fill(0)
-        context_lens.fill(0)
-        for i, seq in enumerate(decoding):
-            tokens[i] = seq.last_token
-            positions[i] = seq.num_cached
-            block_tables[i, : len(seq.block_table)] = seq.block_table
-            context_lens[i] = seq.num_cached
-        self._note_dispatch()
+        self._fill_decode_inputs(decoding)
+        self._note_dispatch(pipelined=False)
         next_tokens = self.runner.decode(
-            tokens, positions, block_tables, context_lens
+            self._dec_tokens, self._dec_positions, self._dec_block_tables,
+            self._dec_context_lens,
         )
         # decode() returned == the program ran and its tokens are on
         # host: everything until the next dispatch is host-side gap.
@@ -765,19 +908,485 @@ class LLMEngine:
                 tags=self._step_tags["decode"],
             )
 
-    def _note_dispatch(self) -> None:
-        """Host-gap sample at a decode dispatch: how long the previous
-        step's results had been host-readable before this program was
-        queued — the device idle window host scheduling opened."""
+    def _fill_decode_inputs(self, decoding: List[Sequence]) -> None:
+        """Zero-fill and repopulate the preallocated decode inputs from
+        fully committed state (never allocate)."""
+        tokens = self._dec_tokens
+        positions = self._dec_positions
+        block_tables = self._dec_block_tables
+        context_lens = self._dec_context_lens
+        tokens.fill(0)
+        positions.fill(0)
+        block_tables.fill(0)
+        context_lens.fill(0)
+        for i, seq in enumerate(decoding):
+            tokens[i] = seq.last_token
+            positions[i] = seq.num_cached
+            block_tables[i, : len(seq.block_table)] = seq.block_table
+            context_lens[i] = seq.num_cached
+
+    def _run_verify(self, decoding: List[Sequence]) -> Optional[dict]:
+        """Speculative verify phase: ask the proposer for up to k tokens
+        per running sequence, score them all in ONE target-model step
+        (GPTRunner.verify — the partial-prefill shape batched over the
+        decode slots), accept each sequence's longest proposal prefix that
+        agrees with the target argmax plus the correction/bonus token, and
+        roll back the rejected tail (Scheduler.rollback: context-length
+        rewind + block-table trim). Emits 1..k+1 tokens per sequence per
+        step; greedy outputs are token-identical to the plain decode loop
+        by construction (out[i] IS the token decode would have produced).
+
+        Returns the flight-recorder speculation record, or None when no
+        sequence had usable proposals this step — the caller then runs the
+        plain decode program, which is exactly equivalent for one fed
+        token per slot."""
+        ecfg = self.engine_config
+        instrument = self._instrument
+        # Clock starts before the proposer: proposal cost (draft-model
+        # steps, host-side matching) is part of what the verify phase
+        # must amortize, so it belongs in the phase=verify histogram.
+        t_verify = time.perf_counter() if instrument else 0.0
+        k = ecfg.num_speculative_tokens
+        proposals = self._spec.propose(decoding, k)
+        plans: List[List[int]] = []
+        max_fed = 1
+        for seq, props in zip(decoding, proposals):
+            props = [int(t) for t in props[:k]]
+            # Never speculate past the request budget (the bonus token
+            # must still fit) or the cache capacity; blocks are reserved
+            # opportunistically — speculation never preempts a neighbor.
+            cap = min(
+                len(props),
+                seq.request.max_new_tokens - len(seq.generated) - 1,
+                ecfg.max_model_len - seq.num_cached - 1,
+            )
+            props = props[: max(cap, 0)]
+            if props:
+                props = props[
+                    : self.scheduler.reserve_speculative(seq, len(props))
+                ]
+            plans.append(props)
+            max_fed = max(max_fed, 1 + len(props))
+        if max_fed == 1:
+            return None
+        s_bucket = ecfg.verify_bucket_for(max_fed)
+        # Preallocated per-bucket input buffers (zero-fill + repopulate);
+        # reuse is safe — runner.verify returns after its tokens are on
+        # the host.
+        tokens, block_tables, context_lens, true_lens = self._verify_inputs[
+            s_bucket
+        ]
+        tokens.fill(0)
+        block_tables.fill(0)
+        context_lens.fill(0)
+        true_lens.fill(0)
+        for i, (seq, props) in enumerate(zip(decoding, plans)):
+            tokens[i, 0] = seq.last_token
+            if props:
+                tokens[i, 1 : 1 + len(props)] = props
+            block_tables[i, : len(seq.block_table)] = seq.block_table
+            context_lens[i] = seq.num_cached
+            true_lens[i] = 1 + len(props)
+        self._note_dispatch(pipelined=False)
+        out = self.runner.verify(
+            tokens, block_tables, context_lens, true_lens
+        )
+        self._last_ready_t = time.perf_counter()
+        if instrument:
+            self._step_ready_wall = time.time()
+        proposed = accepted = emitted = 0
+        for i, (seq, props) in enumerate(zip(decoding, plans)):
+            # Per-sequence commit section; nothing mutates before the
+            # injection point, so a poisoned request dead-letters alone
+            # and an unattributable failure retries the whole step from
+            # consistent state (propose() is deterministic on retry).
+            rid = seq.request.request_id
+            self._current_rid = rid
+            maybe_fail("engine.verify", detail=rid)
+            base = seq.num_cached
+            n_ok = 0
+            while n_ok < len(props) and int(out[i, n_ok]) == props[n_ok]:
+                n_ok += 1
+            # out[i, n_ok] is the correction after a mismatch, or the
+            # bonus token when every proposal matched — either way the
+            # target's own argmax, so it is always committed.
+            new_tokens = props[:n_ok] + [int(out[i, n_ok])]
+            eos_id = seq.request.eos_id
+            if eos_id is not None and eos_id in new_tokens:
+                new_tokens = new_tokens[: new_tokens.index(eos_id) + 1]
+            self.scheduler.rollback(seq, base + len(new_tokens))
+            seq.generated.extend(new_tokens)
+            self.scheduler.note_filled_blocks(seq)
+            proposed += len(props)
+            # Accepted = proposed tokens actually COMMITTED: an eos inside
+            # the matched prefix truncates the commit, and the counter
+            # must not claim the dropped tail.
+            accepted += min(n_ok, len(new_tokens))
+            emitted += len(new_tokens)
+            self._emit(seq)
+            self._maybe_finish(seq)
+        self._current_rid = None
+        self._decode_tokens += emitted
+        self._decode_slot_steps += ecfg.max_decode_slots
+        self._step_commits.append(
+            {
+                "dispatch_step": self._steps,
+                "time": time.time(),
+                "tokens": emitted,
+                "commit_s": round(
+                    time.perf_counter() - self._last_ready_t, 6
+                ),
+            }
+        )
+        self._verify_steps += 1
+        self._spec_proposed_total += proposed
+        self._spec_accepted_total += accepted
+        self._spec_emitted_total += emitted
+        if proposed:
+            self._spec_proposed.inc(proposed, tags=self._metric_tags)
+        if accepted:
+            self._spec_accepted.inc(accepted, tags=self._metric_tags)
+        self._spec_acceptance.set(
+            self._spec_accepted_total / max(self._spec_proposed_total, 1),
+            tags=self._metric_tags,
+        )
+        if instrument:
+            # One observation per batched verify dispatch (proposer +
+            # program + the whole commit loop), never per token.
+            self._h_step.observe(
+                time.perf_counter() - t_verify,
+                tags=self._step_tags["verify"],
+            )
+        return {
+            "mode": self._spec.name,
+            "fed_bucket": s_bucket,
+            "proposed": proposed,
+            "accepted": accepted,
+            "emitted": emitted,
+        }
+
+    # ---------------- async (double-buffered) stepping ----------------
+
+    def _note_dispatch(self, pipelined: bool) -> None:
+        """Host-gap sample at a decode/verify device dispatch: how long
+        the previous step's results had been host-readable before this
+        program was queued — the device idle window host scheduling
+        opened. A chained async dispatch is issued BEFORE the previous
+        step's results are even fetched, so it records exactly 0 (the
+        gap definition's clamp: the dispatch beat the fetch)."""
         self._step_dispatch_wall = time.time()
-        if self._last_ready_t is None:
-            return  # first dispatch / post-idle: no previous step
-        gap = max(0.0, time.perf_counter() - self._last_ready_t)
+        if pipelined:
+            gap = 0.0
+        else:
+            if self._last_ready_t is None:
+                return  # first dispatch / post-idle: no previous step
+            gap = max(0.0, time.perf_counter() - self._last_ready_t)
         self._step_gap = gap
         self._host_gap_total += gap
         self._host_gap_count += 1
         self._host_gap_last = gap
         self._h_host_gap.observe(gap, tags=self._metric_tags)
+
+    def _step_async(self) -> dict:
+        """One iteration of the async step loop (EngineConfig.
+        async_scheduling): decode splits into a dispatch phase and a
+        deferred commit phase, pipelined one step deep.
+
+        Steady state CHAINS: the in-flight decode's on-device tokens feed
+        the next dispatch directly (positions and context_lens advance +1
+        — deterministic, value-free), THEN the in-flight step's values are
+        fetched and committed one step behind, so the device is already
+        running step N+1 while the host emits step N's tokens and plans
+        admissions. Everything value-dependent is a pipeline-flush
+        boundary (commit everything, then schedule normally): speculation
+        (the proposer reads committed token history), any
+        batch-composition change (finish / abort / preemption / a prompt
+        joining — the chained token input is slot-aligned), block pressure
+        the lookahead cannot cover without preempting (preemption must
+        never run under an in-flight write), and a partially committed
+        record left by a poison retry.
+
+        Finishes are detected one step late, at commit: a chained
+        dispatch may decode one token PAST a sequence's EOS/length stop.
+        That overshoot token lands in the null block or a lookahead block
+        freed with the sequence, is skipped at its record's commit, and
+        never reaches a client. Greedy outputs are token-identical to the
+        sync loop across every feature knob."""
+        ecfg = self.engine_config
+        preempted_before = self.scheduler.num_preemptions
+        self._current_rid = None
+        maybe_fail("llm.step")
+        instrument = self._instrument
+        t_step = time.time() if instrument else 0.0
+        t_step_p = time.perf_counter() if instrument else 0.0
+        bytes_before = self._host_transfer_bytes() if instrument else 0
+        self._step_gap = None
+        self._step_dispatch_wall = None
+        self._step_commits = []
+        self._step_ready_wall = None
+        self._step_prefill_s = 0.0
+
+        # Deadline sweep before the chain attempt: an expiry changes the
+        # batch composition, so _try_chain refuses and the pipeline
+        # flushes — the expired sequence's in-flight token is dropped by
+        # _commit_head's inactive-skip, never emitted.
+        self._expire_deadlines()
+        # Chained dispatch FIRST — before any commit, admission, or
+        # metric work: the whole point is that the device gets its next
+        # program while the host still owes this step's bookkeeping. A
+        # record mid-partial-commit (poison retry) or a second in-flight
+        # record never chains; both flush below.
+        chained_seqs: Optional[List[Sequence]] = None
+        if (
+            self._spec is None
+            and len(self._inflight) == 1
+            and self._inflight[0].commit_idx == 0
+        ):
+            chained_seqs = self._try_chain(self._inflight[0])
+        if chained_seqs is not None:
+            # Commit the record the chain fed from (its host copy has been
+            # in flight since its dispatch); the chained record stays in
+            # flight for the next iteration.
+            self._commit_head()
+        else:
+            # Flush boundary: commit everything in dispatch order, then
+            # schedule normally from fully committed state.
+            while self._inflight:
+                self._commit_head()
+
+        self.scheduler.schedule_prefills(ecfg.max_prefills_per_step)
+        plans = self.scheduler.schedule_prefill_chunks(self._prefill_budget)
+        prefill_info: List[dict] = []
+        step_hit_tokens = self._run_prefill_chunks(plans, prefill_info)
+
+        spec_info: Optional[dict] = None
+        dispatched = chained_seqs is not None
+        if chained_seqs is not None:
+            decoding = chained_seqs
+        else:
+            decoding = self.scheduler.schedule_decode()
+            if decoding:
+                if self._spec is not None:
+                    # Speculation composes as flush-every-step: acceptance
+                    # is value-dependent, so the verify path runs the sync
+                    # dispatch+commit inline (still token-identical).
+                    spec_info = self._run_verify(decoding)
+                    if spec_info is None:
+                        self._run_decode(decoding)
+                else:
+                    self._dispatch_decode_async(decoding)
+                    dispatched = True
+            else:
+                self._last_ready_t = None
+
+        self._steps += 1
+        preempted, occupancy, backlog = self._step_gauges(
+            preempted_before, step_hit_tokens, decoding
+        )
+        committed_tokens = sum(c["tokens"] for c in self._step_commits)
+        if instrument:
+            decode_label = "verify" if spec_info is not None else "decode"
+            parts = []
+            if plans:
+                parts.append("prefill")
+            if spec_info is not None or (decoding and not dispatched):
+                parts.append(decode_label)
+            elif dispatched:
+                parts.append("decode")
+            elif self._step_commits:
+                # Drain-only iteration: nothing dispatched, but a stale
+                # in-flight record committed (e.g. every member finished
+                # or aborted since its dispatch).
+                parts.append("commit")
+            record = {
+                "step": self._steps - 1,
+                "loop": "async",
+                "phase": "+".join(parts) or "idle",
+                "attn_impl": self._attn_impl,
+                "tensor_parallel_size": self._tp,
+                "host_transfer_bytes": (
+                    self._host_transfer_bytes() - bytes_before
+                ),
+                "batch_size": len(decoding),
+                "num_prefills": len(plans),
+                "prefills": prefill_info,
+                "tokens_in": sum(p["tokens"] for p in prefill_info),
+                "prefill_budget": self._prefill_budget,
+                "prefill_backlog_tokens": backlog,
+                # Async semantics: tokens_out counts tokens COMMITTED
+                # this iteration (prefill finals + deferred decode
+                # commits) — a dispatched-but-uncommitted token is not
+                # out yet.
+                "tokens_out": sum(1 for p in prefill_info if p["final"])
+                + (
+                    spec_info["emitted"]
+                    if spec_info is not None
+                    else committed_tokens
+                ),
+                "cache_hit_tokens": step_hit_tokens,
+                "preempted": preempted,
+                "queue_depth": len(self.scheduler.waiting),
+                "duration_s": round(time.perf_counter() - t_step_p, 6),
+                "time": t_step,
+                "dispatch_time": self._step_dispatch_wall,
+                "commits": self._step_commits,
+                "host_gap_s": self._step_gap,
+                "ready_time": self._step_ready_wall,
+                "prefill_s": round(self._step_prefill_s, 6),
+                "chained": chained_seqs is not None,
+                "inflight_depth": len(self._inflight),
+            }
+            if spec_info is not None:
+                record["speculation"] = spec_info
+            self.flight_recorder.record_step(record)
+        return self._step_result(
+            plans, decoding, occupancy, preempted, step_hit_tokens, backlog
+        )
+
+    def _try_chain(self, rec: _InflightStep) -> Optional[List[Sequence]]:
+        """Chain the in-flight decode into the next dispatch if — and
+        only if — the next decode batch would be EXACTLY the dispatched
+        batch (same sequences, same slot order: the chained token input
+        is slot-aligned on device) AND every +1-position write can be
+        covered without preempting anyone (reserve_decode_lookahead).
+        On success the chained program is already dispatched when this
+        returns; on any mismatch returns None and the caller flushes."""
+        for seq, rid in zip(rec.seqs, rec.rids):
+            if (
+                not seq.is_running
+                or seq.prefilling
+                or not self.scheduler.is_active(rid)
+            ):
+                return None
+        current = [s for s in self.scheduler.running if not s.prefilling]
+        if len(current) != len(rec.seqs) or any(
+            a is not b for a, b in zip(current, rec.seqs)
+        ):
+            return None
+        if not self.scheduler.reserve_decode_lookahead(rec.seqs):
+            return None
+        self._dispatch_chained(rec)
+        return rec.seqs
+
+    def _dispatch_chained(self, rec: _InflightStep) -> None:
+        """Dispatch the next decode with the in-flight step's on-device
+        tokens as input — no host sync anywhere on this path. The
+        in-flight token for slot i has not committed yet, so its write
+        position is num_cached + 1 and its context covers num_cached + 1
+        tokens; both advance deterministically without knowing the
+        token's value. Unused slots carry whatever the previous program
+        sampled — they scatter into the null block exactly like the sync
+        path's zero padding."""
+        self._note_dispatch(pipelined=True)
+        positions = self._dec_positions
+        block_tables = self._dec_block_tables
+        context_lens = self._dec_context_lens
+        positions.fill(0)
+        block_tables.fill(0)
+        context_lens.fill(0)
+        for i, seq in enumerate(rec.seqs):
+            positions[i] = seq.num_cached + 1
+            block_tables[i, : len(seq.block_table)] = seq.block_table
+            context_lens[i] = seq.num_cached + 1
+        tokens_dev = self.runner.decode_async(
+            rec.tokens_dev, positions, block_tables, context_lens
+        )
+        self._inflight.append(
+            _InflightStep(rec.seqs, rec.rids, tokens_dev, self._steps)
+        )
+
+    def _dispatch_decode_async(self, decoding: List[Sequence]) -> None:
+        """Fresh async dispatch from fully committed state (pipeline
+        start / after a flush): inputs build exactly like _run_decode,
+        but the runner queues the device-to-host copy instead of
+        blocking — the commit runs one step later (_commit_head)."""
+        self._fill_decode_inputs(decoding)
+        self._note_dispatch(pipelined=False)
+        tokens_dev = self.runner.decode_async(
+            self._dec_tokens, self._dec_positions, self._dec_block_tables,
+            self._dec_context_lens,
+        )
+        self._inflight.append(
+            _InflightStep(
+                list(decoding),
+                [s.request.request_id for s in decoding],
+                tokens_dev,
+                self._steps,
+            )
+        )
+
+    def _commit_head(self) -> None:
+        """Fetch and commit the OLDEST in-flight record — the deferred
+        half of a dispatch made one iteration ago. The commit loop is the
+        sync path's, one step late: per-sequence poison site, num_cached
+        advance, block publication, emission, finish detection.
+        Sequences that went inactive since dispatch (finished at the
+        previous commit, aborted, preempted on a flush) are skipped —
+        their fetched token is the EOS/length overshoot or an orphan, and
+        it is dropped before any emission. On a mid-loop exception the
+        record stays at the head with commit_idx advanced past the
+        already-committed slots, so the server's step retry resumes the
+        commit exactly where it stopped; failure_step() attributes the
+        exception against this record's DISPATCH index."""
+        rec = self._inflight[0]
+        ecfg = self.engine_config
+        instrument = self._instrument
+        t0 = time.perf_counter() if instrument else 0.0
+        self._attribution_step = rec.dispatch_step
+        if rec.tokens_host is None:
+            # Wait for this step's event only (usually long done — the
+            # copy has been in flight since dispatch). A failed decode
+            # PROGRAM surfaces here, one step after dispatch, attributed
+            # above.
+            rec.tokens_host = rec.tokens_dev.fetch()
+            self._last_ready_t = time.perf_counter()
+            if instrument:
+                self._step_ready_wall = time.time()
+        next_tokens = rec.tokens_host
+        committed = 0
+        while rec.commit_idx < len(rec.seqs):
+            i = rec.commit_idx
+            seq = rec.seqs[i]
+            if (
+                not seq.is_running
+                or seq.prefilling
+                or not self.scheduler.is_active(rec.rids[i])
+            ):
+                rec.commit_idx += 1
+                continue
+            self._current_rid = rec.rids[i]
+            maybe_fail("llm.decode.seq", detail=rec.rids[i])
+            seq.num_cached += 1
+            seq.generated.append(int(next_tokens[i]))
+            if seq.num_cached % ecfg.block_size == 0:
+                self.scheduler.note_filled_blocks(seq)
+            rec.commit_idx += 1
+            committed += 1
+            self._emit(seq)
+            self._maybe_finish(seq)
+        self._current_rid = None
+        self._attribution_step = None
+        self._inflight.popleft()
+        self._decode_tokens += committed
+        self._decode_slot_steps += ecfg.max_decode_slots
+        self._step_commits.append(
+            {
+                "dispatch_step": rec.dispatch_step,
+                "time": time.time(),
+                "tokens": committed,
+                "commit_s": (
+                    round(time.perf_counter() - t0, 6)
+                    if instrument
+                    else None
+                ),
+            }
+        )
+        if instrument:
+            # The async decode series measures the commit half (fetch +
+            # emission loop) — the dispatch half is what the chain hides.
+            self._h_step.observe(
+                time.perf_counter() - t0, tags=self._step_tags["decode"]
+            )
 
     def _run_prefill_chunks(
         self,
@@ -926,8 +1535,13 @@ class LLMEngine:
             self._finished(seq)
 
     def _note_preempt(self, seq: Sequence) -> None:
-        """Scheduler preemption hook: close the victim's decode-stretch
-        span, mark the preemption, and restart its queue-wait clock."""
+        """Scheduler preemption hook: drop the proposer's per-request
+        state (a stateful proposer's draft blocks must not outlive the
+        victim's own KV blocks — the resume re-prefills both caches),
+        then close the victim's decode-stretch span, mark the preemption,
+        and restart its queue-wait clock."""
+        if self._spec is not None:
+            self._spec.release(seq.request.request_id)
         rt = self._req_traces.get(seq.request.request_id)
         if rt is not None:
             rt.on_preempt(time.time(), len(seq.generated))
@@ -938,6 +1552,11 @@ class LLMEngine:
             # Terminal for any reason: this deadline no longer needs the
             # per-step sweep (clamped against a double finish).
             self._deadline_count = max(0, self._deadline_count - 1)
+        if self._spec is not None:
+            # Terminal for any reason (finish, abort, dead-letter): the
+            # proposer's per-request resources (draft KV blocks) go with
+            # the request's own KV blocks.
+            self._spec.release(req_id)
         self._on_token.pop(req_id, None)
         rt = self._req_traces.pop(req_id, None)
         if rt is not None:
@@ -992,9 +1611,16 @@ class LLMEngine:
             # Weight count for the MFU estimate (decode FLOPs ~= 2 *
             # model_params per generated token).
             "model_params": self.runner.num_params,
-            "host_transfer_bytes": self.runner.host_transfer_bytes(),
+            "host_transfer_bytes": self._host_transfer_bytes(),
             "steps": self._steps,
             "decode_tokens": self._decode_tokens,
+            # Async step loop (EngineConfig.async_scheduling) + the
+            # host-gap apparatus it is measured by: mean/last host time
+            # between consecutive device dispatches (0 for a chained
+            # async dispatch — it beat the previous step's fetch), and
+            # how many records are dispatched-but-uncommitted right now.
+            "async_scheduling": self._async,
+            "inflight_steps": len(self._inflight),
             "host_gap_samples": self._host_gap_count,
             "host_gap_total_s": self._host_gap_total,
             "host_gap_mean_s": (
@@ -1035,6 +1661,28 @@ class LLMEngine:
             "expired_requests": self._expired_total,
             "max_queue_len": self.engine_config.max_queue_len,
             "max_queue_tokens": self.engine_config.max_queue_tokens,
+            "speculation": (
+                self._spec.name if self._spec is not None else "off"
+            ),
+            "spec_proposed_tokens": self._spec_proposed_total,
+            "spec_accepted_tokens": self._spec_accepted_total,
+            "spec_acceptance_rate": (
+                self._spec_accepted_total
+                / max(self._spec_proposed_total, 1)
+            ),
+            "spec_verify_steps": self._verify_steps,
+            # Draft-mirror pool occupancy (0 without a stateful proposer):
+            # must return to 0 when no requests are in flight.
+            "spec_draft_pool_allocated": (
+                self._spec.allocator.num_allocated
+                if getattr(self._spec, "allocator", None) is not None
+                else 0
+            ),
+            # > 1.0 means verification is amortizing decode steps: tokens
+            # emitted per verify-program dispatch, correction included.
+            "spec_tokens_per_verify_step": (
+                self._spec_emitted_total / max(self._verify_steps, 1)
+            ),
             "uptime_s": elapsed,
         }
 
@@ -1056,7 +1704,8 @@ class LLMServer:
     """In-process engine server: background step loop + blocking /
     streaming generate. Concurrent generate calls from several threads are
     continuous-batched inside the one engine. ``device`` defaults to CUDA
-    and raises without it."""
+    and raises without it; ``draft_params`` are the draft model's weights
+    under ``speculation="draft"`` (see LLMEngine)."""
 
     def __init__(
         self,
@@ -1066,10 +1715,11 @@ class LLMServer:
         seed: int = 0,
         warmup: bool = True,
         device=None,
+        draft_params=None,
     ):
         self._engine = LLMEngine(
             model_config, engine_config, params=params, seed=seed,
-            device=device,
+            device=device, draft_params=draft_params,
         )
         if warmup:
             # Touch every prefill bucket and the decode program now, before
@@ -1078,12 +1728,29 @@ class LLMServer:
             # real requests: per-request instrumentation is suppressed so
             # they never land in the TTFT/e2e SLO histograms (the flight
             # recorder's compile events carry warmup cost instead).
+            # Speculation is suppressed too: the generate-based rounds must
+            # deterministically run every prefill/decode bucket (an
+            # all-zeros prompt is maximally repetitive, so the n-gram
+            # proposer would reroute them through verify); the verify
+            # buckets get their own pass below. Async stepping is
+            # suppressed as well: the rounds run each bucket in a
+            # deterministic order and step count, and the async loop's
+            # decode dispatches the same program with the same launch
+            # shapes, so it needs no warmup pass of its own.
             instrumented = self._engine._instrument
+            spec = self._engine._spec
+            async_loop = self._engine._async
             self._engine._instrument = False
+            self._engine._spec = None
+            self._engine._async = False
             try:
                 self._warmup()
             finally:
                 self._engine._instrument = instrumented
+                self._engine._spec = spec
+                self._engine._async = async_loop
+            if spec is not None:
+                self._warmup_verify(spec)
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._requests: Dict[str, _RequestState] = {}
@@ -1173,6 +1840,34 @@ class LLMServer:
                     "chunk_prefill", w, time.monotonic() - t0
                 )
 
+    def _warmup_verify(self, spec) -> None:
+        """Run every k-token verify bucket plus whatever the proposer owns
+        (the draft model's prefill/decode programs), so the first
+        speculative step under live traffic never meets a cold launch
+        shape. The synthetic verify calls run against all-null block
+        tables: writes land in the null block (the masked-lane convention)
+        and touch no allocator state."""
+        ecfg = self._engine.engine_config
+        runner = self._engine.runner
+        slots = ecfg.max_decode_slots
+        nb = ecfg.max_blocks_per_seq
+        for s_bucket in ecfg.verify_buckets():
+            t0 = time.monotonic()
+            runner.verify(
+                np.zeros((slots, s_bucket), np.int32),
+                np.zeros((slots, nb), np.int32),
+                np.zeros((slots,), np.int32),
+                np.full((slots,), s_bucket, np.int32),
+            )
+            self._engine.flight_recorder.record_compile(
+                "verify", s_bucket, time.monotonic() - t0
+            )
+        t0 = time.monotonic()
+        spec.warmup()
+        self._engine.flight_recorder.record_compile(
+            f"proposer:{spec.name}", 0, time.monotonic() - t0
+        )
+
     # ---------------- engine loop ----------------
 
     def _loop(self) -> None:
@@ -1196,6 +1891,10 @@ class LLMServer:
                     # is dead-lettered even at the failure threshold.
                     culprit = self._engine.culprit_for(exc)
                     recorder = self._engine.flight_recorder
+                    # Under async_scheduling a commit-time failure is
+                    # attributed one step late: failure_step() resolves
+                    # to the in-flight record's DISPATCH index (sync
+                    # mode: the current step, as before).
                     step_idx = self._engine.failure_step()
                     if culprit is not None:
                         # Poison-request isolation: fail only the culpable

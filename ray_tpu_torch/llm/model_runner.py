@@ -5,8 +5,12 @@ The same step programs as the reference runner, at tensor-parallel degree
 block-table width, a full-prefill program per power-of-two bucket, a
 *partial*-prefill program per bucket (prefix caching and the continuation
 chunks of chunked prefill: feed only the uncached suffix at a position
-offset and attend the cached prefix through the block table), and a
-block-to-block copy (copy-on-write for shared blocks). PyTorch runs eagerly,
+offset and attend the cached prefix through the block table), a
+block-to-block copy (copy-on-write for shared blocks), and — with
+speculative decoding on — a batched k-token verify program per fed width
+bucket (the partial-prefill shape over [max_decode_slots] slots, returning
+the argmax at EVERY fed position). `decode_async` dispatches the decode
+program without waiting for it (the async step loop). PyTorch runs eagerly,
 so nothing compiles; the fixed shapes still bound the kernels' launch
 shapes, which the server's warmup touches before traffic.
 
@@ -107,6 +111,13 @@ class GPTRunner:
         # tables, lengths in; sampled token ids out).
         self.host_bytes_in = 0
         self.host_bytes_out = 0
+        # decode_async's pinned staging ring (CUDA only; buffers made at
+        # first use): per slot, the packed inputs, the event fencing their
+        # copy, and the host buffer the sampled tokens land in.
+        self._ring = [
+            {"in": None, "in_event": None, "out": None} for _ in range(3)
+        ]
+        self._ring_at = 0
 
         cfg, ecfg = model_config, engine_config
         cache_shape = (
@@ -265,7 +276,84 @@ class GPTRunner:
                 pool[:, dst] = pool[:, src]
         self.host_bytes_in += 8  # two int32 block ids
 
-    # ---------------- decode ----------------
+    # ---------------- decode / k-token verification ----------------
+
+    @torch.no_grad()
+    def verify(
+        self,
+        tokens: np.ndarray,
+        block_tables: np.ndarray,
+        context_lens: np.ndarray,
+        true_lens: np.ndarray,
+    ) -> np.ndarray:
+        """Batched multi-token scoring for speculative decoding. tokens
+        [B, S] = each slot's last committed token followed by its proposed
+        tokens (0-padded past true_lens[b]); block_tables [B, nb];
+        context_lens [B] = committed K/V per slot; true_lens [B] = fed
+        tokens per slot (1 + that slot's proposals) → out [B, S], the
+        argmax after consuming fed tokens 0..i of each slot. Arrays must
+        already be padded to [max_decode_slots, S_bucket] /
+        [max_decode_slots, max_blocks_per_seq] / [max_decode_slots]; the
+        S buckets are EngineConfig.verify_buckets.
+
+        The partial-prefill shape batched over slots: slot b's fed tokens
+        sit at absolute positions context_lens[b] + lane, attend the
+        committed prefix through the block table (paged) and each other
+        causally, and their K/V is scattered at those positions — so
+        out[b, i] is exactly the token the plain decode loop would have
+        produced there. Padded lanes (lane >= true_lens[b]) get position 0
+        and block 0 (the null block) and their outputs are garbage the
+        engine never reads. int8 caveat: lanes attend EACH OTHER through
+        their fresh full-precision K/V while sequential decode reads the
+        same tokens back quantized, so under kv_cache_dtype="int8" the
+        equivalence holds within quantization (int8's own contract)."""
+        bs = self.engine_config.block_size
+        b, s = tokens.shape
+        lane = np.arange(s)[None, :]
+        valid = lane < true_lens[:, None]
+        positions = np.where(valid, context_lens[:, None] + lane, 0)
+        block_idx = np.where(
+            valid, block_tables[np.arange(b)[:, None], positions // bs], 0
+        )
+        offsets = np.where(valid, positions % bs, 0)
+        tokens_d, tables_d, lens_d, pos_d, blk_d, off_d = self._to_device(
+            tokens, block_tables, context_lens, positions, block_idx, offsets,
+        )
+        logits, kvs = self.model(
+            tokens_d,
+            positions=pos_d,
+            paged_caches=self._paged_caches(tables_d, lens_d),
+            paged_impl=self.attn_impl,
+            return_kv=True,
+        )
+        self._scatter(kvs, (blk_d.long(), off_d.long()))
+        return self._to_host(torch.argmax(logits, dim=-1))
+
+    def _decode_program(
+        self, tokens_d, pos_d, tables_d, lens_d, blk_d, off_d
+    ) -> torch.Tensor:
+        """The decode step on device inputs → next_tokens [B] (int64, on
+        the device). `tokens_d` is only read: under async scheduling it is
+        the previous step's output."""
+        logits, kvs = self.model(
+            tokens_d[:, None],
+            positions=pos_d[:, None],
+            paged_caches=self._paged_caches(tables_d, lens_d),
+            paged_impl=self.attn_impl,
+            return_kv=True,
+        )
+        self._scatter(
+            [(k[:, 0], v[:, 0]) for k, v in kvs],
+            (blk_d.long(), off_d.long()),
+        )
+        return torch.argmax(logits[:, 0, :], dim=-1)
+
+    def _decode_index(self, positions: np.ndarray, block_tables: np.ndarray):
+        """Each slot's scatter target (block id, offset) for its write at
+        `positions`; idle slots carry an all-null table, so block 0."""
+        bs = self.engine_config.block_size
+        b = positions.shape[0]
+        return block_tables[np.arange(b), positions // bs], positions % bs
 
     @torch.no_grad()
     def decode(
@@ -278,22 +366,129 @@ class GPTRunner:
         """Batched single-token decode; arrays must already be padded to
         [max_decode_slots] / [max_decode_slots, max_blocks_per_seq]. Idle
         slots carry an all-null block table, so they write to block 0."""
-        bs = self.engine_config.block_size
-        b = tokens.shape[0]
-        block_idx = block_tables[np.arange(b), positions // bs]
-        offsets = positions % bs
-        tokens_d, pos_d, tables_d, lens_d, blk_d, off_d = self._to_device(
+        block_idx, offsets = self._decode_index(positions, block_tables)
+        next_tokens = self._decode_program(*self._to_device(
             tokens, positions, block_tables, context_lens, block_idx, offsets,
-        )
-        logits, kvs = self.model(
-            tokens_d[:, None],
-            positions=pos_d[:, None],
-            paged_caches=self._paged_caches(tables_d, lens_d),
-            paged_impl=self.attn_impl,
-            return_kv=True,
-        )
-        self._scatter(
-            [(k[:, 0], v[:, 0]) for k, v in kvs],
-            (blk_d.long(), off_d.long()),
-        )
-        return self._to_host(torch.argmax(logits[:, 0, :], dim=-1))
+        ))
+        return self._to_host(next_tokens)
+
+    @torch.no_grad()
+    def decode_async(
+        self,
+        tokens,
+        positions: np.ndarray,
+        block_tables: np.ndarray,
+        context_lens: np.ndarray,
+    ) -> "DeviceTokens":
+        """Dispatch one batched decode WITHOUT waiting for its result.
+
+        The same step program as `decode`, but the sampled tokens stay on
+        the device: `tokens` may be the previous step's `DeviceTokens`
+        (token chaining — its tensor is only read, never written, so the
+        caller can still fetch it afterwards), and the return value holds
+        THIS step's token tensor with its device-to-host copy already
+        queued. The caller materializes the values one step later with
+        `DeviceTokens.fetch()` at commit time.
+
+        On a CUDA device nothing here waits for the stream: the host-side
+        inputs are packed into a pinned staging buffer and copied with
+        `non_blocking=True`, and the sampled tokens land in a pinned host
+        buffer fenced by a CUDA event. The engine refills its numpy input
+        buffers every step, so the staging buffers are this runner's own
+        (a ring; one is refilled only after its previous copy has left
+        it). On the CPU the step runs synchronously; the engine's logic is
+        the same."""
+        chained = isinstance(tokens, DeviceTokens)
+        block_idx, offsets = self._decode_index(positions, block_tables)
+        # Chained token inputs never cross the host boundary — that is
+        # part of the win the transfer counters should show.
+        host_in = (positions, block_tables, context_lens, block_idx, offsets)
+        if not chained:
+            host_in = (tokens,) + host_in
+        slot = None
+        if self.device.type == "cuda":
+            slot = self._ring_at
+            self._ring_at = (slot + 1) % len(self._ring)
+            inputs = self._stage(host_in, slot)
+        else:
+            inputs = self._to_device(*host_in)
+        if chained:
+            inputs = (tokens.tensor,) + inputs
+        return self._start_fetch(self._decode_program(*inputs), slot)
+
+    # ---------------- async transfers (CUDA) ----------------
+
+    def _stage(self, arrays, slot: int) -> Tuple[torch.Tensor, ...]:
+        """Copy int32 host arrays to the device without a stream
+        synchronise: packed into the ring slot's pinned buffer (each
+        segment 16-byte aligned, as the kernels require of their inputs)
+        and sent by one non-blocking copy. The slot's event, recorded after
+        that copy, is waited on before the buffer is refilled — normally
+        long past, since the ring is deeper than the engine's in-flight
+        depth of 2."""
+        self.host_bytes_in += sum(int(a.nbytes) for a in arrays)
+        spans = [-(-int(a.size) // 4) * 4 for a in arrays]
+        total = sum(spans)
+        ring = self._ring[slot]
+        if ring["in"] is None or ring["in"].numel() < total:
+            ring["in"] = torch.empty(total, dtype=torch.int32, pin_memory=True)
+        elif ring["in_event"] is not None and not ring["in_event"].query():
+            ring["in_event"].synchronize()
+        view = ring["in"].numpy()
+        at = 0
+        for a, span in zip(arrays, spans):
+            view[at : at + a.size] = a.reshape(-1)
+            at += span
+        dev = ring["in"][:total].to(self.device, non_blocking=True)
+        ring["in_event"] = torch.cuda.Event()
+        ring["in_event"].record()
+        out, at = [], 0
+        for a, span in zip(arrays, spans):
+            out.append(dev[at : at + a.size].view(a.shape))
+            at += span
+        return tuple(out)
+
+    def _start_fetch(self, next_tokens: torch.Tensor, slot) -> "DeviceTokens":
+        """Queue the sampled tokens' copy into the ring slot's pinned host
+        buffer, fenced by an event (slot None: on the CPU, where they are
+        on the host already). The slot's previous tokens were fetched at
+        their commit, which precedes this dispatch by at least a step."""
+        self.host_bytes_out += next_tokens.numel() * 4  # int32 on the host
+        if slot is None:
+            return DeviceTokens(next_tokens, next_tokens.to(torch.int32).numpy(), None)
+        ring = self._ring[slot]
+        if ring["out"] is None or ring["out"].numel() != next_tokens.numel():
+            ring["out"] = torch.empty(
+                next_tokens.numel(), dtype=torch.int32, pin_memory=True
+            )
+        # A new int32 tensor: the chained input itself is never written.
+        ring["out"].copy_(next_tokens.to(torch.int32), non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return DeviceTokens(next_tokens, ring["out"], event)
+
+
+class DeviceTokens:
+    """One async decode step's sampled tokens: the device tensor (the next
+    chained step's input), the host buffer its copy lands in, and the CUDA
+    event fencing that copy (None on the CPU, where the values are already
+    on the host)."""
+
+    __slots__ = ("tensor", "host", "event")
+
+    def __init__(self, tensor: torch.Tensor, host, event) -> None:
+        self.tensor = tensor
+        self.host = host
+        self.event = event
+
+    def pending(self) -> bool:
+        """Whether the step (and its copy) is still running on the card."""
+        return self.event is not None and not self.event.query()
+
+    def fetch(self) -> np.ndarray:
+        """The sampled tokens as int32 numpy, waiting on this step's event
+        only (not on the whole device)."""
+        if self.event is None:
+            return self.host
+        self.event.synchronize()
+        return self.host.numpy().copy()

@@ -213,7 +213,8 @@ def paged_flash_attention(
 
     CUDA tensors launch the kernels (or raise): the split kernel and its
     merge at S <= SPLIT_MAX_S (`split_plan`), else a suffix kernel; the
-    launch counter moves once per call. CPU tensors run the plain version,
+    launch counter moves once per call, and the count of its route
+    (`routes`) with it. CPU tensors run the plain version,
     `paged_attention`, on the same prescaled q.
     """
     if new_k is None or new_v is None:
@@ -260,10 +261,24 @@ def paged_flash_attention(
     )
     _kernels.check(err, "paged_attention")
     paged_flash_attention.launches += 1
+    paged_flash_attention.routes[_route(plan, q.dtype, k_cache.dtype)] += 1
     return out
 
 
+def _route(plan: Optional[SplitPlan], q_dtype, kv_dtype) -> str:
+    """Which of K1's kernels a launch takes (the keys of
+    `paged_flash_attention.routes`)."""
+    if plan is not None:
+        return "split"
+    if q_dtype == torch.bfloat16 and kv_dtype != torch.float32:
+        return "suffix_mma"
+    return "suffix_f32"
+
+
 paged_flash_attention.launches = 0
+# Launches by route: the split kernel (+ merge) at S <= SPLIT_MAX_S, the
+# tensor-core suffix kernel, or the CUDA-core one. They sum to `launches`.
+paged_flash_attention.routes = {"split": 0, "suffix_mma": 0, "suffix_f32": 0}
 
 
 def paged_attention_split_reference(

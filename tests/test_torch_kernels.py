@@ -794,3 +794,123 @@ def test_slim_attention_gradient_matches_flash(cuda):
     torch.cuda.synchronize()
     for got, want in zip(*outs):
         _assert_close(got, want, torch.bfloat16)
+
+
+# ---------------------------------------------------------------- serving modes
+
+
+def _tiny_gpt(dtype):
+    from ray_tpu_torch.models import GPTConfig
+
+    return GPTConfig(vocab_size=256, num_layers=2, num_heads=4, embed_dim=256,
+                     max_seq_len=256, dtype=dtype)
+
+
+_MODES_ECFG = dict(block_size=16, num_blocks=128, max_decode_slots=4,
+                   max_blocks_per_seq=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_takes_both_k1_routes_and_matches_plain(cuda, dtype):
+    """GPTRunner.verify at fed widths 5 (split kernel + merge) and 9 (the
+    suffix kernel: tensor cores in bf16, CUDA cores in f32) against the
+    same runner's plain attention: the argmax on every fed lane (f32
+    identical; bf16 on >= 95% of lanes, near-ties may flip) and the route
+    counters of both sides of SPLIT_MAX_S."""
+    from ray_tpu_torch.llm import EngineConfig, GPTRunner
+
+    kern = GPTRunner(_tiny_gpt(dtype), EngineConfig(**_MODES_ECFG, attn_impl="cuda"),
+                     device=cuda)
+    plain = GPTRunner(_tiny_gpt(dtype), EngineConfig(**_MODES_ECFG, attn_impl="reference"),
+                      params=kern.model.state_dict(), device=cuda)
+    rng = np.random.RandomState(3)
+    # Slots 0, 1 and 3 hold 40, 17 and 70 cached tokens (tables with room
+    # for 9 more); slot 2 is idle (its lanes go to the null block).
+    prompts = {0: list(rng.randint(0, 256, 40)), 1: list(rng.randint(0, 256, 17)),
+               3: list(rng.randint(0, 256, 70))}
+    blocks = {0: [1, 2, 3, 4], 1: [5, 6, 7], 3: [8, 9, 10, 11, 12, 13]}
+    tables = np.zeros((4, 16), np.int32)
+    lens = np.zeros(4, np.int32)
+    for i, p in prompts.items():
+        tables[i, : len(blocks[i])] = blocks[i]
+        lens[i] = len(p)
+        for r in (kern, plain):
+            r.prefill(p, blocks[i][: -(-len(p) // 16)])
+    fed_sets = {5: (5, 2, 0, 5), 9: (9, 3, 0, 9)}
+    routes = paged_flash_attention.routes
+    for width, fed in fed_sets.items():
+        tokens = rng.randint(0, 256, size=(4, width)).astype(np.int32)
+        true_lens = np.array(fed, np.int32)
+        before = dict(routes)
+        got = kern.verify(tokens, tables, lens, true_lens)
+        delta = {k: routes[k] - before[k] for k in routes}
+        want = plain.verify(tokens, tables, lens, true_lens)
+        lanes = [(i, j) for i, n in enumerate(fed) for j in range(n)]
+        agree = np.mean([got[i, j] == want[i, j] for i, j in lanes])
+        if dtype == torch.float32:
+            assert agree == 1.0
+        else:
+            assert agree >= 0.95, agree
+        if width <= 8:
+            assert delta["split"] == 2 and delta["split"] == sum(delta.values())
+        else:
+            route = "suffix_mma" if dtype == torch.bfloat16 else "suffix_f32"
+            assert delta[route] == 2 and delta[route] == sum(delta.values())
+
+
+@pytest.mark.cuda
+def test_decode_async_chains_without_a_sync_and_matches_decode(cuda):
+    """decode_async on the card: enqueued with the card parked (its step
+    still pending when it returns) under the sync debug mode "error";
+    fresh and chained dispatches give decode's tokens."""
+    from ray_tpu_torch.llm import EngineConfig, GPTRunner
+
+    runner = GPTRunner(_tiny_gpt(torch.float32), EngineConfig(**_MODES_ECFG), device=cuda)
+    tokens = np.array([3, 14, 15, 92], np.int32)
+    pos = np.zeros(4, np.int32)
+    tables = np.zeros((4, 16), np.int32)
+    want = runner.decode(tokens, pos, tables, pos)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = runner.decode_async(tokens, pos, tables, pos)
+        second = runner.decode_async(first, pos, tables, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert first.pending() and second.pending()
+    got = first.fetch()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(second.fetch(), runner.decode(got, pos, tables, pos))
+
+
+@pytest.mark.cuda
+def test_serving_modes_token_identical_on_card(cuda):
+    """f32 on the kernels: async, ngram k = 4, a draft with the target's
+    weights at k = 8 (every proposal accepted) and async + ngram give the
+    sync engine's tokens."""
+    import dataclasses
+
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+
+    cfg = _tiny_gpt(torch.float32)
+    base = EngineConfig(**_MODES_ECFG)
+    ref = LLMEngine(cfg, base, device=cuda)
+    weights = ref.runner.model.state_dict()
+    rng = np.random.RandomState(5)
+    prompts = [list(rng.randint(0, 256, n)) for n in (9, 33, 20)]
+    prompts.append((list(rng.randint(0, 256, 5)) * 6)[:28])
+    want = ref.generate(prompts, max_new_tokens=24)
+    for extra in (dict(async_scheduling=True), dict(speculation="ngram"),
+                  dict(speculation="draft", num_speculative_tokens=8,
+                       draft_model_config=cfg),
+                  dict(async_scheduling=True, speculation="ngram")):
+        eng = LLMEngine(cfg, dataclasses.replace(base, **extra), params=weights,
+                        device=cuda,
+                        draft_params=weights if "draft_model_config" in extra else None)
+        assert eng.generate(prompts, max_new_tokens=24) == want, extra
+        stats = eng.stats()
+        if "draft_model_config" in extra:
+            assert stats["spec_accepted_tokens"] == stats["spec_proposed_tokens"] > 0
+        assert stats["inflight_steps"] == 0 and eng.allocator.num_allocated == 0

@@ -256,8 +256,6 @@ def test_engine_refuses_unported_options(weights):
     from ray_tpu_torch.llm import KVFabricConfig
 
     refused = [
-        (dict(speculation="ngram"), "speculation"),
-        (dict(async_scheduling=True), "async"),
         (dict(kv_fabric=KVFabricConfig()), "fabric"),
         (dict(kv_fabric=KVFabricConfig(), engine_role="decode"), "fabric"),
         (dict(tensor_parallel_size=2), "NCCL"),
