@@ -62,12 +62,23 @@ Phases, each fatal on failure:
      launched by verify at k = 8); (c) async with ngram; (d) in f32, one
      deterministic batch token-identical across the sync kernel path, the
      plain path, async, ngram, a draft with the target's weights (every
-     proposal accepted) and async + ngram.
+     proposal accepted) and async + ngram;
+  9. serve   — the same model served through
+     serve.run(llm.serve.build_app(...)): two ingress replicas in front of
+     one engine actor, and the HTTP proxy, on host weights that land on the
+     card once (memory before and after). The server phase's 8 requests at
+     once, 4 through the handle and 4 over HTTP (blocking and streaming),
+     with K1 and K2 launched; tokens/s, TTFT and step p50 on one `[serve]`
+     line beside the in-process server's; then in f32 the 8 requests one at
+     a time, token-identical to an in-process server, and a stream whose
+     replica is killed after 8 tokens, resumed contiguous and identical;
+     the engine's observability and autoscaling snapshots.
 The last two lines are the kernels JSON and the {"ok": true, ...} contract.
 """
 
 from __future__ import annotations
 
+import gc
 import importlib
 import json
 import re
@@ -1276,6 +1287,7 @@ def phase_server() -> dict:
         "launches_per_request": {k: v / len(prompts) for k, v in launches.items()},
     }
     log("[server] " + json.dumps(summary))
+    summary["bf16_tokens"] = results
 
     # Where the time goes: the same traffic again (prefix cache reset, so
     # the same programs run) under torch.profiler: the card's busy share of
@@ -1697,6 +1709,279 @@ def phase_serving_modes() -> dict:
     return summary
 
 
+def _host_weights(cfg) -> dict:
+    """The seed-0 GPT-2 weights of the server phases (the same init on the
+    card), copied to the host: a Serve app takes host arrays, and its
+    engine moves them onto the card once."""
+    from ray_tpu_torch.models.gpt import GPT
+
+    model = GPT(cfg, device="cuda", seed=0)
+    host = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return host
+
+
+def _http(addr, app, payload, stream=False):
+    """POST to the proxy: (the result's token ids, None), or (the ndjson
+    stream's token ids, the time to the first one)."""
+    import urllib.request
+
+    host, port = addr
+    req = urllib.request.Request(
+        f"http://{host}:{port}/{app}" + ("?stream=1" if stream else ""),
+        data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        if not stream:
+            return json.loads(resp.read())["result"]["token_ids"], None
+        toks, first = [], None
+        for line in resp:
+            if line.strip():
+                item = json.loads(line)
+                if "error" in item:
+                    raise RuntimeError(f"stream failed: {item['error']}")
+                first = first if first is not None else time.perf_counter() - t0
+                toks.append(item["result"]["token_id"])
+        return toks, first
+
+
+def _serve_request(handle, addr, app, prompt, n_new, how):
+    """One request by `how` (handle / handle_stream / http / http_stream)
+    → (token ids, client-side TTFT for the streaming ways, else None)."""
+    req = {"prompt_ids": [int(t) for t in prompt], "max_new_tokens": n_new}
+    if how == "handle":
+        return handle.remote(req).result(timeout_s=120)["token_ids"], None
+    if how == "handle_stream":
+        t0 = time.perf_counter()
+        toks, first = [], None
+        for item in handle.options(stream=True).remote(dict(req, stream=True)):
+            first = first if first is not None else time.perf_counter() - t0
+            toks.append(item["token_id"])
+        return toks, first
+    stream = how == "http_stream"
+    return _http(addr, app, dict(req, stream=stream), stream=stream)
+
+
+SERVE_WAYS = ("handle", "handle", "handle_stream", "handle_stream",
+              "http", "http", "http_stream", "http_stream")
+
+
+def _serve_traffic(handle, addr, prompts, n_new) -> tuple:
+    """Every prompt from its own thread, each by its SERVE_WAYS way, all at
+    once: (token lists, TTFTs of the streaming ways, wall seconds)."""
+    results, ttft = [None] * len(prompts), [None] * len(prompts)
+
+    def client(i):
+        results[i], ttft[i] = _serve_request(handle, addr, "llm", prompts[i],
+                                             n_new, SERVE_WAYS[i])
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    torch.cuda.synchronize()
+    return results, ttft, time.perf_counter() - t0
+
+
+def phase_serve(server: dict) -> dict:
+    """GPT-2 125M served through Serve: serve.run(build_app(...)) with two
+    ingress replicas in front of one engine actor, and the HTTP proxy.
+    (1) bf16: the server phase's 8 prompts x 32 tokens at once, 4 through
+    the handle and 4 over HTTP, with K1's and K2's counters zeroed just
+    before and read just after; tokens/s, TTFT and step p50 beside the
+    in-process server's (`server`, the server phase's summary). (2) f32:
+    the same 8 requests one at a time must be token-identical to an
+    in-process f32 LLMServer on the same weights; then a stream whose
+    replica is killed after 8 tokens must resume contiguous and identical.
+    (3) the engine's observability and autoscaling snapshots."""
+    t_phase = time.perf_counter()
+    summary = _serve_apps(server)
+    # Measured here, once _serve_apps' locals (handles, the killed
+    # replica's handle, the stream) are gone: what still holds the old
+    # runtime holds its engines and their card memory. The handles'
+    # router threads end within a poll period of the runtime's shutdown;
+    # wait until less than half the smallest engine (the bf16 app's) is
+    # left above the start (what stays is cuBLAS's per-thread workspaces).
+    mib = 2 ** 20
+    mem0 = summary["memory"]["before_mib"] * mib
+    engine_bytes = summary["memory"]["added_mib"] * mib
+    t0 = time.perf_counter()
+    while True:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated()
+        if left <= mem0 + engine_bytes / 2 or time.perf_counter() - t0 > 20:
+            break
+        time.sleep(0.25)
+    summary["left_allocated_mib"] = left / mib
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[serve] shut down: {left / mib:.0f} MiB left allocated on the card "
+        f"({mem0 / mib:.0f} before serve.run), "
+        f"{time.perf_counter() - t0:.1f}s after shutdown; phase wall "
+        f"{summary['wall_s']:.1f}s")
+    return summary
+
+
+def _serve_apps(server: dict) -> dict:
+    """phase_serve's (1)-(3), from the runtime's start to its shutdown."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.llm.serve import build_app, llm_stream_resume
+    from ray_tpu_torch.models.gpt import gpt2_125m
+    from ray_tpu_torch.serve._private.controller import get_or_create_controller
+    from ray_tpu_torch.serve._private.http_proxy import start_proxy, stop_proxy
+
+    n_new = 32
+    prompts = _prompts(np.random.RandomState(0))
+    host = _host_weights(gpt2_125m())
+    mib = 2 ** 20
+    summary = {}
+    ray_tpu_torch.init(num_cpus=8, num_gpus=1)
+    try:
+        # (1) bf16 through the handle and the proxy.
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        handle = serve.run(build_app(gpt2_125m(), _engine_config(), params=host,
+                                     num_replicas=2, engine_name="smoke-bf16"),
+                           name="llm")
+        addr = start_proxy()
+        # Blocks until the engine actor's __init__ (load + warmup) is done.
+        warm, _ = _serve_request(handle, addr, "llm", prompts[5], 4, "handle")
+        up_s = time.perf_counter() - t0
+        mem1 = torch.cuda.memory_allocated()
+        engine = ray_tpu_torch.get_actor("llm_engine:smoke-bf16")
+        m0 = ray_tpu_torch.get(engine.metrics.remote())
+        weight_bytes = sum(v.numel() * (4 if "norm" in k or "ln" in k else 2)
+                           for k, v in host.items())
+        mem = {"before_mib": mem0 / mib, "after_mib": mem1 / mib,
+               "added_mib": (mem1 - mem0) / mib,
+               "kv_pool_bytes": m0["kv_pool_bytes"],  # K and V together
+               "kv_pools_mib": m0["kv_pool_bytes"] / mib,
+               "bf16_weights_mib": weight_bytes / mib}
+        log(f"[serve] bf16 app up in {up_s:.1f}s (2 replicas, 1 engine): "
+            + json.dumps(mem))
+        # The weights sit on the card once: what serve.run added beside the
+        # pools is one bf16 copy of the weights and small buffers, never two.
+        extra = mem1 - mem0 - m0["kv_pool_bytes"]
+        if not weight_bytes * 0.9 <= extra < weight_bytes * 2:
+            fail(f"serve.run added {extra / mib:.0f} MiB beside the pools for "
+                 f"{weight_bytes / mib:.0f} MiB of weights")
+        if len(warm) != 4:
+            fail(f"the warm request gave {len(warm)} tokens, not 4")
+        last_step = max((r["step"] for r in ray_tpu_torch.get(
+            engine.flight_record.remote())["steps"]), default=-1)
+        hits0 = m0["prefix_cache_hit_tokens"]
+
+        _k1_zero()
+        results, ttft, wall = _serve_traffic(handle, addr, prompts, n_new)
+        counts = _k1_read()
+        torch.cuda.synchronize()
+        m = ray_tpu_torch.get(engine.metrics.remote())
+        steps = [r["duration_s"] for r in ray_tpu_torch.get(
+            engine.flight_record.remote())["steps"] if r["step"] > last_step]
+        if any(r is None or len(r) != n_new for r in results):
+            fail(f"not every serve request finished with {n_new} tokens: "
+                 f"{[None if r is None else len(r) for r in results]}")
+        if m["prefix_cache_hit_tokens"] - hits0 <= 0:
+            fail("the prefix cache never hit through serve")
+        launches = {k: counts[k] for k in ("K1 paged_attention", "K2 flash_fwd")}
+        for name, n in launches.items():
+            if n <= 0:
+                fail(f"{name} was not launched through serve.run(build_app(...))")
+        stream_ttft = [t for t in ttft if t is not None]
+        agree = _agreement(results, server["bf16_tokens"])
+        # The card's busy share through Serve: the same traffic again (the
+        # engine's prefix cache reset, so the same programs run) under
+        # torch.profiler, as the server phase measures it.
+        from torch.profiler import ProfilerActivity, profile
+
+        ray_tpu_torch.get(engine.reset_prefix_cache.remote())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, _, wall_p = _serve_traffic(handle, addr, prompts, n_new)
+        busy_s = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.self_device_time_total > 0) / 1e6
+        line = {
+            "requests": {way: SERVE_WAYS.count(way) for way in dict.fromkeys(SERVE_WAYS)},
+            "tokens": n_new * len(prompts), "wall_s": wall,
+            "tokens_per_s": n_new * len(prompts) / wall,
+            "ttft_p50_s": statistics.median(stream_ttft),
+            "step_p50_s": statistics.median(steps), "steps": len(steps),
+            "launches": launches, "k1_routes": counts["K1 routes"],
+            "prefix_cache_hit_tokens": m["prefix_cache_hit_tokens"] - hits0,
+            "profiled_wall_s": wall_p, "device_busy_share": busy_s / wall_p,
+            "in_process": {k: server[k] for k in (
+                "tokens_per_s", "ttft_p50_s", "step_p50_s", "steps", "launches",
+                "device_busy_share")},
+            "bf16_agreement_with_in_process": agree,
+        }
+        log("[serve] " + json.dumps(line))
+        summary.update(line, memory=mem, up_s=up_s)
+
+        # (2) f32: one request at a time by each way, against an in-process
+        # f32 server on the same weights; then the killed-replica stream.
+        f32_cfg = gpt2_125m(dtype=torch.float32)
+        handle32 = serve.run(build_app(f32_cfg, _engine_config(), params=host,
+                                       num_replicas=2, engine_name="smoke-f32"),
+                             name="llm32")
+        _serve_request(handle32, addr, "llm32", prompts[5], 4, "handle")  # warm
+        local = LLMServer(f32_cfg, _engine_config(), params=host)
+        want = _sequential(local, prompts, n_new)
+        _free(local)
+        del local
+        got = [_serve_request(handle32, addr, "llm32", p, n_new,
+                              SERVE_WAYS[(2 * i) % len(SERVE_WAYS)])[0]
+               for i, p in enumerate(prompts)]
+        if got != want:
+            bad = [i for i, (x, y) in enumerate(zip(got, want)) if x != y]
+            fail(f"f32 through serve differs from the in-process server on {bad}")
+        k = 6
+        gen = handle32.options(stream=True, stream_resume_fn=llm_stream_resume).remote(
+            {"prompt_ids": [int(t) for t in prompts[k]], "max_new_tokens": n_new,
+             "stream": True})
+        it = iter(gen)
+        resumed = [next(it)["token_id"] for _ in range(8)]
+        victim = gen.replica_tag
+        _, replicas = ray_tpu_torch.get(
+            get_or_create_controller().get_replica_snapshot.remote("llm32", "LLMIngress"))
+        ray_tpu_torch.kill(replicas[victim])
+        resumed += [item["token_id"] for item in it]
+        if resumed != want[k] or gen.replica_tag == victim:
+            fail(f"the stream resumed after its replica's kill is not the "
+                 f"in-process f32 run (moved: {gen.replica_tag != victim}, "
+                 f"{len(resumed)} tokens)")
+        log(f"[serve] f32 token-identical to the in-process server ({len(prompts)} "
+            f"requests x {n_new} tokens, one at a time, handle and HTTP); the "
+            f"stream whose replica {victim} was killed after 8 tokens resumed on "
+            f"{gen.replica_tag}, contiguous and identical")
+
+        # (3) the engine's snapshots, read on the card.
+        obs = ray_tpu_torch.get(engine.observability_snapshot.remote())
+        auto = ray_tpu_torch.get(engine.autoscaling_snapshot.remote())
+        log("[serve] snapshots: " + json.dumps({
+            "observability_bytes": len(json.dumps(obs, default=str)),
+            "observability_keys": sorted(obs),
+            "flight_record_steps": len(obs["flight_record"]["steps"]),
+            "histograms": sorted(obs["histograms"]),
+            "autoscaling_bytes": len(json.dumps(auto, default=str)),
+            "autoscaling_keys": sorted(auto)}))
+        for name in ("smoke-bf16", "smoke-f32"):
+            ray_tpu_torch.get(ray_tpu_torch.get_actor(f"llm_engine:{name}")
+                              .shutdown.remote())
+    finally:
+        serve.shutdown()
+        stop_proxy()
+        ray_tpu_torch.shutdown()
+    return summary
+
+
 def _replace_attn():
     import dataclasses
 
@@ -1792,8 +2077,10 @@ def main() -> int:
     launches = dict(phase_train()["launches_main"])
     trainer = phase_trainer()
     launches["K3 flash_bwd_fused"] = trainer["launches"]["K3 flash_bwd_fused"]
-    launches.update(phase_server()["launches"])
+    server = phase_server()
+    launches.update(server["launches"])
     phase_serving_modes()
+    phase_serve(server)
     launches.update(profile["launches"])
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches)))

@@ -2,8 +2,7 @@
 
 The classes keep the reference package's names, hierarchy and pickling
 contract (`__reduce__` carries every payload field, so a result that crosses
-the object store by pickle keeps its ids and causes). Serve's router errors
-wait for the Serve slice.
+the object store by pickle keeps its ids and causes).
 """
 
 from __future__ import annotations
@@ -105,12 +104,24 @@ class ActorUnavailableError(ActorError):
     pass
 
 
+class ReplicaDrainingError(ActorUnavailableError):
+    """A Serve replica marked DRAINING rejected a new dispatch, or
+    interrupted an in-flight stream at its drain deadline. Subclasses
+    ActorUnavailableError so the router's existing failover path
+    re-dispatches (and, for streams with a stream_resume_fn,
+    stream-resumes) onto a surviving replica WITHOUT waiting for the
+    draining replica to actually die — the router additionally treats it
+    as a planned migration rather than a failure, so it never consumes
+    the request's retry budget."""
+
 
 class EngineOverloadedError(ActorUnavailableError):
     """Bounded admission rejected a submission: the engine's scheduler
     backlog is at its configured cap (EngineConfig.max_queue_len /
     max_queue_tokens), or the request's deadline had already passed at
-    submission. A shed is a routing signal, not a failure.
+    submission. Subclasses ActorUnavailableError so the router's existing
+    failover machinery re-dispatches onto another replica — like
+    ReplicaDrainingError, a shed is a routing signal, not a failure.
     `retry_after_s` is the engine's hint for when capacity is likely to
     return (a rough queue-drain estimate, never a guarantee)."""
 
@@ -137,6 +148,69 @@ class EngineOverloadedError(ActorUnavailableError):
         )
 
 
+class FleetOverloadedError(ActorError):
+    """Every replica the router could reach shed the request
+    (EngineOverloadedError from each): the fleet as a whole is past its
+    admission caps. Terminal and typed — the router surfaces this instead
+    of buffering the request or burning its retry budget redialing
+    replicas that have already said no. `retry_after_s` is the largest
+    hint any replica offered; callers should back off at least that long
+    before resubmitting."""
+
+    def __init__(
+        self,
+        deployment: str = "",
+        attempts: int = 0,
+        retry_after_s: float = 0.0,
+        last_error: "BaseException | None" = None,
+    ):
+        self.deployment = deployment
+        self.attempts = attempts
+        self.retry_after_s = retry_after_s
+        self.last_error = last_error
+        super().__init__(
+            f"deployment {deployment!r} is overloaded: every replica shed "
+            f"the request across {attempts} dispatch attempt(s); retry "
+            f"after {retry_after_s:.3f}s. Last error: {last_error!r}"
+        )
+
+    def __reduce__(self):
+        return (
+            FleetOverloadedError,
+            (
+                self.deployment,
+                self.attempts,
+                self.retry_after_s,
+                self.last_error,
+            ),
+        )
+
+
+class ReplicaUnavailableRetryExhausted(ActorError):
+    """The Serve router's client-side failover gave up: every dispatch of a
+    request within its retry budget landed on a dead/unavailable replica.
+    Carries the attempt count and the last underlying error so callers see
+    a typed failure instead of a raw ActorDiedError."""
+
+    def __init__(
+        self,
+        deployment: str = "",
+        attempts: int = 0,
+        last_error: "BaseException | None" = None,
+    ):
+        self.deployment = deployment
+        self.attempts = attempts
+        self.last_error = last_error
+        super().__init__(
+            f"request to deployment {deployment!r} failed after {attempts} "
+            f"dispatch attempt(s); last error: {last_error!r}"
+        )
+
+    def __reduce__(self):
+        return (
+            ReplicaUnavailableRetryExhausted,
+            (self.deployment, self.attempts, self.last_error),
+        )
 
 
 class PoisonRequestError(RayTpuError):

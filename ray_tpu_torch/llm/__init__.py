@@ -7,11 +7,14 @@
     and the async decode dispatch
   * scheduler.py — iteration-level prefix-aware admission, continuation,
     preemption
-  * engine.py — LLMEngine core + LLMServer (in-process background loop)
+  * engine.py — LLMEngine core + LLMServer (background loop; in process,
+    or the engine actor behind Serve)
   * observability.py — per-request lifecycle spans, latency-histogram
     boundaries, and the engine flight recorder
   * spec/ — speculative decoding proposers (n-gram prompt lookup, draft
     model) feeding the engine's k-token verify-with-rollback phase
+  * serve.py — ingress deployment behind Serve's HTTP proxy and replicas,
+    forwarding to one named engine actor (`llm_engine:<name>`)
 """
 
 from ray_tpu_torch.llm.cache import (

@@ -2116,6 +2116,33 @@ class LLMServer:
             stats["consecutive_step_failures"] = self._consecutive_step_failures
             return stats
 
+    def autoscaling_snapshot(self) -> dict:
+        """Compact SLO signal bundle for the serve controller's
+        LLMAutoscalingPolicy: the engine's queue-time and TTFT histogram
+        series (snapshotted engine-side so the numbers are correct even
+        when the engine actor runs out-of-process from the controller)
+        plus the prefill backlog and load counts. The controller diffs
+        two snapshots to get a look-back window — scale-up triggers on
+        RECENT p99, not the engine's lifetime percentile."""
+        with self._lock:
+            e = self._engine
+            return {
+                "engine_id": e._metric_tags["engine"],
+                "queue_depth": len(e.scheduler.waiting),
+                "num_running": len(e.scheduler.running),
+                # Decode occupancy bound: num_running at max_decode_slots
+                # means the engine is decode-SATURATED even when the
+                # admission-time histograms are silent (long generations,
+                # no new arrivals) — the policy must not read that
+                # silence as idleness and scale the fleet down.
+                "max_decode_slots": e.engine_config.max_decode_slots,
+                "prefill_backlog_tokens": int(
+                    e.scheduler.prefill_backlog_tokens()
+                ),
+                "queue_time": e._h_queue.snapshot(e._metric_tags),
+                "ttft": e._h_ttft.snapshot(e._metric_tags),
+            }
+
     def stats(self) -> dict:
         """Alias of metrics(): the engine's counters plus the loop's
         health fields."""
@@ -2139,11 +2166,57 @@ class LLMServer:
         with self._lock:
             return self._engine.flight_recorder.snapshot(steps_limit)
 
+    def observability_snapshot(
+        self, steps_limit: Optional[int] = None
+    ) -> dict:
+        """metrics + dead letters + flight recorder in ONE actor round trip
+        (the dashboard /api/llm panel polls this; three separate RPCs per
+        engine per refresh would triple the scrape's exposure to a busy
+        engine's lock)."""
+        with self._lock:
+            e = self._engine
+            stats = e.stats()
+            stats["wedged"] = self._wedged
+            stats["consecutive_step_failures"] = self._consecutive_step_failures
+            return {
+                "metrics": stats,
+                "dead_letters": e.dead_letters(),
+                "shed_requests": e.shed_requests(),
+                "flight_record": e.flight_recorder.snapshot(steps_limit),
+                # Engine-side histogram snapshots for cross-replica
+                # aggregation (the fleet collector, ROADMAP §B12):
+                # snapshotted here so the numbers are correct even when
+                # the engine actor runs out-of-process from the collector.
+                "histograms": {
+                    "llm_request_ttft_seconds": e._h_ttft.snapshot(
+                        e._metric_tags
+                    ),
+                    "llm_request_time_per_output_token_seconds": (
+                        e._h_tpot.snapshot(e._metric_tags)
+                    ),
+                    "llm_request_queue_time_seconds": e._h_queue.snapshot(
+                        e._metric_tags
+                    ),
+                    "llm_request_e2e_seconds": e._h_e2e.snapshot(
+                        e._metric_tags
+                    ),
+                    "llm_engine_step_host_gap_seconds": (
+                        e._h_host_gap.snapshot(e._metric_tags)
+                    ),
+                },
+            }
+
     def reset_prefix_cache(self) -> None:
         """Drop all cached-but-unreferenced KV blocks (e.g. after swapping
         the served weights, whose cached activations would be stale)."""
         with self._lock:
             self._engine.allocator.reset_prefix_cache()
+
+    def num_pending(self) -> int:
+        with self._lock:
+            return len(self._engine.scheduler.waiting) + len(
+                self._engine.scheduler.running
+            )
 
     def check_health(self) -> bool:
         return self._thread.is_alive() and not self._wedged

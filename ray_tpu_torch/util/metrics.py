@@ -1,8 +1,8 @@
 """Application metrics: Counter / Gauge / Histogram + Prometheus exposition.
 
-The serving engine's part of the reference package's metrics module:
-metrics write to one in-process registry and `prometheus_text()` renders
-the standard text exposition format.
+The serving engine's and Serve's part of the reference package's metrics
+module: metrics write to one in-process registry and `prometheus_text()`
+renders the standard text exposition format.
 """
 
 from __future__ import annotations
@@ -147,6 +147,25 @@ class Histogram(Metric):
                 for key in self._buckets
             }
 
+    def snapshot(self, tags: Optional[dict] = None) -> dict:
+        """Bucket counts / sum / count for ONE series of this histogram
+        (zeros when the series has not observed yet). Instance-level
+        sibling of the registry-keyed `histogram_snapshot` below — holders
+        of the metric object (e.g. the LLM engine shipping its SLO
+        histogram windows to the autoscaler) snapshot without a registry
+        lookup, so a test's reset_registry can never make them miss."""
+        key = self._merged(tags)
+        with self._lock:
+            return {
+                "boundaries": list(self.boundaries),
+                "buckets": list(
+                    self._buckets.get(key, [0] * (len(self.boundaries) + 1))
+                ),
+                "sum": self._sums.get(key, 0.0),
+                "count": self._counts.get(key, 0),
+            }
+
+
 def _escape_label(value: str) -> str:
     """Prometheus exposition label escaping: backslash, quote, newline."""
     return (
@@ -194,6 +213,39 @@ def prometheus_text() -> str:
             for key, value in series.items():
                 lines.append(f"{m.name}{_fmt_tags(key)} {value}")
     return "\n".join(lines) + "\n"
+
+
+def percentile_from_buckets(
+    boundaries: Sequence[float], buckets: Sequence[int], q: float
+) -> Optional[float]:
+    """q-th percentile (q in [0, 100]) from histogram bucket counts, with
+    linear interpolation inside the containing bucket (the decade-ladder
+    boundaries are coarse, so nearest-rank alone would quantize every
+    percentile to a bucket edge). `buckets` has len(boundaries) + 1 counts;
+    the final count is the overflow (+Inf) bucket. Following the Prometheus
+    histogram_quantile convention, a percentile landing in the overflow
+    bucket returns the highest finite boundary — there is no upper edge to
+    interpolate toward. Returns None when the series has no samples."""
+    if not 0.0 <= q <= 100.0:
+        raise ValueError(f"percentile must be in [0, 100], got {q}")
+    if len(buckets) != len(boundaries) + 1:
+        raise ValueError(
+            f"expected {len(boundaries) + 1} bucket counts for "
+            f"{len(boundaries)} boundaries, got {len(buckets)}"
+        )
+    total = sum(buckets)
+    if total <= 0:
+        return None
+    rank = (q / 100.0) * total
+    cum = 0
+    for i, n in enumerate(buckets[:-1]):
+        if n and cum + n >= rank:
+            lo = 0.0 if i == 0 else boundaries[i - 1]
+            hi = boundaries[i]
+            fraction = min(max((rank - cum) / n, 0.0), 1.0)
+            return lo + fraction * (hi - lo)
+        cum += n
+    return float(boundaries[-1])  # overflow bucket: clamp (Prometheus)
 
 
 def get_or_create(kind_cls, name: str, description: str = "", **kwargs):

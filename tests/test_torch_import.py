@@ -1,16 +1,52 @@
 """The port stands alone: no module of ray_tpu_torch, and not chip_smoke.py,
 imports jax, jaxlib, flax, optax, or anything of the ray_tpu package.
 
-Checked in a fresh interpreter with an import hook that refuses those
-names (exact, or as a dotted prefix — `ray_tpu_torch` itself must pass).
+Checked twice. In a fresh interpreter with an import hook that refuses
+those names (exact, or as a dotted prefix — `ray_tpu_torch` itself must
+pass), which sees what importing every module pulls in. And by a static
+scan of every source file's syntax tree, which also sees the imports that
+run only when a function is called (inside functions, methods and `try`
+blocks), as Serve's code does for the runtime.
 """
 
+import ast
+import glob
 import os
 import subprocess
 import sys
 import textwrap
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+
+
+def _blocked(name: str) -> bool:
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
+def blocked_imports(path: str) -> list:
+    """(line, module) of every import of a blocked name anywhere in the
+    file: module level, functions, methods, classes, `try` blocks."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [(node.lineno, a.name) for a in node.names if _blocked(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _blocked(node.module):
+                found.append((node.lineno, node.module))
+    return found
+
+
+def _port_sources() -> list:
+    """Every source of the package and chip_smoke.py; not the git-ignored
+    build directory (ops/_build), which may hold copies of other trees."""
+    files = glob.glob(os.path.join(REPO, "ray_tpu_torch", "**", "*.py"), recursive=True)
+    files = [f for f in files if "_build" not in os.path.relpath(f, REPO).split(os.sep)]
+    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
 
 _GATE = textwrap.dedent(
     """
@@ -89,3 +125,42 @@ def test_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_no_import_of_jax_or_ray_tpu_at_any_depth():
+    """The static scan over every source of the port and chip_smoke.py."""
+    files = _port_sources()
+    assert len(files) >= 60
+    assert any(f.endswith(os.path.join("serve", "handle.py")) for f in files)
+    found = {
+        os.path.relpath(f, REPO): hits
+        for f in files
+        if (hits := blocked_imports(f))
+    }
+    assert not found, found
+
+
+@pytest.mark.parametrize(
+    "source, want",
+    [
+        ("def f():\n    from ray_tpu import api as ray\n    return ray\n",
+         [(2, "ray_tpu")]),
+        ("class A:\n    def m(self):\n        from ray_tpu.serve._private"
+         ".controller import get_or_create_controller\n",
+         [(3, "ray_tpu.serve._private.controller")]),
+        ("try:\n    import jax.numpy as jnp\nexcept ImportError:\n    pass\n",
+         [(2, "jax.numpy")]),
+        ("def f():\n    if True:\n        import os, flax.linen as nn\n",
+         [(3, "flax.linen")]),
+        ("import ray_tpu_torch\nfrom ray_tpu_torch import serve\n"
+         "from . import x\nimport jaxtyping\n", []),
+    ],
+    ids=["function", "method", "try_block", "nested_block", "allowed_names"],
+)
+def test_static_scan_sees_function_local_imports(tmp_path, source, want):
+    """The scan finds imports the import-time gate cannot see (a
+    function-local `from ray_tpu import api`), and passes the port's own
+    names and relative imports."""
+    path = tmp_path / "mod.py"
+    path.write_text(source)
+    assert blocked_imports(str(path)) == want
