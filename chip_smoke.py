@@ -72,7 +72,18 @@ Phases, each fatal on failure:
      line beside the in-process server's; then in f32 the 8 requests one at
      a time, token-identical to an in-process server, and a stream whose
      replica is killed after 8 tokens, resumed contiguous and identical;
-     the engine's observability and autoscaling snapshots.
+     the engine's observability and autoscaling snapshots;
+ 10. loadgen — the same model driven open-loop through Serve by the port's
+     loadgen (ray_tpu_torch.loadgen.sweep.run_sweep on the card, at full
+     width, on the same host weights): the knob cells base, async_step,
+     spec_ngram and int8_kv at 6 requests/s (24 each), the drain cell and
+     the collapse cell, every gate passing, K1 launched in every cell and
+     K2 in every knob cell (counters set to 0 just before each cell's
+     open-loop run, read just after), one `[loadgen]` line a cell; base
+     twice more (median and spread); then two replicas with an engine each
+     under 24 requests with live burn-rate monitors, read by
+     fleet_snapshot (each replica's ledger covering its wall, its columns,
+     goodput and MFU printed), and one request's timeline(trace_id=...).
 The last two lines are the kernels JSON and the {"ok": true, ...} contract.
 """
 
@@ -93,7 +104,7 @@ import numpy as np
 import torch
 
 # Run from the repository root: the port's package sits beside this file.
-from ray_tpu_torch.profiling.timing import bound, time_ms
+from ray_tpu_torch.profiling.timing import PEAK_FLOPS, bound, time_ms
 
 # Kernel against plain version, per output and by the output's dtype (see
 # `compare`): relative L2 error, and every element within `ulps` rounding
@@ -1198,11 +1209,14 @@ def _prompts(rng) -> list:
     ]
 
 
+ENGINE_BASE = dict(block_size=16, num_blocks=1024, max_decode_slots=16,
+                   max_blocks_per_seq=64)
+
+
 def _engine_config():
     from ray_tpu_torch.llm import EngineConfig
 
-    return EngineConfig(block_size=16, num_blocks=1024, max_decode_slots=16,
-                        max_blocks_per_seq=64)
+    return EngineConfig(**ENGINE_BASE)
 
 
 def _concurrent(server, prompts, n_new) -> tuple:
@@ -1982,6 +1996,349 @@ def _serve_apps(server: dict) -> dict:
     return summary
 
 
+LOADGEN_RATE = 6.0
+LOADGEN_REQUESTS = 24
+LOADGEN_CELLS = ("base", "async_step", "spec_ngram", "int8_kv")
+LOADGEN_REPEATS = 3  # base in all
+# Prompts long enough for K2's full prefill (and chunked prefill past 256
+# tokens), multiturn sessions sharing a 64-token prefix (K1's suffix
+# kernel on prefix hits), 24-32 new tokens a request.
+LOADGEN_SCENARIO = dict(max_new_tokens=32, prompt_len_median=128.0, output_len_median=24.0,
+                        shared_prefix_len=64, turn_tokens=32)
+
+
+def _count_cells(sweep, driver, runner_cls):
+    """Instrument the sweep for the card run (module attributes, restored
+    by the returned function): K1's and K2's counters are set to 0 just
+    before each cell's open-loop run and read just after it (the app's
+    warmup and priming request stay out), with K1's launches inside
+    GPTRunner.verify counted apart; each cell record gets the counts as
+    `launches`."""
+    runs = []
+    saved = {"run_open_loop": driver.run_open_loop, "verify": runner_cls.verify}
+    verify = {"calls": 0, "k1": 0}
+
+    def verify_counted(self, *args, **kwargs):
+        from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+
+        before = paged_flash_attention.launches
+        try:
+            return saved["verify"](self, *args, **kwargs)
+        finally:
+            verify["calls"] += 1
+            verify["k1"] += paged_flash_attention.launches - before
+
+    def run_open_loop(*args, **kwargs):
+        _k1_zero()
+        verify.update(calls=0, k1=0)
+        result = saved["run_open_loop"](*args, **kwargs)
+        torch.cuda.synchronize()
+        runs.append(dict(_k1_read(), verify=dict(verify)))
+        return result
+
+    def counted(fn):
+        def run(*args, **kwargs):
+            cell = fn(*args, **kwargs)
+            cell["launches"] = runs.pop()
+            # What the cell left allocated on the card after its teardown.
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            cell["left_allocated_mib"] = torch.cuda.memory_allocated() / 2 ** 20
+            return cell
+        return run
+
+    cells = {name: getattr(sweep, name)
+             for name in ("run_cell", "run_drain_cell", "run_collapse_cell")}
+    driver.run_open_loop = run_open_loop
+    runner_cls.verify = verify_counted
+    for name, fn in cells.items():
+        setattr(sweep, name, counted(fn))
+
+    def restore():
+        driver.run_open_loop = saved["run_open_loop"]
+        runner_cls.verify = saved["verify"]
+        for name, fn in cells.items():
+            setattr(sweep, name, fn)
+
+    return restore
+
+
+def _loadgen_line(cell: dict) -> dict:
+    """What a cell's `[loadgen]` line prints."""
+    rep = cell["report"]
+    pct = rep["percentiles"]
+    eng = cell["engine"]
+    line = {
+        "cell": cell["config"], "rate": cell["rate"],
+        "offered_per_s": rep["offered_rate"], "achieved_per_s": rep["achieved_rate"],
+        "tokens_per_s": rep["tokens_received"] / rep["wall_duration_s"],
+        "send_lag_p50_s": rep["send_lag_s"]["p50"], "send_lag_p99_s": rep["send_lag_s"]["p99"],
+        "ttft_p50_s": pct["ttft_s"]["p50"], "ttft_p99_s": pct["ttft_s"]["p99"],
+        "tpot_p50_s": pct["tpot_s"]["p50"], "tpot_p99_s": pct["tpot_s"]["p99"],
+        "e2e_p99_s": pct["e2e_s"]["p99"],
+        "requests": rep["requests"], "completed": rep["completed"],
+        "disconnected": rep["disconnected"], "errors": rep["errors"],
+        "shed": rep["num_shed"], "shed_p99_s": rep["shed_latency_s"]["p99"],
+        "prefix_hit_rate": eng.get("prefix_cache_hit_rate"),
+        "kv_cache_dtype": cell.get("kv_cache_dtype"),
+        "launches": cell["launches"],
+        "left_allocated_mib": cell.get("left_allocated_mib"),
+    }
+    if "cross_check" in cell:
+        check = cell["cross_check"]
+        line["cross_check"] = {"agreed": check["agreed"], **{
+            f"{m}_{q}": [check[m][q].get("loadgen_s"), check[m][q].get("engine_s")]
+            for m in ("ttft_s", "tpot_s") if isinstance(check.get(m), dict)
+            for q in ("p50", "p99") if q in check[m]}}
+    if cell["config"] == "spec_ngram":
+        line["acceptance"] = eng.get("spec_acceptance_rate")
+        line["tokens_per_verify_step"] = eng.get("spec_tokens_per_verify_step")
+    if "burn_rates" in cell:
+        line["burn_rates"] = cell["burn_rates"]
+    if "drain" in cell:
+        line["drain"] = {k: cell["drain"][k] for k in (
+            "state_counts", "num_drained_replicas", "num_migrated_requests")}
+    return line
+
+
+def _check_cell_launches(cell: dict, knob: bool) -> None:
+    launches, name = cell["launches"], cell["config"]
+    if launches["K1 paged_attention"] <= 0:
+        fail(f"[loadgen] {name}: K1 was not launched in the cell's run")
+    if knob and launches["K2 flash_fwd"] <= 0:
+        fail(f"[loadgen] {name}: K2 was not launched in the cell's run")
+    if name == "spec_ngram" and launches["verify"]["k1"] <= 0:
+        fail(f"[loadgen] spec_ngram: K1 was not launched by verify "
+             f"({launches['verify']})")
+    if name == "int8_kv" and cell.get("kv_cache_dtype") != "int8":
+        fail(f"[loadgen] int8_kv ran on {cell.get('kv_cache_dtype')} pools")
+
+
+def phase_loadgen() -> dict:
+    """GPT-2 125M at full width driven open-loop through Serve by the
+    port's loadgen: (1) run_sweep on the card with the knob cells base,
+    async_step, spec_ngram and int8_kv at 6 requests/s (Poisson, 24
+    requests each), then its drain cell (6/s, uniform, 12 requests) and
+    collapse cell (a ramp from 6 to 400/s over 64 requests); every gate
+    must pass, K1 must launch in every cell and K2 in every knob cell (the
+    counters set to 0 just before each cell's open-loop run and read just
+    after it), spec_ngram's verify must launch K1 and int8_kv run on int8
+    pools; one `[loadgen]` line a cell. (2) base twice more: the median
+    and spread of TTFT p50 and tokens/s over the three. (3) the fleet: two
+    replicas each with its own engine, 24 longtail requests at 6/s with a
+    loose and an impossible burn-rate monitor live, then fleet_snapshot:
+    each replica's ledger covers 1 +- 0.05 of its wall, loose burn < 1 <
+    impossible; then one request under a client span exported by
+    timeline(trace_id=...). (4) card memory left after the shutdown."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.runtime import get_runtime
+    from ray_tpu_torch.llm.model_runner import GPTRunner
+    from ray_tpu_torch.loadgen import driver, sweep
+    from ray_tpu_torch.models.gpt import gpt2_125m
+    from ray_tpu_torch.util.runtime_metrics import list_llm_engine_actors
+
+    t_phase = time.perf_counter()
+    cfg = gpt2_125m()
+    host = _host_weights(cfg)
+    served = dict(device="cuda", model_config=cfg, params=host,
+                  engine_base=dict(ENGINE_BASE), scenario_overrides=dict(LOADGEN_SCENARIO))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    summary = {}
+    ray_tpu_torch.init(num_cpus=8, num_gpus=1)
+    restore = _count_cells(sweep, driver, GPTRunner)
+    try:
+        # (1) the sweep.
+        record, problems = sweep.run_sweep([LOADGEN_RATE], LOADGEN_REQUESTS,
+                                           configs=list(LOADGEN_CELLS), **served)
+        lines = []
+        for cell in record["cells"]:
+            line = _loadgen_line(cell)
+            lines.append(line)
+            log("[loadgen] " + json.dumps(line))
+        log(f"[loadgen] sweep on {record['device_name']} ({record['backend']}): "
+            f"{len(record['cells'])} cells, note: {record['note']}")
+        if problems:
+            fail(f"[loadgen] the sweep's gates failed: {problems}")
+        want = [c[0] for c in sweep.KNOB_CONFIGS if c[0] in LOADGEN_CELLS]
+        if [c["config"] for c in record["cells"]] != want + [
+                "drain_scale_down", "collapse_ramp"]:
+            fail(f"[loadgen] unexpected cells {[c['config'] for c in record['cells']]}")
+        for cell in record["cells"]:
+            if cell["model"]["embed_dim"] != 768 or cell["device"] != "cuda":
+                fail(f"[loadgen] {cell['config']} did not serve GPT-2 125M on the card")
+            _check_cell_launches(cell, knob=cell["config"] in LOADGEN_CELLS)
+        summary["cells"] = lines
+
+        # (2) base, twice more.
+        base = [record["cells"][0]]
+        for _ in range(LOADGEN_REPEATS - 1):
+            cell = sweep.run_cell("base", {}, False, LOADGEN_RATE, LOADGEN_REQUESTS, 0,
+                                  **served)
+            gate = sweep._gate(cell)
+            log("[loadgen] " + json.dumps(dict(_loadgen_line(cell), repeat=len(base))))
+            if gate:
+                fail(f"[loadgen] base repeat {len(base)}: {gate}")
+            _check_cell_launches(cell, knob=True)
+            base.append(cell)
+        spread = {}
+        for key in ("ttft_p50_s", "tokens_per_s"):
+            vals = [_loadgen_line(c)[key] for c in base]
+            spread[key] = {"runs": vals, "median": statistics.median(vals),
+                           "min": min(vals), "max": max(vals),
+                           "spread": (max(vals) - min(vals)) / statistics.median(vals)}
+        log("[loadgen] base x3: " + json.dumps(spread))
+        summary["base_repeats"] = spread
+        # Every cell ends its app and kills its engine (ROADMAP §D8, §D10):
+        # nothing of the cells may be alive when the fleet starts.
+        left = list_llm_engine_actors(get_runtime())
+        if left:
+            fail(f"[loadgen] the cells left engines behind: {left}")
+
+        # (3) the fleet view.
+        summary["fleet"] = _loadgen_fleet(cfg, host)
+    finally:
+        restore()
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    mib = 2 ** 20
+    t0 = time.perf_counter()
+    while True:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated()
+        if left <= mem0 + 300 * mib or time.perf_counter() - t0 > 20:
+            break
+        time.sleep(0.25)
+    summary["left_allocated_mib"] = left / mib
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[loadgen] shut down: {left / mib:.0f} MiB left allocated on the card "
+        f"({mem0 / mib:.0f} before), {time.perf_counter() - t0:.1f}s after shutdown; "
+        f"phase wall {summary['wall_s']:.1f}s")
+    return summary
+
+
+def _loadgen_fleet(cfg, host) -> dict:
+    """phase_loadgen's (3): the fleet ledger, the burn pair and one
+    request's timeline, on two replicas with an engine each."""
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.serve import build_app
+    from ray_tpu_torch.loadgen import (IMPOSSIBLE_SLO, LOOSE_SLO, ArrivalSpec, ScenarioSpec,
+                                       arrival_times, build_report, generate_requests,
+                                       run_open_loop)
+    from ray_tpu_torch.observability import SLOBurnRateMonitor, fleet_snapshot
+    from ray_tpu_torch.util import tracing
+
+    ecfg = _engine_config()
+    handle = serve.run(build_app(cfg, ecfg, params=host, engine_name="smoke-fleet",
+                                 num_replicas=2, engine_per_replica=True, device="cuda"),
+                       name="fleet")
+    warm = handle.remote({"prompt_ids": [1, 2, 3], "max_new_tokens": 2}).result(timeout_s=300)
+    if len(warm["token_ids"]) != 2:
+        fail("[fleet] the warm request did not finish")
+    spec = ScenarioSpec.for_engine(ecfg.max_model_len, ecfg.buckets()[-1],
+                                   vocab_size=cfg.vocab_size, name="longtail",
+                                   num_requests=LOADGEN_REQUESTS, seed=0,
+                                   **LOADGEN_SCENARIO)
+    requests = generate_requests(spec)
+    offsets = arrival_times(ArrivalSpec(rate=LOADGEN_RATE, seed=0), len(requests))
+    monitors = {s.name: SLOBurnRateMonitor(s, windows=(5.0, 60.0)) for s in
+                (LOOSE_SLO, IMPOSSIBLE_SLO)}
+    for mon in monitors.values():
+        mon.sample()  # the baseline before traffic
+        mon.start(interval_s=0.25)
+    # The card's busy time under the same traffic (torch.profiler, CUDA
+    # activity only), to read beside the ledger's device_s column, which
+    # also holds the host's enqueue of each step and the blocking copy.
+    from torch.profiler import ProfilerActivity, profile
+
+    _k1_zero()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = run_open_loop(handle, requests, offsets, timeout_s=30.0,
+                                   settle_timeout_s=60.0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for mon in monitors.values():
+            try:
+                mon.sample()
+            finally:
+                mon.stop()
+    launches = _k1_read()
+    busy_s = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.self_device_time_total > 0) / 1e6
+    burns = {name: mon.peak_burn() for name, mon in monitors.items()}
+    rep = build_report(result)
+    snap = fleet_snapshot(steps_limit=4096, timeout_s=10.0,
+                          peak_flops_per_s=PEAK_FLOPS[torch.bfloat16])
+    out = {"report": {k: rep[k] for k in ("requests", "completed", "errors",
+                                          "achieved_rate", "send_lag_s")},
+           "burn_peaks": burns, "launches": launches, "replicas": {},
+           "profiled_wall_s": wall, "device_busy_s": busy_s,
+           "device_busy_share": busy_s / wall}
+    if rep["completed"] != len(requests):
+        fail(f"[fleet] {rep['requests'] - rep['completed']} requests did not "
+             f"complete: {rep['errors']}")
+    if len(snap["replicas"]) != 2:
+        fail(f"[fleet] fleet_snapshot saw {sorted(snap['replicas'])}, not 2 engines")
+    for name, row in snap["replicas"].items():
+        if "error" in row:
+            fail(f"[fleet] {name}: {row['error']}")
+        led = row["ledger"]
+        out["replicas"][name] = {
+            "steps": led["steps"], "wall_s": led["wall_s"], "coverage": led["coverage"],
+            "fractions": led["fractions"], "goodput_tokens_per_s": led["goodput_tokens_per_s"],
+            "mfu": led["mfu"], "host_gap_s": led["host_gap_s"],
+            "committed_tokens": led["committed_tokens"], "model_params": row["model_params"]}
+        if led["coverage"] is None or not 0.95 <= led["coverage"] <= 1.05:
+            fail(f"[fleet] {name}: ledger coverage {led['coverage']} outside 1 +- 0.05")
+    merged = snap["percentiles"].get("llm_request_ttft_seconds", {})
+    out["merged_ttft"] = merged
+    out["fleet"] = {k: snap["fleet"][k] for k in (
+        "fractions", "bottlenecks", "goodput_tokens_per_s", "min_coverage",
+        "max_coverage", "mfu", "committed_tokens")}
+    if not burns["loose"] < 1.0 < burns["impossible"]:
+        fail(f"[fleet] burn rates loose {burns['loose']} / impossible "
+             f"{burns['impossible']}: want loose < 1 < impossible")
+    if launches["K1 paged_attention"] <= 0 or launches["K2 flash_fwd"] <= 0:
+        fail(f"[fleet] kernels not launched by the fleet's traffic: {launches}")
+    for name, row in out["replicas"].items():
+        log(f"[fleet] {name}: " + json.dumps(row))
+    log("[fleet] " + json.dumps({k: v for k, v in out.items() if k != "replicas"}))
+
+    # One request's timeline across handle, replica and engine.
+    with tracing.span("client") as root:
+        with tracing.span("serve.handle.request"):
+            res = handle.remote({"prompt_ids": requests[0].prompt_ids[:64],
+                                 "max_new_tokens": 4}).result(timeout_s=60)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/trace.json"
+        ray_tpu_torch.timeline(path, trace_id=root.trace_id)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    rows = {e["args"]["name"] for e in events
+            if e["ph"] == "M" and e["name"] == "process_name"}
+    flows = sum(e["ph"] == "s" for e in events)
+    slices = sum(e["ph"] == "X" for e in events)
+    if len(res["token_ids"]) != 4 or not {"serve.handle", "serve.replica",
+                                          "llm.engine"} <= rows or not flows:
+        fail(f"[fleet] the request's timeline lacks rows or flows: {sorted(rows)}, "
+             f"{flows} flows")
+    log(f"[fleet] timeline(trace_id=...): {slices} slices, {flows} flow arrows, "
+        f"rows {sorted(rows)}")
+    out["timeline"] = {"slices": slices, "flows": flows, "rows": sorted(rows)}
+    return out
+
+
 def _replace_attn():
     import dataclasses
 
@@ -2081,6 +2438,7 @@ def main() -> int:
     launches.update(server["launches"])
     phase_serving_modes()
     phase_serve(server)
+    phase_loadgen()
     launches.update(profile["launches"])
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches)))

@@ -214,13 +214,31 @@ def available_resources() -> dict[str, float]:
     return totals
 
 
-def timeline(filename: Optional[str] = None):
+def timeline(
+    filename: Optional[str] = None, trace_id: Optional[str] = None
+):
     """Chrome-trace timeline of task executions and buffered tracing spans
     (reference: ray.timeline, _private/state.py:831), written as JSON when
-    `filename` is given — load in chrome://tracing or Perfetto."""
+    `filename` is given — load in chrome://tracing or Perfetto.
+
+    With `trace_id`, exports ONE request's connected timeline instead:
+    a Perfetto trace object with per-actor process rows (handle →
+    router → ingress → engine) and flow events stitching the
+    cross-actor span ids (observability.perfetto)."""
+    runtime = get_runtime()
+    if trace_id is not None:
+        from ray_tpu_torch.observability.perfetto import (
+            perfetto_trace,
+            write_perfetto_trace,
+        )
+
+        if filename:
+            return write_perfetto_trace(
+                filename, trace_id=trace_id, runtime=runtime
+            )
+        return perfetto_trace(trace_id=trace_id, runtime=runtime)
     from ray_tpu_torch.util import tracing
 
-    runtime = get_runtime()
     events = runtime.task_events.chrome_trace() + tracing.chrome_spans(runtime)
     if filename:
         import json

@@ -259,7 +259,7 @@ class LLMEngine:
         self._h_tpot = get_or_create(
             Histogram,
             "llm_request_time_per_output_token_seconds",
-            "Mean inter-token latency after the first token, per request",
+            "Mean inter-token latency after the first token, per completed request",
             boundaries=PER_TOKEN_SECONDS_BOUNDARIES,
             tag_keys=("engine",),
         )
@@ -1564,8 +1564,12 @@ class LLMEngine:
             rt.on_finish(now, seq)
             self._h_e2e.observe(now - rt.submit_s, tags=self._metric_tags)
             n = len(seq.generated)
-            if rt.first_token_s is not None and n >= 2:
-                # Mean inter-token latency after the first token (TPOT).
+            completed = seq.finish_reason in (FINISH_EOS, FINISH_LENGTH)
+            if completed and rt.first_token_s is not None and n >= 2:
+                # Mean inter-token latency after the first token (TPOT), of
+                # a request that completed: an aborted, dead-lettered or
+                # expired one's interval runs past its last token, and
+                # loadgen's TPOT leaves such requests out (ROADMAP §D11).
                 self._h_tpot.observe(
                     (now - rt.first_token_s) / (n - 1), tags=self._metric_tags
                 )
@@ -1687,6 +1691,58 @@ class LLMEngine:
         }
 
 
+class _HandoffLock:
+    """The server's lock, handed to its longest waiter on release.
+
+    The engine loop holds the lock for a whole step and takes it again at
+    once for the next one. A plain `threading.Lock` makes no hand-off, so
+    the loop nearly always wins that race and a submission, an abort or a
+    `metrics()` call from another thread can wait out many steps (the
+    reference package's fault: a metrics poll starved until every stream
+    had finished, ROADMAP §D7). Here a release with threads queued passes
+    the lock to the oldest of them, so each waits at most for the step in
+    progress. It has what `threading.Condition` needs of a lock."""
+
+    def __init__(self):
+        self._mutex = threading.Lock()
+        self._held = False
+        self._waiters: Deque[threading.Lock] = deque()
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        with self._mutex:
+            if not self._held:
+                self._held = True
+                return True
+            if not blocking:
+                return False
+            gate = threading.Lock()
+            gate.acquire()
+            self._waiters.append(gate)
+        if gate.acquire(timeout=timeout):
+            return True  # released by release(): the lock is ours
+        with self._mutex:
+            if gate in self._waiters:
+                self._waiters.remove(gate)
+                return False
+        return True  # handed over while the wait timed out
+
+    def release(self) -> None:
+        with self._mutex:
+            if not self._held:
+                raise RuntimeError("release unlocked lock")
+            if self._waiters:
+                self._waiters.popleft().release()  # still held: handed over
+            else:
+                self._held = False
+
+    def __enter__(self) -> "_HandoffLock":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+
 class _RequestState:
     __slots__ = ("tokens", "done", "seq", "error")
 
@@ -1751,7 +1807,8 @@ class LLMServer:
                 self._engine._async = async_loop
             if spec is not None:
                 self._warmup_verify(spec)
-        self._lock = threading.Lock()
+        # A hand-off lock, not threading.Lock (ROADMAP §D7): see _HandoffLock.
+        self._lock = _HandoffLock()
         self._work = threading.Condition(self._lock)
         self._requests: Dict[str, _RequestState] = {}
         self._shutdown = False

@@ -47,21 +47,43 @@ def _refuse_fabric(engine_config: Optional[EngineConfig]) -> None:
         )
 
 
+# Threads of the engine actor beyond its live streams: sheds, blocking
+# requests and control calls (metrics, aborts, snapshots). The reference's
+# whole pool is this size.
+ENGINE_SPARE_THREADS = 32
+
+
+def engine_concurrency(engine_config: Optional[EngineConfig]) -> int:
+    """The engine actor's thread pool. Every live stream holds one of its
+    threads for the stream's whole life, so a pool no larger than what
+    bounded admission lets live (max_decode_slots running plus
+    max_queue_len queued) leaves a request that should be shed at once
+    waiting for a stream to end, and metrics and aborts with it. The
+    reference's fixed 32 is exactly that on the card's engine (16 + 16);
+    the port keeps ENGINE_SPARE_THREADS beyond the live streams (ROADMAP
+    §D9)."""
+    ecfg = engine_config or EngineConfig()
+    return ecfg.max_decode_slots + (ecfg.max_queue_len or 0) + ENGINE_SPARE_THREADS
+
+
 def get_or_create_engine_actor(
     engine_name: str = "default",
     model_config: Optional[GPTConfig] = None,
     engine_config: Optional[EngineConfig] = None,
     params=None,
     seed: int = 0,
-    max_concurrency: int = 32,
+    max_concurrency: Optional[int] = None,
     draft_params=None,
     device=None,
 ):
     """Named engine actor shared by every ingress replica. With
     `engine_config.speculation="draft"`, `draft_params` carries the draft
     model's trained weights (seed-initialized otherwise). `device`
-    defaults to CUDA and raises without it; pass "cpu" to serve there."""
+    defaults to CUDA and raises without it; pass "cpu" to serve there.
+    `max_concurrency` defaults to `engine_concurrency(engine_config)`."""
     device = _serve_device(device)
+    if max_concurrency is None:
+        max_concurrency = engine_concurrency(engine_config)
     return (
         ray_tpu_torch.remote(LLMServer)
         .options(

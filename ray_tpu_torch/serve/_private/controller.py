@@ -645,6 +645,11 @@ class ServeControllerActor:
     def _scale(self, st: _DeploymentState) -> None:
         now = time.monotonic()
         with self._lock:
+            if self._shutdown or self._get_state(st.app, st.name) is not st:
+                # This pass captured the deployment before a shutdown or
+                # delete emptied its replicas: starting one now would run
+                # its constructor after its app is gone (ROADMAP §D10).
+                return
             target = st.target_replicas(now)
             current = len(st.replicas)
             cfg = st.info["config"]

@@ -73,10 +73,11 @@ class LLMAutoscalingPolicy:
     prefill backlog is empty, one step per `downscale_cooldown_s` — so a
     burst's tail can't flap the fleet.
 
-    `target_burn_rate` is kept, but its signal (`slo_burn_rate`) stays
-    None in the port until ROADMAP §B12's SLOBurnRateMonitor feeds it, as
-    in the reference when no monitor runs: the burn target then never
-    fires, and the other targets decide."""
+    `target_burn_rate` reads `signals["slo_burn_rate"]`, which
+    `observability.SLOBurnRateMonitor.autoscaler_signal()` gives (its
+    shortest window's burn), as in the reference. Without a monitor
+    feeding it the signal is None: the burn target then never fires, and
+    the other targets decide."""
 
     min_replicas: int = 1
     max_replicas: int = 2

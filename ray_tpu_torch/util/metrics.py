@@ -248,6 +248,123 @@ def percentile_from_buckets(
     return float(boundaries[-1])  # overflow bucket: clamp (Prometheus)
 
 
+class BucketMismatchError(ValueError):
+    """Two histogram snapshots with different bucket ladders were asked to
+    merge. Summing counts bucket-by-bucket across mismatched boundaries
+    silently attributes samples to the wrong latency range — the fleet
+    aggregator must refuse instead of mis-summing."""
+
+
+def merge_snapshots(snapshots: Sequence[dict]) -> dict:
+    """Sum histogram snapshots (`Histogram.snapshot` /
+    `histogram_snapshot` shape: {"boundaries", "buckets", "sum",
+    "count"}) into one — the cross-replica aggregation primitive: every
+    engine exports the same ladders (the module-level boundary constants),
+    so bucket-wise addition is exact, and percentiles of the merged
+    snapshot are fleet percentiles. Raises BucketMismatchError when any
+    two ladders differ (never mis-sums), ValueError on an empty input."""
+    if not snapshots:
+        raise ValueError("merge_snapshots needs at least one snapshot")
+    base = snapshots[0]
+    boundaries = list(base["boundaries"])
+    buckets = [0] * (len(boundaries) + 1)
+    total_sum = 0.0
+    total_count = 0
+    for snap in snapshots:
+        if list(snap["boundaries"]) != boundaries:
+            raise BucketMismatchError(
+                f"cannot merge histogram snapshots with mismatched bucket "
+                f"ladders: {boundaries} vs {list(snap['boundaries'])}"
+            )
+        counts = snap["buckets"]
+        if len(counts) != len(boundaries) + 1:
+            raise BucketMismatchError(
+                f"expected {len(boundaries) + 1} bucket counts for "
+                f"{len(boundaries)} boundaries, got {len(counts)}"
+            )
+        for i, n in enumerate(counts):
+            buckets[i] += n
+        total_sum += snap["sum"]
+        total_count += snap["count"]
+    return {
+        "boundaries": boundaries,
+        "buckets": buckets,
+        "sum": total_sum,
+        "count": total_count,
+    }
+
+
+def fraction_over_threshold(
+    boundaries: Sequence[float], buckets: Sequence[int], threshold: float
+) -> Optional[float]:
+    """Fraction of observed samples strictly above `threshold`, linearly
+    interpolated within the bucket containing it (the inverse read of
+    percentile_from_buckets — the SLO burn-rate monitor's primitive: a
+    rule `ttft_p99 < T` is burning when more than 1% of the window's
+    samples land above T). Returns None when the series has no samples."""
+    if len(buckets) != len(boundaries) + 1:
+        raise ValueError(
+            f"expected {len(boundaries) + 1} bucket counts for "
+            f"{len(boundaries)} boundaries, got {len(buckets)}"
+        )
+    total = sum(buckets)
+    if total <= 0:
+        return None
+    idx = bisect_left(boundaries, threshold)
+    over = sum(buckets[idx + 1 :])
+    # Split the containing bucket at the threshold (uniform-within-bucket,
+    # matching percentile_from_buckets). The overflow bucket has no upper
+    # edge: everything in it counts as over unless threshold is past the
+    # last finite boundary, where interpolation is impossible — count it
+    # all as over (conservative: alerts fire rather than stay silent).
+    if idx < len(boundaries):
+        lo = 0.0 if idx == 0 else boundaries[idx - 1]
+        hi = boundaries[idx]
+        inside = buckets[idx]
+        fraction_above = (hi - threshold) / (hi - lo) if hi > lo else 0.0
+        over += inside * min(max(fraction_above, 0.0), 1.0)
+    else:
+        over += buckets[-1]
+    return over / total
+
+
+def histogram_snapshot(name: str, tags: Optional[dict] = None) -> dict:
+    """Bucket counts / sum / count for ONE series of a registered
+    histogram: {"boundaries", "buckets", "sum", "count"} (zeros when the
+    series has not been observed yet). The loadgen report diffs two
+    snapshots to percentile just one run's window out of a long-lived
+    engine's cumulative histogram."""
+    with _REGISTRY_LOCK:
+        m = _REGISTRY.get(name)
+    if m is None:
+        raise KeyError(f"no metric named {name!r} is registered")
+    if not isinstance(m, Histogram):
+        raise TypeError(f"metric {name!r} is a {m.kind}, not a histogram")
+    return m.snapshot(tags)
+
+
+def histogram_percentile(
+    name: str, q: float, tags: Optional[dict] = None
+) -> Optional[float]:
+    """q-th percentile (q in [0, 100]) of one series of a registered
+    histogram, linearly interpolated within its decade-ladder buckets (see
+    percentile_from_buckets). The SLO gate and the dashboard both read
+    p50/p99 from the existing llm_request_* histograms through this.
+    Returns None when the series has no samples."""
+    snap = histogram_snapshot(name, tags)
+    return percentile_from_buckets(snap["boundaries"], snap["buckets"], q)
+
+
+def bucket_index(boundaries: Sequence[float], value: float) -> int:
+    """Which bucket of `boundaries` a value falls in (last index = the
+    overflow bucket) — mirrors Histogram.observe's inclusive-`le`
+    placement. Two latency estimates "agree within one bucket" when their
+    indices differ by at most 1 (the cross-check contract between
+    loadgen-side samples and engine-side histogram percentiles).
+    `boundaries` must be ascending, as Histogram already guarantees."""
+    return bisect_left(boundaries, value)
+
+
 def get_or_create(kind_cls, name: str, description: str = "", **kwargs):
     """Return the already-registered metric of this name/kind, or create it.
 

@@ -165,3 +165,21 @@ class RuntimeMetricsSampler:
 
     def stop(self) -> None:
         self._stop.set()
+
+
+def list_llm_engine_actors(runtime) -> list:
+    """Live named LLM engine actors (llm.serve names them
+    "llm_engine:<name>"), as (name, namespace) pairs. The reference's
+    scrape-time samplers beside it (`sample_llm_engine_metrics`,
+    `sample_serve_metrics`, `MetricsHistory`) feed the dashboard and come
+    with it (ROADMAP §B10)."""
+    out = []
+    for record in runtime.controller.list_actors():
+        name = getattr(record, "name", None)
+        if (
+            name
+            and name.startswith("llm_engine:")
+            and record.state.value == "ALIVE"
+        ):
+            out.append((name, record.namespace))
+    return out
