@@ -76,15 +76,35 @@ Phases, each fatal on failure:
  10. loadgen — the same model driven open-loop through Serve by the port's
      loadgen (ray_tpu_torch.loadgen.sweep.run_sweep on the card, at full
      width, on the same host weights): the knob cells base, async_step,
-     spec_ngram and int8_kv at 6 requests/s (24 each), the drain cell and
-     the collapse cell, every gate passing, K1 launched in every cell and
-     K2 in every knob cell (counters set to 0 just before each cell's
-     open-loop run, read just after), one `[loadgen]` line a cell; base
-     twice more (median and spread); then two replicas with an engine each
-     under 24 requests with live burn-rate monitors, read by
-     fleet_snapshot (each replica's ledger covering its wall, its columns,
-     goodput and MFU printed), and one request's timeline(trace_id=...).
-The last two lines are the kernels JSON and the {"ok": true, ...} contract.
+     spec_ngram and int8_kv at 6 requests/s (24 each), the drain cell, the
+     collapse cell and the KV-fabric pair (kv_fabric_affinity and
+     kv_fabric_p2c: multiturn over two replicas with an engine each on one
+     fabric, 12 requests), every gate passing (the pair's: zero drops,
+     blocks flushed, a cross-replica fabric hit), K1 launched in every
+     cell and K2 in every knob cell (counters set to 0 just before each
+     cell's open-loop run, read just after), one `[loadgen]` line a cell
+     (the pair's with its repeat wave's TTFT p50); no engine and no
+     `kv_fabric:*` store left alive after the cells; base twice more
+     (median and spread); then two replicas with an engine each under 24
+     requests with live burn-rate monitors, read by fleet_snapshot (each
+     replica's ledger covering its wall, its columns, goodput and MFU
+     printed), and one request's timeline(trace_id=...);
+ 11. fabric  — the KV fabric on the server phase's weights: (a) a block
+     extracted from a bf16 and an int8 pool and restored into another
+     slot, bit for bit, as host numpy of kv_block_bytes() bytes; (b) server
+     A serves the server phase's 8 prompts and flushes into the fabric,
+     a fresh server B on it serves them from restores (restores > 0 and at
+     most sum((n - 1) // bs), no store timeout, K1 launched on B's run,
+     neither warmup touching the store; each restoring step's
+     fabric_wait_s printed), token-identical to A and to a fabric-off
+     engine in f32; (c) DisaggregatedLLM in f32, token-identical to a
+     unified engine, K2 launched by the prefill engine and K1 by the
+     decode engine, (n - 1) // bs blocks restored a request, its TTFT
+     beside the unified engine's; (d) no engine or store left alive, the
+     card memory left.
+The last two lines are the kernels JSON (K1's and K2's entries also carry
+their launches on every serving path, `launches_by_path`) and the
+{"ok": true, ...} contract.
 """
 
 from __future__ import annotations
@@ -2049,7 +2069,8 @@ def _count_cells(sweep, driver, runner_cls):
         return run
 
     cells = {name: getattr(sweep, name)
-             for name in ("run_cell", "run_drain_cell", "run_collapse_cell")}
+             for name in ("run_cell", "run_drain_cell", "run_collapse_cell",
+                          "run_kv_fabric_cell")}
     driver.run_open_loop = run_open_loop
     runner_cls.verify = verify_counted
     for name, fn in cells.items():
@@ -2099,6 +2120,13 @@ def _loadgen_line(cell: dict) -> dict:
     if "drain" in cell:
         line["drain"] = {k: cell["drain"][k] for k in (
             "state_counts", "num_drained_replicas", "num_migrated_requests")}
+    if "fabric" in cell:
+        fab = cell["fabric"]
+        line["fabric"] = {
+            "repeat_wave_ttft_p50_s": fab["repeat_wave_ttft_p50_s"],
+            "flushed_blocks": fab["flushed_blocks"],
+            "cross_replica_hit_blocks": fab["cross_replica_hit_blocks"],
+            "store": fab["store"], "per_engine": fab["per_engine"]}
     return line
 
 
@@ -2130,7 +2158,10 @@ def phase_loadgen() -> dict:
     loose and an impossible burn-rate monitor live, then fleet_snapshot:
     each replica's ledger covers 1 +- 0.05 of its wall, loose burn < 1 <
     impossible; then one request under a client span exported by
-    timeline(trace_id=...). (4) card memory left after the shutdown."""
+    timeline(trace_id=...). (4) card memory left after the shutdown. The
+    sweep's KV-fabric pair (kv_fabric_affinity, kv_fabric_p2c) runs after
+    the collapse cell: its gate, K1 in each cell's run and no engine or
+    `kv_fabric:*` store left alive afterwards."""
     import ray_tpu_torch
     from ray_tpu_torch import serve
     from ray_tpu_torch._private.runtime import get_runtime
@@ -2165,12 +2196,18 @@ def phase_loadgen() -> dict:
             fail(f"[loadgen] the sweep's gates failed: {problems}")
         want = [c[0] for c in sweep.KNOB_CONFIGS if c[0] in LOADGEN_CELLS]
         if [c["config"] for c in record["cells"]] != want + [
-                "drain_scale_down", "collapse_ramp"]:
+                "drain_scale_down", "collapse_ramp", "kv_fabric_affinity",
+                "kv_fabric_p2c"]:
             fail(f"[loadgen] unexpected cells {[c['config'] for c in record['cells']]}")
         for cell in record["cells"]:
             if cell["model"]["embed_dim"] != 768 or cell["device"] != "cuda":
                 fail(f"[loadgen] {cell['config']} did not serve GPT-2 125M on the card")
             _check_cell_launches(cell, knob=cell["config"] in LOADGEN_CELLS)
+            if "fabric" in cell:
+                for name, eng in cell["fabric"]["per_engine"].items():
+                    if eng["fabric_timeouts"]:
+                        fail(f"[loadgen] {cell['config']}: {name} timed out on "
+                             f"the fabric store {eng['fabric_timeouts']} times")
         summary["cells"] = lines
 
         # (2) base, twice more.
@@ -2192,11 +2229,13 @@ def phase_loadgen() -> dict:
                            "spread": (max(vals) - min(vals)) / statistics.median(vals)}
         log("[loadgen] base x3: " + json.dumps(spread))
         summary["base_repeats"] = spread
-        # Every cell ends its app and kills its engine (ROADMAP §D8, §D10):
-        # nothing of the cells may be alive when the fleet starts.
+        # Every cell ends its app and kills its engines (ROADMAP §D8,
+        # §D10), the fabric pair its store too: nothing of the cells may be
+        # alive when the fleet starts.
         left = list_llm_engine_actors(get_runtime())
-        if left:
-            fail(f"[loadgen] the cells left engines behind: {left}")
+        stores = sorted(sweep._live_actors("kv_fabric:"))
+        if left or stores:
+            fail(f"[loadgen] the cells left engines {left} and stores {stores} behind")
 
         # (3) the fleet view.
         summary["fleet"] = _loadgen_fleet(cfg, host)
@@ -2339,6 +2378,313 @@ def _loadgen_fleet(cfg, host) -> dict:
     return out
 
 
+# Phase 11's fabrics: every block the 8 prompts and their replies fill
+# (~110 at block size 16: 65 MB in bf16, 130 MB in f32) fits, so no
+# restore misses for want of room.
+FABRIC_BUDGET = 256 << 20
+FABRIC_STEP_PROGRAMS = ("prefill", "prefill_suffix", "decode", "decode_async", "verify")
+
+
+def _count_by_role(runner_cls) -> tuple:
+    """Wrap GPTRunner's step programs (class attributes, restored by the
+    returned function) to add each call's K1 and K2 launches to the count
+    of its engine's role: the disaggregated pair's two engines run in one
+    process and take turns (the prefill reply is the barrier), so a call's
+    counter delta is its own."""
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+
+    counts = {}
+    saved = {name: getattr(runner_cls, name) for name in FABRIC_STEP_PROGRAMS}
+
+    def counted(fn):
+        def call(self, *args, **kwargs):
+            k1, k2 = paged_flash_attention.launches, flash_attention_fwd.launches
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                role = counts.setdefault(self.engine_config.engine_role,
+                                         {"K1 paged_attention": 0, "K2 flash_fwd": 0})
+                role["K1 paged_attention"] += paged_flash_attention.launches - k1
+                role["K2 flash_fwd"] += flash_attention_fwd.launches - k2
+        return call
+
+    for name, fn in saved.items():
+        setattr(runner_cls, name, counted(fn))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(runner_cls, name, fn)
+
+    return counts, restore
+
+
+def _fabric_round_trip(kv: str) -> dict:
+    """Phase 11 (a): a full-width block extracted from a `kv` pool and
+    restored into another slot: the pools' bytes equal, the payload host
+    numpy of kv_block_bytes() bytes; each copy's time per block."""
+    from ray_tpu_torch.llm import EngineConfig, GPTRunner
+    from ray_tpu_torch.llm.kvfabric import payload_nbytes
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    runner = GPTRunner(gpt2_125m(), EngineConfig(**{**ENGINE_BASE, "num_blocks": 64},
+                                                 kv_cache_dtype=kv), seed=0)
+    prompt = list(np.random.RandomState(1).randint(0, 50257, 3 * BS))
+    runner.prefill(prompt, [1, 2, 3])
+    payload = runner.extract_block(2)
+    arrays = {k: v for k, v in payload.items() if k != "kv_dtype"}
+    if not all(isinstance(v, np.ndarray) for v in arrays.values()):
+        fail(f"[fabric] {kv}: the payload is not host numpy: "
+             f"{ {k: type(v).__name__ for k, v in arrays.items()} }")
+    if payload_nbytes(payload) != runner.kv_block_bytes():
+        fail(f"[fabric] {kv}: payload of {payload_nbytes(payload)} bytes, a block is "
+             f"{runner.kv_block_bytes()}")
+    runner.restore_block(7, payload)
+    torch.cuda.synchronize()
+    back = runner.extract_block(7)
+    for key, val in arrays.items():
+        if back[key].dtype != val.dtype or back[key].tobytes() != val.tobytes():
+            fail(f"[fabric] {kv}: {key} not bit-identical after the round trip")
+    for pool in (runner.k_cache, runner.v_cache, runner.k_scale, runner.v_scale):
+        if pool is not None and not torch.equal(pool[:, 2], pool[:, 7]):
+            fail(f"[fabric] {kv}: the restored slot differs from its source on the card")
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        runner.extract_block(2)
+    extract_ms = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        runner.restore_block(7, payload)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) / reps * 1e3
+    row = {"kv_cache_dtype": kv, "block_bytes": runner.kv_block_bytes(),
+           "arrays": {k: f"{v.dtype}{list(v.shape)}" for k, v in arrays.items()},
+           "extract_ms": extract_ms, "restore_ms": restore_ms}
+    del runner
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_fabric() -> dict:
+    """Phase 11, the KV fabric at GPT-2 125M's full width on the server
+    phase's (seed-0) weights. (a) A block round trip from a bf16 and an
+    int8 pool. (b) Spill and cold restore: server A serves the server
+    phase's 8 prompts and flushes into the fabric; a fresh server B on the
+    same fabric serves them again from restores (K1 launched on B's run,
+    restores > 0 and at most sum((n - 1) // bs), no store timeout, every
+    payload read back host numpy, neither warmup touching the store); the
+    same in f32, where B's tokens must equal A's and a fabric-off engine's.
+    (c) DisaggregatedLLM in f32 with both engines on the card: tokens equal
+    a unified engine's, K2 launched by the prefill engine and K1 by the
+    decode engine, (n - 1) // bs blocks restored a request; the handoff's
+    TTFT beside the unified engine's. (d) Nothing left alive; card memory."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private.runtime import get_runtime
+    from ray_tpu_torch.llm import EngineConfig, GPTRunner, KVFabricConfig, LLMEngine, LLMServer
+    from ray_tpu_torch.llm.kvfabric import DisaggregatedLLM, KVFabricClient
+    from ray_tpu_torch.loadgen.sweep import _live_actors
+    from ray_tpu_torch.models.gpt import gpt2_125m
+    from ray_tpu_torch.util.runtime_metrics import list_llm_engine_actors
+
+    t_phase = time.perf_counter()
+    n_new = 32
+    prompts = _prompts(np.random.RandomState(0))
+    restorable = [(len(p) - 1) // BS for p in prompts]
+    summary = {"round_trip": [_fabric_round_trip(kv) for kv in ("bf16", "int8")]}
+    for row in summary["round_trip"]:
+        log("[fabric] round trip " + json.dumps(row))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+
+    def fabric_config(name, **extra):
+        return EngineConfig(**ENGINE_BASE, kv_fabric=KVFabricConfig(
+            name=name, byte_budget=FABRIC_BUDGET), **extra)
+
+    ray_tpu_torch.init(num_cpus=8, num_gpus=1)
+    counts, restore = _count_by_role(GPTRunner)
+    try:
+        # (b) bf16: spill from server A, cold restore on server B.
+        client = KVFabricClient("smoke-spill", FABRIC_BUDGET)
+        a = LLMServer(gpt2_125m(), fabric_config("smoke-spill"), seed=0)
+        warm = client.stats()
+        if warm.get("puts") or warm.get("num_blocks") or warm.get("misses"):
+            fail(f"[fabric] server A's warmup touched the store: {warm}")
+        tokens_a, _, _ = _concurrent(a, prompts, n_new)
+        flushed = a.flush_kv_fabric()
+        before_b = client.stats()
+        b = LLMServer(gpt2_125m(), fabric_config("smoke-spill"), seed=0)
+        if client.stats() != before_b:
+            fail(f"[fabric] server B's warmup touched the store: {before_b} -> "
+                 f"{client.stats()}")
+        _k1_zero()
+        tokens_b, ttft_b, wall_b = _concurrent(b, prompts, n_new)
+        torch.cuda.synchronize()
+        launches_b = _k1_read()
+        ma, mb = a.metrics(), b.metrics()
+        store = client.stats()
+        steps = b.flight_record()["steps"]
+        restoring = [s for s in steps if s.get("fabric_restored_blocks")]
+        hashes = [h for _, h in a.engine.allocator.evictable_items()]
+        read_back = client.get_many(hashes[:16])
+        _free(a, b)
+        del a, b
+        spill = {
+            "flushed_blocks": flushed, "restorable_blocks": sum(restorable),
+            # Spills by eviction inside admission (on_evict), apart from
+            # the flush: B had not flushed when its metrics were read.
+            "evict_spills": [ma["fabric_spill_blocks"] - flushed, mb["fabric_spill_blocks"]],
+            "restore_blocks": mb["fabric_restore_blocks"],
+            "hit_blocks": mb["fabric_hit_blocks"],
+            "restored_tokens": mb["fabric_restored_tokens"],
+            "prefix_cache_hit_tokens": mb["prefix_cache_hit_tokens"],
+            "timeouts": [ma["fabric_timeouts"], mb["fabric_timeouts"]],
+            "store": store, "launches": launches_b,
+            "restoring_steps": len(restoring),
+            "fabric_wait_s": [s["fabric_wait_s"] for s in restoring],
+            "restored_blocks_by_step": [s["fabric_restored_blocks"] for s in restoring],
+            "ttft_p50_s": statistics.median(ttft_b), "wall_s": wall_b,
+            "bf16_agreement_with_a": _agreement(tokens_b, tokens_a),
+        }
+        log("[fabric] bf16 spill and cold restore: " + json.dumps(spill))
+        summary["spill_bf16"] = spill
+        if not 0 < spill["restore_blocks"] <= sum(restorable):
+            fail(f"[fabric] B restored {spill['restore_blocks']} blocks, want 1.."
+                 f"{sum(restorable)}")
+        if any(spill["timeouts"]):
+            fail(f"[fabric] store RPCs timed out: {spill['timeouts']}")
+        if store["hits"] < spill["restore_blocks"]:
+            fail(f"[fabric] the store served {store['hits']} hits for "
+                 f"{spill['restore_blocks']} restores")
+        if launches_b["K1 paged_attention"] <= 0:
+            fail("[fabric] K1 was not launched on B's run")
+        if any(r is None for r in read_back) or not all(
+                isinstance(v, np.ndarray) for r in read_back for k, v in r.items()
+                if k != "kv_dtype"):
+            fail("[fabric] a payload read back from the store is missing or not numpy")
+        if any(len(t) != n_new for t in tokens_b):
+            fail("[fabric] B did not finish every request")
+
+        # (b) f32: A's tokens, B's from restores and a fabric-off engine's
+        # must be equal.
+        a32 = LLMEngine(gpt2_125m(dtype=torch.float32), fabric_config("smoke-spill-f32"),
+                        seed=0)
+        host32 = {k: v.detach().cpu() for k, v in a32.runner.model.state_dict().items()}
+        want = a32.generate(prompts, max_new_tokens=n_new)
+        a32.flush_kv_fabric()
+        b32 = LLMEngine(gpt2_125m(dtype=torch.float32), fabric_config("smoke-spill-f32"),
+                        params=host32)
+        _k1_zero()
+        got = b32.generate(prompts, max_new_tokens=n_new)
+        torch.cuda.synchronize()
+        launches32 = _k1_read()
+        s32 = b32.stats()
+        del a32, b32
+        torch.cuda.empty_cache()
+        off = LLMEngine(gpt2_125m(dtype=torch.float32), _engine_config(), params=host32)
+        plain = off.generate(prompts, max_new_tokens=n_new)
+        del off
+        torch.cuda.empty_cache()
+        summary["spill_f32"] = {"restore_blocks": s32["fabric_restore_blocks"],
+                                "timeouts": s32["fabric_timeouts"], "launches": launches32}
+        log("[fabric] f32 spill and cold restore: " + json.dumps(summary["spill_f32"]))
+        if got != want or got != plain:
+            fail(f"[fabric] f32 cold restore not token-identical: requests "
+                 f"{[i for i, (x, y, z) in enumerate(zip(got, want, plain)) if not x == y == z]}")
+        if not 0 < s32["fabric_restore_blocks"] <= sum(restorable) or s32["fabric_timeouts"]:
+            fail(f"[fabric] f32 B: {s32['fabric_restore_blocks']} restores, "
+                 f"{s32['fabric_timeouts']} timeouts")
+        log(f"[fabric] f32 cold restore token-identical to A and to the fabric-off "
+            f"engine ({len(prompts)} requests x {n_new} tokens)")
+
+        # (c) disaggregated prefill/decode, f32, both engines on the card.
+        distinct = [prompts[i] for i in (0, 1, 3, 5, 6, 7)]  # no shared prefix
+        disagg = DisaggregatedLLM(gpt2_125m(dtype=torch.float32),
+                                  fabric_config("smoke-disagg"), params=host32,
+                                  name="smoke-disagg", device="cuda")
+        unified = LLMServer(gpt2_125m(dtype=torch.float32), _engine_config(),
+                            params=host32)
+        try:
+            disagg.generate([1, 2, 3], max_new_tokens=2)  # both engines up
+            counts.clear()
+            tokens, per_request = [], []
+            for p in distinct:
+                before = disagg.decode_stats()["fabric_restore_blocks"]
+                tokens.append(disagg.generate(p, max_new_tokens=n_new)["token_ids"])
+                per_request.append(disagg.decode_stats()["fabric_restore_blocks"] - before)
+            role_launches = {k: dict(v) for k, v in counts.items()}
+            want_d = _sequential(unified, distinct, n_new)
+            # TTFT: fresh prompts of the same lengths, first token only.
+            rng = np.random.RandomState(2)
+            fresh = [list(rng.randint(0, 50257, len(p))) for p in distinct]
+            ttft = {"handoff": [], "unified": []}
+            for p in fresh:
+                t0 = time.perf_counter()
+                disagg.generate(p, max_new_tokens=1)
+                ttft["handoff"].append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                unified.generate(p, max_new_tokens=1)
+                ttft["unified"].append(time.perf_counter() - t0)
+            pstats, dstats = disagg.prefill_stats(), disagg.decode_stats()
+        finally:
+            disagg.shutdown()
+            _free(unified)
+        del disagg, unified
+        dis = {
+            "prompt_lens": [len(p) for p in distinct],
+            "restored_per_request": per_request,
+            "launches_by_role": role_launches,
+            "prefill_spill_blocks": pstats["fabric_spill_blocks"],
+            "decode_restore_blocks": dstats["fabric_restore_blocks"],
+            "timeouts": [pstats["fabric_timeouts"], dstats["fabric_timeouts"]],
+            "ttft_s": ttft,
+            "ttft_p50_s": {k: statistics.median(v) for k, v in ttft.items()},
+        }
+        log("[fabric] disaggregated: " + json.dumps(dis))
+        summary["disagg"] = dis
+        if tokens != want_d:
+            fail(f"[fabric] disaggregated tokens differ from the unified engine's on "
+                 f"requests {[i for i, (x, y) in enumerate(zip(tokens, want_d)) if x != y]}")
+        if per_request != [(len(p) - 1) // BS for p in distinct]:
+            fail(f"[fabric] the decode engine restored {per_request} blocks, want "
+                 f"{[(len(p) - 1) // BS for p in distinct]}")
+        if role_launches.get("prefill", {}).get("K2 flash_fwd", 0) <= 0:
+            fail(f"[fabric] K2 was not launched by the prefill engine: {role_launches}")
+        if role_launches.get("decode", {}).get("K1 paged_attention", 0) <= 0:
+            fail(f"[fabric] K1 was not launched by the decode engine: {role_launches}")
+        if any(dis["timeouts"]):
+            fail(f"[fabric] the pair's store RPCs timed out: {dis['timeouts']}")
+        log(f"[fabric] disaggregated f32 token-identical to the unified engine "
+            f"({len(distinct)} requests x {n_new} tokens)")
+
+        # (d) teardown: the pair's actors are gone; the stores outlive
+        # their engines by design, so they are killed here.
+        for handle in _live_actors("kv_fabric:").values():
+            ray_tpu_torch.kill(handle)
+        deadline = time.perf_counter() + 20
+        while time.perf_counter() < deadline and (
+                list_llm_engine_actors(get_runtime()) or _live_actors("kv_fabric:")):
+            time.sleep(0.1)
+        left = (list_llm_engine_actors(get_runtime()), sorted(_live_actors("kv_fabric:")))
+        if any(left):
+            fail(f"[fabric] left alive: engines {left[0]}, stores {left[1]}")
+    finally:
+        restore()
+        ray_tpu_torch.shutdown()
+    del host32
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mib = 2 ** 20
+    summary["left_allocated_mib"] = torch.cuda.memory_allocated() / mib
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[fabric] shut down: {summary['left_allocated_mib']:.0f} MiB left allocated on "
+        f"the card ({mem0 / mib:.0f} before the servers); phase wall "
+        f"{summary['wall_s']:.1f}s")
+    return summary
+
+
 def _replace_attn():
     import dataclasses
 
@@ -2399,7 +2745,11 @@ KERNELS = {
 }
 
 
-def kernels_line(rows: list, launches: dict) -> dict:
+def kernels_line(rows: list, launches: dict, paths: dict) -> dict:
+    """The kernels JSON line. `launches` is each kernel's count on its main
+    path; `paths` maps every later serving path (each counted from 0 just
+    before it ran) to its counts, which K1's and K2's entries carry as
+    `launches_by_path`."""
     out = []
     for name, meta in KERNELS.items():
         row = next(r for r in rows if r["kernel"] == name
@@ -2417,6 +2767,9 @@ def kernels_line(rows: list, launches: dict) -> dict:
             "library_ms": row["library_ms"],
             "shape": {k: row[k] for k in ("case", "B", "S", "dtype")},
         })
+        by_path = {p: c[name] for p, c in paths.items() if name in c}
+        if by_path:
+            out[-1]["launches_by_path"] = by_path
     return {"kernels": out}
 
 
@@ -2438,10 +2791,18 @@ def main() -> int:
     launches.update(server["launches"])
     phase_serving_modes()
     phase_serve(server)
-    phase_loadgen()
+    loadgen = phase_loadgen()
+    fabric = phase_fabric()
     launches.update(profile["launches"])
+    paths = {"server": server["launches"]}
+    for line in loadgen["cells"]:
+        paths[f"loadgen {line['cell']}"] = line["launches"]
+    paths["fabric cold restore bf16"] = fabric["spill_bf16"]["launches"]
+    paths["fabric cold restore f32"] = fabric["spill_f32"]["launches"]
+    for role, counts in fabric["disagg"]["launches_by_role"].items():
+        paths[f"fabric disaggregated {role}"] = counts
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps(kernels_line(rows, launches)))
+    print(json.dumps(kernels_line(rows, launches, paths)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["name"],
         "count": torch.cuda.device_count(),

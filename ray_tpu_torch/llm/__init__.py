@@ -15,6 +15,8 @@
     model) feeding the engine's k-token verify-with-rollback phase
   * serve.py — ingress deployment behind Serve's HTTP proxy and replicas,
     forwarding to one named engine actor (`llm_engine:<name>`)
+  * kvfabric/ — fleet-wide KV fabric: host-memory spill tier shared across
+    engines, disaggregated prefill/decode roles, prefix-affinity routing
 """
 
 from ray_tpu_torch.llm.cache import (

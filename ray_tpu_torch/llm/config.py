@@ -5,9 +5,8 @@ same EngineConfig describes the same engine in both packages. The fixed
 decode batch slots, block-table width and power-of-two prefill buckets
 kept XLA's compiled-program count O(1); the port keeps them because they
 fix every kernel launch shape (and so the warmup's coverage) in the same
-way. Options outside the port so far (the KV fabric, non-unified roles,
-tensor parallelism) still validate here, and LLMEngine refuses them by
-name.
+way. Tensor parallelism, which the port does not have yet, still
+validates here, and the engine's runner refuses it by name.
 """
 
 from __future__ import annotations
@@ -196,7 +195,7 @@ class EngineConfig:
     # reduction order differs, so near-tie argmax flips are possible — the
     # same contract as any kernel swap.
     tensor_parallel_size: int = 1
-    # Fleet-wide KV fabric (the KV-fabric slice): None (the default)
+    # Fleet-wide KV fabric (ray_tpu_torch.llm.kvfabric): None (the default)
     # disables every fabric hook and leaves all existing paths bit-for-bit
     # unchanged. A KVFabricConfig turns evictions and drains into demotion
     # (device pool -> host-DRAM store keyed by chain hash) and extends the

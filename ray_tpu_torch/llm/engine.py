@@ -14,9 +14,11 @@ counters, decode batch occupancy, cache utilization, and queue depth, plus
 (queue/prefill/decode/preempt), TTFT / time-per-output-token / queue / e2e
 latency histograms, and a flight-recorder ring of per-step records.
 
-Options outside the port so far are refused at construction, each naming
-its ROADMAP item: the KV fabric, non-unified engine roles, and tensor
-parallelism.
+The KV fabric (EngineConfig.kv_fabric, llm.kvfabric) hooks in here: blocks
+evicted from the device pool spill to a shared host store, admission
+restores a fabric hit into freshly allocated slots, and a prefill-role
+engine publishes every block it fills. Tensor parallelism is refused by the
+runner, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -57,23 +59,6 @@ from ray_tpu_torch.llm.spec import build_proposer
 from ray_tpu_torch.models.gpt import GPTConfig
 from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram, get_or_create
-
-
-def _refuse_unported(ecfg: EngineConfig) -> None:
-    """Raise for every option whose engine path is not ported yet
-    (GPTRunner refuses tensor_parallel_size > 1 itself)."""
-    refused = (
-        (ecfg.kv_fabric is not None, "kv_fabric",
-         "the KV fabric slice"),
-        (ecfg.engine_role != "unified", f"engine_role={ecfg.engine_role!r}",
-         "the KV fabric slice"),
-    )
-    for on, what, item in refused:
-        if on:
-            raise NotImplementedError(
-                f"EngineConfig {what} is not ported to ray_tpu_torch yet "
-                f"(ROADMAP: {item})"
-            )
 
 
 class _InflightStep:
@@ -120,7 +105,6 @@ class LLMEngine:
     ):
         self.model_config = model_config or GPTConfig()
         self.engine_config = engine_config or EngineConfig()
-        _refuse_unported(self.engine_config)
         self.runner = GPTRunner(
             self.model_config, self.engine_config, params=params, seed=seed,
             device=device,
@@ -142,6 +126,48 @@ class LLMEngine:
             self.allocator,
             self.engine_config.max_decode_slots,
             self.engine_config.max_blocks_per_seq,
+        )
+        # KV fabric (EngineConfig.kv_fabric): shared host-memory spill tier.
+        # None keeps every hook cold — the allocator, scheduler, and step
+        # loop behave exactly as without the fabric.
+        self._fabric = None
+        fcfg = self.engine_config.kv_fabric
+        if fcfg is not None:
+            block_bytes = self.runner.kv_block_bytes()
+            if fcfg.byte_budget < block_bytes:
+                raise ValueError(
+                    f"kv_fabric.byte_budget ({fcfg.byte_budget} bytes) is "
+                    f"smaller than one KV block ({block_bytes} bytes for "
+                    "this model/engine config) — a fabric that cannot hold "
+                    "a single block can never serve a hit; raise the "
+                    "budget or drop the kv_fabric knob"
+                )
+            # Imported lazily: the kvfabric package's disagg module imports
+            # this module, so a top-level import would cycle.
+            from ray_tpu_torch.llm.kvfabric.store import KVFabricClient
+
+            self._fabric = KVFabricClient(
+                fcfg.name,
+                fcfg.byte_budget,
+                rpc_timeout_s=fcfg.rpc_timeout_s,
+                # A store RPC that exceeds its bound degrades to a miss AND
+                # is counted apart (llm_engine_fabric_timeouts): a hung
+                # store never stalls admission or eviction, and "store is
+                # slow" stays distinguishable from "store is cold". The
+                # callback only fires on later RPCs, after __init__.
+                on_timeout=self._note_fabric_timeout,
+            )
+            # Spill on device eviction: demote a keyed block's content to
+            # the host tier just before the allocator discards it.
+            self.allocator.on_evict = self._spill_block
+            # Admission extends the prefix match past the device cache.
+            self.scheduler.fabric_probe = self._fabric.contains
+        # A prefill-role engine's whole output is the KV blocks it
+        # publishes: push every newly filled block eagerly, so the reply
+        # to the caller is the barrier the decode-role admission needs.
+        self._publish_on_fill = (
+            self._fabric is not None
+            and self.engine_config.engine_role == "prefill"
         )
         self._on_token: Dict[str, Callable[[int], None]] = {}
         self._on_finish: Dict[str, Callable[[Sequence], None]] = {}
@@ -245,6 +271,48 @@ class LLMEngine:
             Gauge,
             "llm_engine_spec_acceptance_rate",
             "Cumulative accepted / proposed speculative tokens",
+            tag_keys=("engine",),
+        )
+        self._fabric_spills = get_or_create(
+            Counter,
+            "llm_engine_fabric_spill_blocks",
+            "KV blocks demoted to the fabric host tier (eviction spill, "
+            "prefill-role publication, drain flush)",
+            tag_keys=("engine",),
+        )
+        self._fabric_restores = get_or_create(
+            Counter,
+            "llm_engine_fabric_restore_blocks",
+            "KV blocks restored from the fabric into device slots",
+            tag_keys=("engine",),
+        )
+        self._fabric_hits = get_or_create(
+            Counter,
+            "llm_engine_fabric_hit_blocks",
+            "Admission-probe hits: blocks found in the fabric past the "
+            "device prefix match",
+            tag_keys=("engine",),
+        )
+        self._fabric_hit_rate = get_or_create(
+            Gauge,
+            "llm_engine_fabric_hit_rate",
+            "Cumulative fabric-restored tokens / prefill tokens (the "
+            "fabric's own share of the prefix-cache hit rate)",
+            tag_keys=("engine",),
+        )
+        self._fabric_bytes_used = get_or_create(
+            Gauge,
+            "llm_engine_fabric_bytes_used",
+            "Fabric store occupancy in bytes (the store is shared across "
+            "engines on the fabric; refreshed on stats scrape)",
+            tag_keys=("engine",),
+        )
+        self._fabric_timeouts = get_or_create(
+            Counter,
+            "llm_engine_fabric_timeouts",
+            "Fabric store RPCs that exceeded kv_fabric.rpc_timeout_s and "
+            "degraded to a miss/no-op (a hung store never stalls "
+            "admission or eviction)",
             tag_keys=("engine",),
         )
         # Request-level latency histograms (the serving SLO trio + queue):
@@ -356,6 +424,7 @@ class LLMEngine:
         self._sheds: deque = deque(maxlen=self.engine_config.shed_capacity)
         self._shed_total = 0
         self._expired_total = 0
+        self._fabric_timeout_total = 0
         self._deadline_count = 0
         # Request whose per-sequence section of step() is currently running;
         # a step exception raised there is attributed to it.
@@ -367,6 +436,10 @@ class LLMEngine:
         self._prefill_chunk_dispatches = 0  # prefill program dispatches
         self._chunked_prefill_requests = 0  # prompts that took > 1 chunk
         self._cache_hit_tokens = 0
+        self._fabric_spilled_total = 0
+        self._fabric_restored_total = 0
+        self._fabric_hit_total = 0
+        self._fabric_restored_tokens = 0
         self._spec_proposed_total = 0
         self._spec_accepted_total = 0
         self._spec_emitted_total = 0
@@ -391,6 +464,10 @@ class LLMEngine:
         self._step_commits: List[dict] = []
         self._step_ready_wall: Optional[float] = None
         self._step_prefill_s = 0.0
+        # Seconds this step spent blocked on fabric store RPCs and block
+        # copy-ins: the fleet ledger's fabric-wait column
+        # (observability.ledger).
+        self._step_fabric_wait_s = 0.0
         self._host_gap_total = 0.0
         self._host_gap_count = 0
         self._host_gap_last: Optional[float] = None
@@ -470,6 +547,11 @@ class LLMEngine:
         ecfg = self.engine_config
         if max_new_tokens is None:
             max_new_tokens = ecfg.default_max_new_tokens
+        if ecfg.engine_role == "prefill":
+            # A prefill-role engine never decodes: the request finishes at
+            # its first sampled token, after every full prompt block has
+            # been published to the fabric for the decode-role engine.
+            max_new_tokens = 1
         prompt_ids = [int(t) for t in prompt_ids]
         refusal = self.admission_refusal(len(prompt_ids), max_new_tokens)
         if refusal is not None:
@@ -708,11 +790,21 @@ class LLMEngine:
         self._step_commits = []
         self._step_ready_wall = None
         self._step_prefill_s = 0.0
+        self._step_fabric_wait_s = 0.0
 
         # Deadline sweep BEFORE admission: a queued request whose deadline
         # passed must never reach schedule_prefills.
         self._expire_deadlines()
-        self.scheduler.schedule_prefills(ecfg.max_prefills_per_step)
+        admitted = self.scheduler.schedule_prefills(
+            ecfg.max_prefills_per_step
+        )
+        # KV-fabric restores commit BETWEEN admission and chunk planning:
+        # each committed block advances its sequence's num_cached, so the
+        # chunk plan below (and the first chunk's hit-token accounting,
+        # which reads the offset) already sees the restored prefix.
+        step_restored = 0
+        if self._fabric is not None:
+            step_restored = self._apply_fabric_restores(admitted)
         # Mixed-step dispatch: this step's chunk plan spans newly admitted
         # prompts AND prompts already mid-prefill from earlier steps,
         # oldest first, capped by the token budget (None = whole prompts).
@@ -780,11 +872,14 @@ class LLMEngine:
                 "host_gap_s": self._step_gap,
                 "ready_time": self._step_ready_wall,
                 "prefill_s": round(self._step_prefill_s, 6),
+                "fabric_wait_s": round(self._step_fabric_wait_s, 6),
             }
             if spec_info is not None:
                 # Verify record: which proposer ran, how wide the fed
                 # bucket was, and the proposed/accepted/emitted counts.
                 record["speculation"] = spec_info
+            if self._fabric is not None:
+                record["fabric_restored_blocks"] = step_restored
             self.flight_recorder.record_step(record)
         return self._step_result(
             plans, decoding, occupancy, preempted, step_hit_tokens, backlog
@@ -808,6 +903,12 @@ class LLMEngine:
                 self._spec_proposed, self._spec_accepted,
                 self._spec_acceptance,
             )
+        if self._fabric is not None:
+            family = family + (
+                self._fabric_spills, self._fabric_restores,
+                self._fabric_hits, self._fabric_hit_rate,
+                self._fabric_bytes_used, self._fabric_timeouts,
+            )
         for metric in family:
             metric._ensure_registered()
         preempted = self.scheduler.num_preemptions - preempted_before
@@ -827,6 +928,11 @@ class LLMEngine:
         self._evictable_blocks.set(
             self.allocator.num_evictable, tags=self._metric_tags
         )
+        if self._fabric is not None:
+            self._fabric_hit_rate.set(
+                self._fabric_restored_tokens / max(self._prefill_tokens, 1),
+                tags=self._metric_tags,
+            )
         backlog = self.scheduler.prefill_backlog_tokens()
         self._prefill_backlog.set(backlog, tags=self._metric_tags)
         return preempted, occupancy, backlog
@@ -855,6 +961,92 @@ class LLMEngine:
         if spec_runner is not None:
             total += spec_runner.host_transfer_bytes()
         return total
+
+    # ---------------- KV fabric ----------------
+
+    def _note_fabric_timeout(self) -> None:
+        """KVFabricClient on_timeout hook: one store RPC exceeded its
+        bound and degraded to a miss/no-op."""
+        self._fabric_timeout_total += 1
+        self._fabric_timeouts.inc(tags=self._metric_tags)
+
+    def _apply_fabric_restores(self, admitted: List[Sequence]) -> int:
+        """Resolve each newly admitted sequence's fabric restore plan
+        (Scheduler._admit probed the fabric and pre-allocated the target
+        slots): fetch the planned chain of payloads in one batch RPC and
+        commit them in chain order — copy the content into the slot FIRST,
+        then advance num_cached and register the chain key, so a
+        half-written block is never discoverable under its key. The chain
+        stops at the first miss or failed copy-in; the remaining slots
+        simply stay plain prefill targets (they are already legitimate
+        members of the block table, and num_cached never claimed them).
+        Returns blocks restored."""
+        bs = self.engine_config.block_size
+        restored = 0
+        hit_blocks = 0
+        t_fabric = time.perf_counter() if self._instrument else 0.0
+        for seq in admitted:
+            plan = seq.pending_restore
+            if not plan:
+                continue
+            seq.pending_restore = []
+            self._current_rid = seq.request.request_id
+            hit_blocks += len(plan)
+            payloads = self._fabric.get_many([h for _, h in plan])
+            for (block, h), payload in zip(plan, payloads):
+                if payload is None:
+                    break  # chain broken: later blocks cannot commit either
+                try:
+                    self.runner.restore_block(block, payload)
+                except Exception:
+                    break  # failed copy-in: the slot stays a prefill target
+                seq.num_cached += bs
+                seq.block_hashes.append(h)
+                self.allocator.register(block, h)
+                restored += 1
+                self._fabric_restored_tokens += bs
+        self._current_rid = None
+        if hit_blocks:
+            self._fabric_hit_total += hit_blocks
+            self._fabric_hits.inc(hit_blocks, tags=self._metric_tags)
+        if restored:
+            self._fabric_restored_total += restored
+            self._fabric_restores.inc(restored, tags=self._metric_tags)
+        if self._instrument:
+            # Wall this step spent blocked on fabric store RPCs + block
+            # copy-ins: the ledger's fabric-wait column.
+            self._step_fabric_wait_s = time.perf_counter() - t_fabric
+        return restored
+
+    def _spill_block(self, block: int, block_hash: int) -> None:
+        """BlockAllocator.on_evict hook: demote the dying block's device
+        content to the fabric's host tier, keyed by its chain hash. Best
+        effort end to end — the allocator contains hook exceptions and
+        the client degrades to a no-op — so eviction always completes.
+        Runs inside admission; under async_scheduling the block copy waits
+        for the step in flight (the block itself is unreferenced, so that
+        step does not write it)."""
+        if self._fabric.put(block_hash, self.runner.extract_block(block)):
+            self._fabric_spilled_total += 1
+            self._fabric_spills.inc(tags=self._metric_tags)
+
+    def flush_kv_fabric(self) -> int:
+        """Demote every cached-but-unreferenced device block into the
+        fabric in one batch RPC — the drain path's cache preservation:
+        a victim replica's reusable prefixes survive as fabric entries
+        instead of dying with the engine. Returns how many of the flushed
+        blocks are resident afterwards; 0 without a fabric."""
+        if self._fabric is None:
+            return 0
+        items = [
+            (h, self.runner.extract_block(block))
+            for block, h in self.allocator.evictable_items()
+        ]
+        n = self._fabric.put_many(items)
+        if n:
+            self._fabric_spilled_total += n
+            self._fabric_spills.inc(n, tags=self._metric_tags)
+        return n
 
     def _run_decode(self, decoding: List[Sequence]) -> None:
         """One iteration-level decode dispatch: every running sequence
@@ -1125,6 +1317,7 @@ class LLMEngine:
         self._step_commits = []
         self._step_ready_wall = None
         self._step_prefill_s = 0.0
+        self._step_fabric_wait_s = 0.0
 
         # Deadline sweep before the chain attempt: an expiry changes the
         # batch composition, so _try_chain refuses and the pipeline
@@ -1154,7 +1347,17 @@ class LLMEngine:
             while self._inflight:
                 self._commit_head()
 
-        self.scheduler.schedule_prefills(ecfg.max_prefills_per_step)
+        admitted = self.scheduler.schedule_prefills(
+            ecfg.max_prefills_per_step
+        )
+        # Restores run after the flush boundary or beside a chained decode
+        # still in flight. They write only slots the admission just
+        # allocated, which no in-flight step reads or writes, and the
+        # copy-in is queued on the same stream after that step, so stream
+        # order is all the ordering they need.
+        step_restored = 0
+        if self._fabric is not None:
+            step_restored = self._apply_fabric_restores(admitted)
         plans = self.scheduler.schedule_prefill_chunks(self._prefill_budget)
         prefill_info: List[dict] = []
         step_hit_tokens = self._run_prefill_chunks(plans, prefill_info)
@@ -1233,11 +1436,14 @@ class LLMEngine:
                 "host_gap_s": self._step_gap,
                 "ready_time": self._step_ready_wall,
                 "prefill_s": round(self._step_prefill_s, 6),
+                "fabric_wait_s": round(self._step_fabric_wait_s, 6),
                 "chained": chained_seqs is not None,
                 "inflight_depth": len(self._inflight),
             }
             if spec_info is not None:
                 record["speculation"] = spec_info
+            if self._fabric is not None:
+                record["fabric_restored_blocks"] = step_restored
             self.flight_recorder.record_step(record)
         return self._step_result(
             plans, decoding, occupancy, preempted, step_hit_tokens, backlog
@@ -1461,7 +1667,27 @@ class LLMEngine:
             # Publish every block this chunk filled: a concurrent request
             # with the same prompt can share the prefix before the whole
             # prompt even finishes prefilling.
+            pre_hashes = len(seq.block_hashes)
             self.scheduler.note_filled_blocks(seq)
+            if self._publish_on_fill and len(seq.block_hashes) > pre_hashes:
+                # Prefill-role handoff: push this chunk's just-filled
+                # blocks to the fabric NOW, so they are resident before
+                # the request's reply (the barrier the decode-role
+                # engine's admission relies on) can possibly seal.
+                pushed = self._fabric.put_many(
+                    [
+                        (
+                            seq.block_hashes[j],
+                            self.runner.extract_block(seq.block_table[j]),
+                        )
+                        for j in range(pre_hashes, len(seq.block_hashes))
+                    ]
+                )
+                if pushed:
+                    self._fabric_spilled_total += pushed
+                    self._fabric_spills.inc(
+                        pushed, tags=self._metric_tags
+                    )
             if final:
                 seq.generated.append(tok)
             if instrument:
@@ -1604,6 +1830,16 @@ class LLMEngine:
     def stats(self) -> dict:
         elapsed = max(time.monotonic() - self._start, 1e-9)
         pool_bytes = self.runner.kv_pool_bytes()
+        fabric_store = None
+        if self._fabric is not None:
+            # One store RPC per stats scrape (never per step): the store
+            # is shared, so occupancy only has one true source.
+            fabric_store = self._fabric.stats()
+            if fabric_store:
+                self._fabric_bytes_used.set(
+                    float(fabric_store.get("bytes_used", 0)),
+                    tags=self._metric_tags,
+                )
         return {
             "engine_id": self._metric_tags["engine"],
             "device": str(self.runner.device),
@@ -1658,6 +1894,21 @@ class LLMEngine:
             "prefix_cache_evictions": self.allocator.num_evictions,
             "cow_blocks": self.scheduler.num_cow_blocks,
             "kv_pool_allocated": self.allocator.num_allocated,
+            "engine_role": self.engine_config.engine_role,
+            "kv_fabric": (
+                self.engine_config.kv_fabric.name
+                if self.engine_config.kv_fabric is not None
+                else "off"
+            ),
+            "fabric_spill_blocks": self._fabric_spilled_total,
+            "fabric_restore_blocks": self._fabric_restored_total,
+            "fabric_hit_blocks": self._fabric_hit_total,
+            "fabric_restored_tokens": self._fabric_restored_tokens,
+            "fabric_hit_rate": (
+                self._fabric_restored_tokens / max(self._prefill_tokens, 1)
+            ),
+            "fabric_store": fabric_store,
+            "fabric_timeouts": self._fabric_timeout_total,
             "num_dead_letters": len(self._dead_letters),
             # Overload control plane: bounded-admission rejections and
             # deadline expiries.
@@ -1792,19 +2043,34 @@ class LLMServer:
             # suppressed as well: the rounds run each bucket in a
             # deterministic order and step count, and the async loop's
             # decode dispatches the same program with the same launch
-            # shapes, so it needs no warmup pass of its own.
+            # shapes, so it needs no warmup pass of its own. The KV fabric
+            # is suppressed, hooks and all: the zero-prompt rounds must
+            # run the FULL prefill per bucket, but a fabric warmed by an
+            # earlier replica's warmup would serve them as restores
+            # (partial prefill), skipping the full-prefill launch shapes,
+            # and the publish/spill side would flood the shared store
+            # with zero blocks at every replica start.
             instrumented = self._engine._instrument
             spec = self._engine._spec
             async_loop = self._engine._async
+            publish = self._engine._publish_on_fill
+            on_evict = self._engine.allocator.on_evict
+            probe = self._engine.scheduler.fabric_probe
             self._engine._instrument = False
             self._engine._spec = None
             self._engine._async = False
+            self._engine._publish_on_fill = False
+            self._engine.allocator.on_evict = None
+            self._engine.scheduler.fabric_probe = None
             try:
                 self._warmup()
             finally:
                 self._engine._instrument = instrumented
                 self._engine._spec = spec
                 self._engine._async = async_loop
+                self._engine._publish_on_fill = publish
+                self._engine.allocator.on_evict = on_evict
+                self._engine.scheduler.fabric_probe = probe
             if spec is not None:
                 self._warmup_verify(spec)
         # A hand-off lock, not threading.Lock (ROADMAP §D7): see _HandoffLock.
@@ -2269,6 +2535,14 @@ class LLMServer:
         with self._lock:
             self._engine.allocator.reset_prefix_cache()
 
+    def flush_kv_fabric(self) -> int:
+        """Demote the engine's cached-but-unreferenced KV blocks into the
+        fabric (the drain path's cache preservation — called by the
+        ingress replica's shutdown before the engine stops); returns
+        blocks resident in the fabric afterwards, 0 without a fabric."""
+        with self._lock:
+            return self._engine.flush_kv_fabric()
+
     def num_pending(self) -> int:
         with self._lock:
             return len(self._engine.scheduler.waiting) + len(
@@ -2279,6 +2553,14 @@ class LLMServer:
         return self._thread.is_alive() and not self._wedged
 
     def shutdown(self) -> None:
+        # Preserve the prefix cache past the server's end: flush the
+        # evictable keyed blocks into the fabric (no-op without one)
+        # before the step loop stops. Best effort — shutdown proceeds
+        # regardless.
+        try:
+            self.flush_kv_fabric()
+        except Exception:
+            pass
         with self._work:
             self._shutdown = True
             # Fail in-flight requests promptly instead of leaving their

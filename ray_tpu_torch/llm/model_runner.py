@@ -33,6 +33,10 @@ Serving hot-path knobs (EngineConfig):
   * ``kv_cache_dtype`` — "int8" stores the pools quantized with per-token
     per-head scale tensors (scales ride every scatter and block copy);
     dequantization is fused into the attention kernel.
+
+The KV fabric's two copies, `extract_block` and `restore_block`, move one
+block's content across every layer between the pools and host numpy
+arrays, one copy each way per block.
 """
 
 from __future__ import annotations
@@ -199,6 +203,89 @@ class GPTRunner:
         if self.quantized:
             nbytes += 2 * slots * KV_SCALE_DTYPE.itemsize
         return nbytes
+
+    # ---------------- KV fabric spill / restore ----------------
+
+    def _block_pools(self):
+        """(payload key, pool) for every pool a block's content lives in."""
+        pools = [("k", self.k_cache), ("v", self.v_cache)]
+        if self.quantized:
+            pools += [("k_scale", self.k_scale), ("v_scale", self.v_scale)]
+        return pools
+
+    @torch.no_grad()
+    def extract_block(self, block: int) -> dict:
+        """Read one block's content (every layer) into host numpy — the
+        spill half of the fabric tier. The payload holds the pools' own
+        values (+ int8 scales), so restore is bit-exact; `kv_dtype` stamps
+        the storage format so a mismatched engine treats the entry as a
+        miss instead of scattering garbage.
+
+        numpy has no bfloat16, so a bfloat16 pool (and the int8 pools'
+        bfloat16 scales) is stored as its int16 bit pattern: the same two
+        bytes an element, which `restore_block` views back. The block's
+        pieces are gathered into one device buffer and cross to the host
+        in one blocking copy, which orders it after every write already
+        queued on the stream. The copy lands in a buffer numpy owns: the
+        arrays share memory neither with the pools (on the CPU too, so a
+        slot reused later cannot change an extracted payload) nor with any
+        torch tensor, which a payload held in the store past the
+        interpreter's teardown would otherwise free too late."""
+        pools = self._block_pools()
+        gathered = torch.cat(
+            [p[:, block].reshape(-1).view(torch.uint8) for _, p in pools]
+        )
+        flat = np.empty(gathered.numel(), np.uint8)
+        torch.from_numpy(flat).copy_(gathered)
+        payload = {"kv_dtype": self.kv_cache_dtype_str}
+        at = 0
+        for key, p in pools:
+            shape = p.shape[:1] + p.shape[2:]
+            n = p[:, block].numel() * p.element_size()
+            payload[key] = (
+                flat[at : at + n].view(_host_dtype(p.dtype)).reshape(shape)
+            )
+            at += n
+        self.host_bytes_out += at
+        return payload
+
+    @torch.no_grad()
+    def restore_block(self, block: int, payload: dict) -> None:
+        """Write one spilled payload back into slot `block` — the restore
+        half, one host-to-device copy. Raises ValueError on a
+        storage-format mismatch (different kv_cache_dtype or block shape);
+        the caller then treats the chain as a fabric miss and the slot
+        stays a prefill target."""
+        if payload.get("kv_dtype") != self.kv_cache_dtype_str:
+            raise ValueError(
+                f"fabric payload stored as {payload.get('kv_dtype')!r}, "
+                f"pool is {self.kv_cache_dtype_str!r} — engines on one "
+                "fabric must share kv_cache_dtype"
+            )
+        expected = tuple(self.k_cache.shape[:1] + self.k_cache.shape[2:])
+        if tuple(payload["k"].shape) != expected:
+            raise ValueError(
+                f"fabric payload block shape {tuple(payload['k'].shape)} "
+                f"does not match pool block shape {expected}"
+            )
+        pools = self._block_pools()
+        arrays = []
+        for key, p in pools:
+            a = np.ascontiguousarray(payload[key])
+            want = _host_dtype(p.dtype)
+            if a.dtype != want or a.shape != p.shape[:1] + p.shape[2:]:
+                raise ValueError(
+                    f"fabric payload {key!r} is {a.dtype}{list(a.shape)}, "
+                    f"pool block is {want}{list(p.shape[:1] + p.shape[2:])}"
+                )
+            arrays.append(a.reshape(-1).view(np.uint8))
+        dev = torch.from_numpy(np.concatenate(arrays)).to(self.device)
+        at = 0
+        for (key, p), a in zip(pools, arrays):
+            piece = dev[at : at + a.size].view(p.dtype)
+            p[:, block] = piece.view(p.shape[:1] + p.shape[2:])
+            at += a.size
+        self.host_bytes_in += at
 
     def _paged_caches(self, block_tables, context_lens):
         return (self.k_cache, self.v_cache, block_tables, context_lens,
@@ -466,6 +553,14 @@ class GPTRunner:
         event = torch.cuda.Event()
         event.record()
         return DeviceTokens(next_tokens, ring["out"], event)
+
+
+def _host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype a pool of `dtype` is stored as on the host:
+    bfloat16, which numpy lacks, as its int16 bit pattern."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.int16)
+    return torch.empty((), dtype=dtype).numpy().dtype
 
 
 class DeviceTokens:

@@ -10,8 +10,9 @@ The engine runs on the card: `build_app`, `LLMIngress` and
 CUDA unless the caller passes `device="cpu"`, and hand it to
 `LLMServer(device=...)`. Weights go in as host arrays (numpy, as
 `params_from_flax` gives them, or CPU tensors): the engine's runner moves
-them onto the device once. The KV fabric's parts of the reference (prefix
-affinity, the owned engine's fabric flush) raise until ROADMAP §B5.
+them onto the device once. With a `kv_fabric`, a deployment may declare
+prefix-affinity routing, and a replica that owns its engine flushes it into
+the fabric before stopping it.
 """
 
 from __future__ import annotations
@@ -32,19 +33,6 @@ def _serve_device(device) -> str:
     """The device rule of the port's entry points, as a string that
     crosses actor boundaries: None means CUDA, which raises without it."""
     return str(resolve_device(device))
-
-
-def _refuse_fabric(engine_config: Optional[EngineConfig]) -> None:
-    if engine_config is not None and engine_config.kv_fabric is not None:
-        what = (
-            "kv_fabric.affinity (prefix-affinity routing)"
-            if engine_config.kv_fabric.affinity
-            else "kv_fabric"
-        )
-        raise NotImplementedError(
-            f"LLM serving with {what} is not ported to ray_tpu_torch yet "
-            "(ROADMAP §B5, the KV fabric)"
-        )
 
 
 # Threads of the engine actor beyond its live streams: sheds, blocking
@@ -172,7 +160,6 @@ class LLMIngress:
         device=None,
     ):
         device = _serve_device(device)
-        _refuse_fabric(engine_config)
         # engine_per_replica gives THIS replica its own engine actor
         # (unique name suffix — each replica's __init__ runs in its own
         # replica actor) instead of the one shared named engine. That
@@ -313,14 +300,21 @@ class LLMIngress:
     def shutdown(self) -> None:
         """Drain-path teardown (ReplicaActor.prepare_for_shutdown calls
         this on the DRAINING→STOPPED transition, after in-flight requests
-        finished): when this replica OWNS its engine, stop the engine. A
-        shared engine outlives the replica, so there is nothing to stop.
-        The reference first flushes the engine's evictable blocks into the
-        KV fabric; the port's engine has no fabric (`__init__` refuses one,
-        ROADMAP §B5), so there is nothing to flush. Every step is
-        best-effort: shutdown must complete even with the engine gone."""
+        finished): when this replica OWNS its engine, flush the engine's
+        evictable keyed blocks into the KV fabric — the drained replica's
+        reusable prefixes survive as fabric entries a surviving replica
+        can restore, instead of dying with the engine actor — then stop
+        the engine. A shared engine outlives the replica, so there is
+        nothing to flush or stop. Every step is best-effort: shutdown
+        must complete even with the fabric or engine already gone."""
         if not self._owns_engine:
             return
+        try:
+            ray_tpu_torch.get(
+                self._engine.flush_kv_fabric.remote(), timeout=30.0
+            )
+        except Exception:
+            pass
         try:
             ray_tpu_torch.get(self._engine.shutdown.remote(), timeout=10.0)
         except Exception:
@@ -397,10 +391,8 @@ def build_app(
 
     `device` defaults to CUDA and raises here, before anything is
     deployed, when CUDA is absent; pass "cpu" to serve on the CPU. Pass
-    `params` as host arrays: the runner moves them onto the device once.
-    A `kv_fabric` in `engine_config` raises (ROADMAP §B5)."""
+    `params` as host arrays: the runner moves them onto the device once."""
     device = _serve_device(device)
-    _refuse_fabric(engine_config)
     if engine_name is None:
         engine_name = uuid.uuid4().hex[:8]
     deployment = serve.deployment(
@@ -420,6 +412,22 @@ def build_app(
     # surviving replicas — HTTP clients survive drains/kills too, without
     # opting in per handle.
     deployment = deployment.options(stream_resume_fn=llm_stream_resume)
+    if (
+        engine_config is not None
+        and engine_config.kv_fabric is not None
+        and engine_config.kv_fabric.affinity
+    ):
+        # Prefix-affinity routing rides the same declared-on-deployment
+        # path as stream resume: every handle built from the app's config
+        # prefers the rendezvous replica for the prompt's leading
+        # block-chain hash, so multi-turn sessions land where their KV
+        # cache (device tier or fabric tier) already lives. Strictly a
+        # tie-break — drain/exclusion/capacity still decide first.
+        from ray_tpu_torch.llm.kvfabric.affinity import LLMPrefixAffinity
+
+        deployment = deployment.options(
+            affinity_key_fn=LLMPrefixAffinity(engine_config.block_size)
+        )
     return deployment.bind(
         engine_name, model_config, engine_config, params=params, seed=seed,
         draft_params=draft_params, engine_per_replica=engine_per_replica,

@@ -33,8 +33,9 @@ What the port changes against the reference's sweep:
   CPU mode. In its place the `cuda` row names the hand-written kernels
   (attn_impl="cuda"); on the CPU naming it raises, and `run_sweep` with
   `configs=None` leaves it out and says so in the record's note.
-* The KV-fabric pair. `run_kv_fabric_cell` raises until ROADMAP §B5 (the
-  KV fabric); `run_sweep` skips the pair and says so in the note.
+* Teardown. Each cell ends its app, then its engines' loops, then its
+  engines, and the KV-fabric pair also kills its fabric's store actor, so
+  that nothing of a cell outlives it (`_teardown`, ROADMAP §D8).
 * Where the record goes. `sweep` writes only to the `--out` it is given.
 
 Entry point: `python -m ray_tpu_torch.loadgen.sweep run|sweep|report`
@@ -192,27 +193,61 @@ def _served(device, model_config, engine_base, spec) -> dict:
     }
 
 
-def _teardown(engine_name: str) -> None:
-    """End a cell: its app first, then its shared engine, whose loop is
-    shut down before the actor is killed. The reference kills the engine
-    first and its loop never: a replica whose health check then finds the
-    engine gone is replaced, the replacement creates the engine anew
-    (get_if_exists) and it outlives the cell; and a killed actor's loop
-    thread keeps its engine, the card memory of its weights and pools
-    included (ROADMAP §D8)."""
+def _live_actors(prefix: str) -> dict:
+    """Name -> handle of every ALIVE named actor whose name starts with
+    `prefix`."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private.runtime import get_runtime
+
+    out = {}
+    for rec in get_runtime().controller.list_actors():
+        name = getattr(rec, "name", None)
+        if name and name.startswith(prefix) and rec.state.value == "ALIVE":
+            out[name] = ray_tpu_torch.get_actor(name)
+    return out
+
+
+def _teardown(
+    engine_name: str,
+    per_replica: bool = False,
+    fabric_name: Optional[str] = None,
+) -> None:
+    """End a cell: its app first, then its engines, each of whose loop is
+    shut down before the actor is killed, then its KV fabric's store
+    actor. The reference kills the engine first and its loop never: a
+    replica whose health check then finds the engine gone is replaced, the
+    replacement creates the engine anew (get_if_exists) and it outlives
+    the cell; and a killed actor's loop thread keeps its engine, the card
+    memory of its weights and pools included (ROADMAP §D8). A per-replica
+    cell's engines are `llm_engine:{engine_name}-<suffix>`; the store,
+    named `kv_fabric:{fabric_name}`, outlives every engine by design, so
+    it is killed last."""
     import ray_tpu_torch
     from ray_tpu_torch import serve
 
     serve.shutdown()
-    try:
-        engine = ray_tpu_torch.get_actor(f"llm_engine:{engine_name}")
-    except Exception:
-        return  # engine never came up / already gone
-    try:
-        ray_tpu_torch.get(engine.shutdown.remote(), timeout=30.0)
-    except Exception:
-        pass  # a dead or wedged engine: the kill below still lands
-    ray_tpu_torch.kill(engine)
+    if per_replica:
+        engines = list(_live_actors(f"llm_engine:{engine_name}-").values())
+    else:
+        try:
+            engines = [ray_tpu_torch.get_actor(f"llm_engine:{engine_name}")]
+        except Exception:
+            engines = []  # engine never came up / already gone
+    for engine in engines:
+        try:
+            ray_tpu_torch.get(engine.shutdown.remote(), timeout=30.0)
+        except Exception:
+            pass  # a dead or wedged engine: the kill below still lands
+        try:
+            ray_tpu_torch.kill(engine)
+        except Exception:
+            pass  # the replica's own teardown already reaped it
+    if fabric_name is not None:
+        try:
+            store = ray_tpu_torch.get_actor(f"kv_fabric:{fabric_name}")
+        except Exception:
+            return  # no engine ever created the store
+        ray_tpu_torch.kill(store)
 
 
 def _drain_engine(handle, timeout_s: float = 60.0) -> dict:
@@ -727,16 +762,224 @@ def run_kv_fabric_cell(
     num_requests: int,
     seed: int,
     timeout_s: float = 30.0,
-    **kwargs,
+    *,
+    device="cuda",
+    model_config=None,
+    params=None,
+    engine_base: Optional[dict] = None,
+    scenario_overrides: Optional[dict] = None,
 ) -> dict:
-    """The reference's KV-fabric locality cell (two per-replica engines
-    sharing one fabric, prefix-affinity routing on vs off) needs the KV
-    fabric, which the port does not have yet: it raises until ROADMAP §B5,
-    and its gate (`_gate_kv_fabric`) comes with it."""
-    raise NotImplementedError(
-        "the KV-fabric cell (run_kv_fabric_cell) is not ported to "
-        "ray_tpu_torch yet: it needs the KV fabric (ROADMAP §B5)"
+    """The KV-fabric locality cell: two ingress replicas, EACH with its
+    own engine (engine_per_replica), sharing one fabric — run twice by
+    the sweep, prefix-affinity routing on vs off, over the multiturn
+    scenario (sessions whose turn t+1 prompt extends turn t's).
+
+    After the open-loop window the cell demotes every replica's cache to
+    the fabric (the drain-path demotion, minus the drain), replays each
+    session's final prompt through the router (client-timed — the
+    affinity-on row shows the repeat landing on its session's device
+    cache), and then serves one session's final prompt DIRECTLY on BOTH
+    engines: at least one of the two never prefilled that whole prefix,
+    so its blocks can only arrive through the fabric's host tier — the
+    deterministic cross-replica hit the gate asserts. Zero dropped
+    requests is gated like every cell."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.config import EngineConfig, KVFabricConfig
+    from ray_tpu_torch.llm.serve import build_app
+    from ray_tpu_torch.loadgen import report as report_mod
+    from ray_tpu_torch.loadgen.arrivals import ArrivalSpec, arrival_times
+    from ray_tpu_torch.loadgen.driver import run_open_loop
+    from ray_tpu_torch.loadgen.scenarios import generate_requests
+    from ray_tpu_torch.loadgen.slo import IMPOSSIBLE_SLO, LOOSE_SLO, evaluate_slo
+
+    device = _cell_device(device)
+    model_config = model_config or serve_model_config()
+    base = _engine_base(engine_base)
+    label = "kv_fabric_affinity" if affinity else "kv_fabric_p2c"
+    fabric_name = f"{label}-r{rate:g}-s{seed}"
+    ecfg = EngineConfig(
+        **base,
+        kv_fabric=KVFabricConfig(
+            name=fabric_name,
+            byte_budget=64 << 20,
+            affinity=affinity,
+        ),
     )
+    engine_name = f"loadgen-{label}-r{rate:g}-s{seed}"
+    app_name = f"lg-{label}-r{rate:g}"
+    try:
+        handle = serve.run(
+            build_app(
+                model_config,
+                ecfg,
+                params=params,
+                engine_name=engine_name,
+                num_replicas=2,
+                engine_per_replica=True,
+                max_concurrent_queries=64,
+                device=device,
+            ),
+            name=app_name,
+            _blocking_timeout_s=300.0,
+        )
+        handle.remote(
+            {"prompt_ids": [1, 2, 3], "max_new_tokens": 2}
+        ).result(timeout_s=300.0)
+
+        spec = _scenario(
+            ecfg, "multiturn", num_requests, seed, model_config,
+            scenario_overrides,
+        )
+        requests = generate_requests(spec)
+        offsets = arrival_times(
+            ArrivalSpec(process="uniform", rate=rate, seed=seed),
+            len(requests),
+        )
+        result = run_open_loop(
+            handle,
+            requests,
+            offsets,
+            timeout_s=timeout_s,
+            settle_timeout_s=max(timeout_s * 2, 60.0),
+        )
+        rep = report_mod.build_report(result)
+
+        engines = _live_actors(f"llm_engine:{engine_name}-")
+        # Settle both engines (the shared-handle _drain_engine only sees
+        # one replica's engine), then demote every cache to the fabric.
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            stats = [
+                ray_tpu_torch.get(h.metrics.remote(), timeout=30.0)
+                for h in engines.values()
+            ]
+            if all(
+                s.get("queue_depth", 0) == 0
+                and s.get("num_running", 0) == 0
+                for s in stats
+            ):
+                break
+            time.sleep(0.25)
+        mid = {
+            n: ray_tpu_torch.get(h.metrics.remote(), timeout=30.0)
+            for n, h in engines.items()
+        }
+        flushed = sum(
+            ray_tpu_torch.get(
+                [h.flush_kv_fabric.remote() for h in engines.values()],
+                timeout=60.0,
+            )
+        )
+
+        # Per-session final prompts, in schedule order.
+        finals = {}
+        for r in requests:
+            if r.scenario == "multiturn" and r.session_id is not None:
+                finals[r.session_id] = list(r.prompt_ids)
+
+        # Repeat wave through the router: the client-visible price of a
+        # session resuming after its cache left the device tier.
+        wave = []
+        for prompt in finals.values():
+            t0 = time.perf_counter()
+            handle.remote(
+                {"prompt_ids": prompt, "max_new_tokens": 2}
+            ).result(timeout_s=60.0)
+            wave.append(time.perf_counter() - t0)
+        wave_p50 = sorted(wave)[len(wave) // 2] if wave else None
+
+        # The deterministic cross-replica hit: one session's final
+        # prompt served directly on each engine. Whichever engine did
+        # not prefill that session's last turn is missing at least one
+        # full block on device (a turn adds more than a block of
+        # tokens), and after the flush the fabric holds it.
+        probe = next(iter(finals.values()))
+        for h in engines.values():
+            ray_tpu_torch.get(h.generate.remote(probe, 2, None), timeout=60.0)
+        after = {
+            n: ray_tpu_torch.get(h.metrics.remote(), timeout=30.0)
+            for n, h in engines.items()
+        }
+        cross_replica_hit_blocks = sum(
+            after[n]["fabric_restore_blocks"]
+            - mid[n]["fabric_restore_blocks"]
+            for n in after
+        )
+
+        verdicts = {
+            s.name: evaluate_slo(s, rep)
+            for s in (LOOSE_SLO, IMPOSSIBLE_SLO)
+        }
+        store = next(iter(after.values()))["fabric_store"]
+        return {
+            "config": label,
+            "knobs": {
+                "kv_fabric": True,
+                "affinity": affinity,
+                "engine_per_replica": True,
+                "num_replicas": 2,
+            },
+            "cpu_parity_only": False,
+            **_served(device, model_config, base, spec),
+            "rate": rate,
+            "report": rep,
+            "slo": verdicts,
+            "fabric": {
+                "flushed_blocks": flushed,
+                "cross_replica_hit_blocks": cross_replica_hit_blocks,
+                "repeat_wave_ttft_p50_s": wave_p50,
+                "store": store,
+                "per_engine": {
+                    n: {
+                        "fabric_spill_blocks": s["fabric_spill_blocks"],
+                        "fabric_restore_blocks": s["fabric_restore_blocks"],
+                        "fabric_hit_blocks": s["fabric_hit_blocks"],
+                        "fabric_hit_rate": s["fabric_hit_rate"],
+                        "fabric_timeouts": s["fabric_timeouts"],
+                        "prefix_cache_hit_rate": s["prefix_cache_hit_rate"],
+                    }
+                    for n, s in after.items()
+                },
+            },
+            "engine": {
+                "wedged": any(s.get("wedged") for s in after.values()),
+                "dead_letters": sum(
+                    s.get("num_dead_letters", 0) for s in after.values()
+                ),
+            },
+        }
+    finally:
+        _teardown(engine_name, per_replica=True, fabric_name=fabric_name)
+
+
+def _gate_kv_fabric(cell: dict) -> List[str]:
+    """Hard assertions for the fabric cells: zero dropped requests, the
+    SLO gate pair still discriminates, no wedge, blocks actually demoted
+    to the host tier, and at least one cross-replica fabric hit — a KV
+    block prefilled by one replica served a request on the other."""
+    tag = f"{cell['config']}@{cell['rate']}"
+    problems = []
+    if cell["report"]["num_errors"] != 0:
+        problems.append(
+            f"{tag}: {cell['report']['num_errors']} dropped requests "
+            f"({cell['report']['errors']})"
+        )
+    if not cell["slo"]["loose"]["passed"]:
+        problems.append(f"{tag}: loose SLO failed")
+    if cell["slo"]["impossible"]["passed"]:
+        problems.append(f"{tag}: impossible SLO passed")
+    if cell["engine"].get("wedged"):
+        problems.append(f"{tag}: engine wedged")
+    fabric = cell["fabric"]
+    if fabric["flushed_blocks"] <= 0:
+        problems.append(f"{tag}: flush demoted no blocks to the fabric")
+    if fabric["cross_replica_hit_blocks"] <= 0:
+        problems.append(
+            f"{tag}: no cross-replica fabric hit (restore delta "
+            f"{fabric['cross_replica_hit_blocks']})"
+        )
+    return problems
 
 
 def _await_drain_settled(
@@ -904,8 +1147,8 @@ def run_sweep(
     scenario_overrides: Optional[dict] = None,
 ) -> Tuple[dict, List[str]]:
     """The full sweep: the chosen knob rows at every rate, then the drain
-    cell and the collapse cell. Returns (record, gate_problems). The
-    KV-fabric pair is skipped (ROADMAP §B5), which the record's note says."""
+    cell, the collapse cell and the KV-fabric pair. Returns (record,
+    gate_problems)."""
     import torch
 
     device = _cell_device(device)
@@ -983,6 +1226,27 @@ def run_sweep(
         f"{(collapse_cell['burn_rates'].get('impossible') or 0):.1f}"
         + (f"  !! {collapse_problems}" if collapse_problems else "")
     )
+    # The KV-fabric locality pair: multiturn over 2 per-replica engines
+    # sharing one fabric, prefix-affinity routing on vs off — gated on
+    # zero drops + at least one cross-replica fabric hit, on every sweep
+    # (quick included).
+    for affinity in (True, False):
+        cell = run_kv_fabric_cell(
+            affinity, rates[0], max(num_requests // 2, 12), seed, **served
+        )
+        cells.append(cell)
+        cell_problems = _gate_kv_fabric(cell)
+        problems.extend(cell_problems)
+        fab = cell["fabric"]
+        wave = fab["repeat_wave_ttft_p50_s"]
+        print(
+            f"[{record_name}] {cell['config']} @ {rates[0]:g}/s: "
+            f"errors {cell['report']['num_errors']}, "
+            f"cross-replica hits {fab['cross_replica_hit_blocks']} "
+            f"blocks, flushed {fab['flushed_blocks']}, repeat p50 "
+            f"{wave if wave is None else round(wave, 4)}s"
+            + (f"  !! {cell_problems}" if cell_problems else "")
+        )
     scenario = _build_scenario(
         num_requests,
         seed,
@@ -995,13 +1259,15 @@ def run_sweep(
         "LLMIngress replica -> shared engine actor). The "
         "drain_scale_down cell fires a mid-run scale-down and gates "
         "on zero dropped requests + pools drained + exactly one "
-        "replica DRAINING -> STOPPED. The collapse_ramp cell drives a "
+        "replica DRAINING -> STOPPED. The kv_fabric_affinity / "
+        "kv_fabric_p2c pair runs multiturn over two per-replica "
+        "engines sharing one KV fabric (prefix-affinity routing on "
+        "vs off), gated on zero drops + at least one cross-replica "
+        "fabric hit. The collapse_ramp cell drives a "
         "ramp to 4x past saturation against bounded admission and gates "
         "on graceful degradation: accepted requests within SLO, "
         "rejections fast and typed (OverloadedError sheds, zero untyped "
-        "failures), no wedge, pools back at boot size. The reference's "
-        "kv_fabric_affinity / kv_fabric_p2c pair was skipped: the port "
-        "has no KV fabric yet (ROADMAP §B5)."
+        "failures), no wedge, pools back at boot size."
     )
     if left_out:
         note += " " + left_out

@@ -18,10 +18,10 @@ Columns (the partition):
                         nothing runnable.
 - ``prefill_s``       — host time planning + dispatching chunked-prefill
                         programs (measured in `_run_prefill_chunks`).
-- ``fabric_wait_s``   — blocking on KV-fabric restores. The port has no
-                        KV fabric yet (ROADMAP §B5) and its flight
-                        record carries no `fabric_wait_s`, so this
-                        column reads 0, as the reference's does with
+- ``fabric_wait_s``   — blocking on KV-fabric restores: the store RPC
+                        and the blocks' host-to-device copies, measured
+                        in `LLMEngine._apply_fabric_restores` between
+                        admission and chunk planning. It reads 0 with
                         the fabric off.
 - ``host_schedule_s`` — host time between step start and decode dispatch
                         not already attributed to prefill/fabric:

@@ -213,8 +213,9 @@ class DeploymentConfig:
     # request and prefer the rendezvous-hash replica for that key as a
     # tie-break over power-of-two-choices (never overriding drain,
     # exclusion, or capacity). For LLM deployments this is the KV
-    # fabric's prefix affinity (ROADMAP §B5) — requests sharing a leading
-    # prompt block land where their KV cache already lives. Must be a picklable
+    # fabric's prefix affinity (llm.kvfabric.LLMPrefixAffinity) — requests
+    # sharing a leading prompt block land where their KV cache (device or
+    # fabric tier) already lives. Must be a picklable
     # module-level callable (or instance of a module-level class).
     affinity_key_fn: Optional[Callable] = None
 

@@ -70,6 +70,8 @@ _GATE = textwrap.dedent(
     ]
     for name in names:
         importlib.import_module(name)
+    for name in ("store", "affinity", "disagg"):
+        assert f"ray_tpu_torch.llm.kvfabric.{name}" in names, name
     importlib.import_module("chip_smoke")
     leaked = sorted(
         m for m in sys.modules
@@ -111,7 +113,8 @@ def test_entry_points_default_to_cuda():
     import torch
 
     from ray_tpu_torch._private.device import resolve_device
-    from ray_tpu_torch.llm import EngineConfig, GPTRunner, LLMServer
+    from ray_tpu_torch.llm import EngineConfig, GPTRunner, KVFabricConfig, LLMServer
+    from ray_tpu_torch.llm.kvfabric import DisaggregatedLLM
     from ray_tpu_torch.models import GPT, GPTConfig
 
     if torch.cuda.is_available():
@@ -120,8 +123,11 @@ def test_entry_points_default_to_cuda():
     cfg = GPTConfig(vocab_size=128, num_layers=1, num_heads=2, embed_dim=32,
                     max_seq_len=64)
     ecfg = EngineConfig(block_size=8, num_blocks=8, max_blocks_per_seq=4)
+    fabric = EngineConfig(block_size=8, num_blocks=8, max_blocks_per_seq=4,
+                          kv_fabric=KVFabricConfig())
     for make in (lambda: GPT(cfg), lambda: GPTRunner(cfg, ecfg),
-                 lambda: LLMServer(cfg, ecfg)):
+                 lambda: LLMServer(cfg, ecfg),
+                 lambda: DisaggregatedLLM(cfg, fabric)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert resolve_device("cpu").type == "cpu"
@@ -132,6 +138,7 @@ def test_no_import_of_jax_or_ray_tpu_at_any_depth():
     files = _port_sources()
     assert len(files) >= 60
     assert any(f.endswith(os.path.join("serve", "handle.py")) for f in files)
+    assert any(f.endswith(os.path.join("kvfabric", "disagg.py")) for f in files)
     found = {
         os.path.relpath(f, REPO): hits
         for f in files

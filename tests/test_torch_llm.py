@@ -253,11 +253,7 @@ def test_server_warmup_skips_only_inadmissible_buckets(weights, monkeypatch):
 def test_engine_refuses_unported_options(weights):
     _, state = weights
     base = dict(block_size=8, num_blocks=16, max_blocks_per_seq=4)
-    from ray_tpu_torch.llm import KVFabricConfig
-
     refused = [
-        (dict(kv_fabric=KVFabricConfig()), "fabric"),
-        (dict(kv_fabric=KVFabricConfig(), engine_role="decode"), "fabric"),
         (dict(tensor_parallel_size=2), "NCCL"),
     ]
     for extra, item in refused:

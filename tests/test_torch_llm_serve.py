@@ -36,7 +36,7 @@ from ray_tpu.serve._private import controller as jax_controller
 from ray_tpu.serve._private import http_proxy as jax_proxy
 from ray_tpu_torch import serve as port_serve
 from ray_tpu_torch._private import fault_injection as port_fi
-from ray_tpu_torch.llm import EngineConfig, KVFabricConfig
+from ray_tpu_torch.llm import EngineConfig
 from ray_tpu_torch.llm import serve as port_llm_serve
 from ray_tpu_torch.models import GPTConfig, params_from_flax
 from ray_tpu_torch.serve._private import controller as port_controller
@@ -432,12 +432,3 @@ def test_build_app_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
 
-
-@pytest.mark.parametrize("affinity", [True, False])
-def test_kv_fabric_is_refused_naming_its_slice(affinity):
-    ecfg = EngineConfig(**ECFG, kv_fabric=KVFabricConfig(affinity=affinity))
-    what = "affinity" if affinity else "kv_fabric"
-    with pytest.raises(NotImplementedError, match=f"{what}.*§B5"):
-        port_llm_serve.build_app(PORT_TINY, ecfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="§B5"):
-        port_llm_serve.LLMIngress("x", PORT_TINY, ecfg, device="cpu")

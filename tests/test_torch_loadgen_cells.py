@@ -13,9 +13,9 @@ burst's load, while the accepted median is set by the calm start of the
 ramp. The card run (chip_smoke.py) holds the whole gate.
 
 Then the entry points: the sweep's cells default to the card and raise
-without CUDA, the kernel row refuses the CPU naming the card, the
-KV-fabric cell names ROADMAP §B5, and `main(["run", ...])` on the CPU
-writes its cell.
+without CUDA, the kernel row refuses the CPU naming the card, and
+`main(["run", ...])` on the CPU writes its cell. The KV-fabric pair is held
+in tests/test_torch_kvfabric_serve.py.
 """
 
 import json
@@ -250,16 +250,12 @@ def test_kernel_row_refuses_the_cpu_naming_the_card():
         port_sweep._chosen_configs(["pallas_interpret"], "cpu")
 
 
-def test_kv_fabric_cell_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="§B5"):
-        port_sweep.run_kv_fabric_cell(True, 6.0, 12, 0)
-    assert not hasattr(port_sweep, "_gate_kv_fabric")
-
 
 ENTRY_POINTS = {
     "run_cell": lambda: port_sweep.run_cell("base", {}, False, 6.0, 8, 0),
     "run_drain_cell": lambda: port_sweep.run_drain_cell(6.0, 12, 0),
     "run_collapse_cell": lambda: port_sweep.run_collapse_cell(6.0, 24, 0),
+    "run_kv_fabric_cell": lambda: port_sweep.run_kv_fabric_cell(True, 6.0, 12, 0),
     "run_sweep": lambda: port_sweep.run_sweep([6.0], 8),
     "main run": lambda: port_sweep.main(["run", "--num-requests", "8"]),
     "main sweep": lambda: port_sweep.main(["sweep", "--quick", "--out", "unused.json"]),

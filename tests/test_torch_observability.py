@@ -222,7 +222,7 @@ def test_a_real_flight_ring_covers_its_wall():
                                      peak_flops_per_s=989e12)
     assert ledger["steps"] == len(steps) > 0
     assert 0.95 <= ledger["coverage"] <= 1.05, ledger
-    assert ledger["columns"]["fabric_wait_s"] == 0.0  # no KV fabric in the port
+    assert ledger["columns"]["fabric_wait_s"] == 0.0  # the fabric is off here
     assert 0 < ledger["committed_tokens"] <= len(prompts) * 6
     assert ledger["mfu"] > 0
 
