@@ -102,13 +102,37 @@ Phases, each fatal on failure:
      decode engine, (n - 1) // bs blocks restored a request, its TTFT
      beside the unified engine's; (d) no engine or store left alive, the
      card memory left.
-The last two lines are the kernels JSON (K1's and K2's entries also carry
-their launches on every serving path, `launches_by_path`) and the
+ 12. resnet  — ResNet-50 at bench.py's shape (B256 224x224x3, bf16 on f32
+     parameters, 1000 classes, GroupNorm, SGD with momentum 0.9, synthetic
+     data from a seeded generator on the card) through TorchTrainer.fit() on
+     a worker actor on cuda:0: 2 warm-up steps, 10 timed and one profiled;
+     finite losses and no attention kernel launched (counters set to 0 just
+     before the fit, read just after); step p50, images/s, train TFLOP/s by
+     bench.py's 3 x 4.1 GFLOP an image and its share of 989 TFLOP/s, the
+     card's busy share and top five kernels, whether any norm's input or
+     output gradient was not channels_last, peak memory; then norm="batch"
+     for 3 bare steps (running statistics finite and moved), ResNet-18
+     small_inputs at B256 32x32 for 5 (images/s), and one f32 step of
+     ResNet-18 small_inputs at B4 on the card against the same step on the
+     CPU (loss, every gradient, every parameter after it; TF32 off);
+ 13. moe     — gpt2_125m(num_experts=8) (6 MoE blocks, bf16 experts): (a) 5
+     fused_adamw steps at B=8, S=1024 through K6/K7 on CE + the MoE aux
+     losses (losses fall, K6 and K7 12 per step), step p50, tokens/s, busy
+     share, the aux sum and each MoE layer's dropped share at step 1; f32
+     parity of one step against the plain attention path; (b) LLMServer in
+     bf16 with the server phase's engine and 8 requests (all finish, the
+     prefix cache hits, K1 and K2 launched), tokens/s and TTFT p50 beside
+     the dense server's; in f32 the kernels against the plain versions,
+     token-identical one request at a time and all 8 live together; (c) the
+     card memory left.
+The last two lines are the kernels JSON (K1's, K2's, K6's and K7's entries
+also carry their launches on every later path, `launches_by_path`) and the
 {"ok": true, ...} contract.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib
 import json
@@ -796,12 +820,18 @@ def profile_kernel_rows(rows: list, profiled: dict) -> None:
 
 def _train_step(model, opt, state, params, tokens):
     """One training step as the reference's benchmark builds it: forward,
-    the shifted-token loss, every parameter's gradient, a fused_adamw
-    update (in place). Returns (loss, grads, state)."""
-    from ray_tpu_torch.models import cross_entropy_loss
+    the shifted-token loss (plus the MoE aux losses of a model with
+    experts, as the reference's test_parallel.py folds them in), every
+    parameter's gradient, a fused_adamw update (in place). Returns (loss,
+    grads, state)."""
+    from ray_tpu_torch.models import collect_moe_losses, cross_entropy_loss
 
-    logits = model(tokens)
-    loss = cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
+    if model.config.num_experts:
+        logits, inter = model(tokens, return_aux=True)
+        loss = cross_entropy_loss(logits[:, :-1], tokens[:, 1:]) + collect_moe_losses(inter)
+    else:
+        logits = model(tokens)
+        loss = cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
     grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
     _, state = opt.apply(grads, state, params)
     return loss.detach(), grads, state
@@ -936,7 +966,59 @@ def phase_train() -> dict:
     return summary
 
 
-def _f32_parity(cfg, b, s) -> dict:
+# A routing decision that differs between two f32 runs of the same step
+# must be a near-tie: the probabilities of the two choices within this.
+ROUTING_TIE = 1e-4
+
+
+class _RoutingReplay:
+    """Around two runs of the same MoE step: records each MoE layer's
+    expert choice (`models.moe._top_k`) on the first run and hands the
+    same choices to the second, so that both compute one function. Top-k
+    is discontinuous: a near-tie that f32 rounding tips one way on one path
+    and the other way on the other moves a token to another expert and,
+    under capacity, the choice-major positions of every later pair, which
+    no tolerance on the rest of the step could absorb. The second run's
+    own choices are counted against the recorded ones: how many tokens
+    differed, and by how much probability at most."""
+
+    def __init__(self):
+        self.moe = importlib.import_module("ray_tpu_torch.models.moe")
+        self.inner = self.moe._top_k
+        self.recorded, self.at = [], None
+        self.decisions = self.flips = 0
+        self.max_margin = 0.0
+
+    def __enter__(self):
+        self.moe._top_k = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top_k = self.inner
+
+    def replay(self) -> None:
+        self.at = 0
+
+    def __call__(self, probs, k):
+        own = self.inner(probs, k)
+        if self.at is None:
+            self.recorded.append(own)
+            return own
+        want = self.recorded[self.at]
+        self.at += 1
+        self.decisions += own.shape[0]
+        self.flips += int((own != want).any(-1).sum())
+        margin = (probs.gather(1, own) - probs.gather(1, want)).max().item()
+        self.max_margin = max(self.max_margin, margin)
+        return want
+
+    def summary(self) -> dict:
+        return {"replayed_calls": self.at, "tokens_routed": self.decisions,
+                "tokens_whose_own_choice_differed": self.flips,
+                "max_margin": self.max_margin, "tie_bound": ROUTING_TIE}
+
+
+def _f32_parity(cfg, b, s, tag="train") -> dict:
     """One f32 step through the kernels and through attention_impl=
     'reference' on the same weights and batch: the loss within 1e-5
     relative, every gradient within 1e-4 relative L2, and after a
@@ -949,7 +1031,9 @@ def _f32_parity(cfg, b, s) -> dict:
     the softmax). The floor lies above the largest gradient difference
     measured on the H100 (8.0e-8); how many elements it leaves out, the
     leaf it takes most from, and the largest gradient difference of this
-    run are printed."""
+    run are printed. For an MoE model the kernel path takes the plain
+    path's routing (`_RoutingReplay`); where its own would have differed,
+    the two choices must be a near-tie (ROUTING_TIE)."""
     import dataclasses
 
     from ray_tpu_torch.models.gpt import GPT
@@ -960,12 +1044,16 @@ def _f32_parity(cfg, b, s) -> dict:
     plain.load_state_dict(kern.state_dict())
     tokens = _tokens(b, s, seed=2)
     out = {}
-    for label, model in (("kernels", kern), ("plain", plain)):
-        params = dict(model.named_parameters())
-        opt = fused_adamw(LR)
-        loss, grads, _ = _train_step(model, opt, opt.init(params), params, tokens)
-        out[label] = (loss.item(), grads, params)
-        del grads
+    replay = _RoutingReplay() if cfg.num_experts else None
+    with replay or contextlib.nullcontext():
+        for label, model in (("plain", plain), ("kernels", kern)):
+            if replay is not None and label == "kernels":
+                replay.replay()
+            params = dict(model.named_parameters())
+            opt = fused_adamw(LR)
+            loss, grads, _ = _train_step(model, opt, opt.init(params), params, tokens)
+            out[label] = (loss.item(), grads, params)
+            del grads
     (lk, gk, pk), (lp, gp, pp) = out["kernels"], out["plain"]
     loss_rel = abs(lk - lp) / abs(lp)
     grad_rel = {n: _rel_l2(gk[n], gp[n]) for n in gk}
@@ -988,7 +1076,15 @@ def _f32_parity(cfg, b, s) -> dict:
            "left_out": sum(left_out.values()), "left_out_grad_max": dropped_g,
            "left_out_most": most_out,
            "left_out_most_share": left_out[most_out] / pk[most_out].numel()}
-    log("[train] f32 parity: " + json.dumps(res))
+    if replay is not None:
+        res["routing"] = replay.summary()
+    log(f"[{tag}] f32 parity: " + json.dumps(res))
+    if replay is not None and replay.at != len(replay.recorded):
+        fail(f"[{tag}] the kernel path routed {replay.at} times, the plain path "
+             f"{len(replay.recorded)}")
+    if replay is not None and not replay.max_margin <= ROUTING_TIE:
+        fail(f"[{tag}] the kernel path's own routing left the plain path's by "
+             f"{replay.max_margin} in probability, beyond a near-tie ({ROUTING_TIE})")
     if not loss_rel <= 1e-5:
         fail(f"f32 loss: kernels {lk} vs plain {lp}")
     if not grad_rel[worst_g] <= 1e-4:
@@ -1364,15 +1460,25 @@ def phase_server() -> dict:
     log(f"[server] bf16 kernel vs plain-path token agreement: {agree:.4f}")
     summary["bf16_agreement"] = float(agree)
 
-    # f32: token-identical to the plain path on the same weights, first
-    # through the servers one request at a time, then with all 8 requests
-    # live together in one deterministic batch (the engine's own generate,
-    # once the servers' loops have stopped): per-slot tables, idle lanes'
-    # null-block scatters, chunked prefill beside decode, CoW under load.
-    f32 = LLMServer(gpt2_125m(dtype=torch.float32), _engine_config(), seed=0)
+    summary["f32_batched_live_slots"] = _f32_token_identity("server", prompts, n_new)
+    return summary
+
+
+def _f32_token_identity(tag: str, prompts, n_new, **overrides) -> int:
+    """f32: token-identical to the plain path on the same weights, first
+    through the servers one request at a time, then with all the requests
+    live together in one deterministic batch (the engine's own generate,
+    once the servers' loops have stopped): per-slot tables, idle lanes'
+    null-block scatters, chunked prefill beside decode, CoW under load.
+    `overrides` change gpt2_125m's config (both sides). Returns the most
+    decode slots live at once in the batched run."""
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    f32 = LLMServer(gpt2_125m(dtype=torch.float32, **overrides), _engine_config(), seed=0)
     weights = f32.engine.runner.model.state_dict()
-    f32_plain = LLMServer(gpt2_125m(dtype=torch.float32, attention_impl="reference"),
-                          _replace_attn(), params=weights)
+    f32_plain = LLMServer(gpt2_125m(dtype=torch.float32, attention_impl="reference",
+                                    **overrides), _replace_attn(), params=weights)
     runs = {"one at a time": (_sequential(f32, prompts, n_new),
                               _sequential(f32_plain, prompts, n_new))}
     for s in (f32, f32_plain):
@@ -1386,15 +1492,14 @@ def phase_server() -> dict:
     for label, (got, want) in runs.items():
         if any(len(r) != n_new for r in got) or got != want:
             bad = [i for i, (x, y) in enumerate(zip(got, want)) if x != y]
-            fail(f"f32 kernel path ({label}) differs from the plain path on "
+            fail(f"[{tag}] f32 kernel path ({label}) differs from the plain path on "
                  f"requests {bad}")
     if live < len(prompts):
-        fail(f"the batched f32 run decoded at most {live} slots at once")
-    log("[server] f32 kernel path token-identical to the plain path "
+        fail(f"[{tag}] the batched f32 run decoded at most {live} slots at once")
+    log(f"[{tag}] f32 kernel path token-identical to the plain path "
         f"({len(prompts)} requests x {n_new} tokens, one at a time and "
         f"batched with up to {live} decode slots live)")
-    summary["f32_batched_live_slots"] = live
-    return summary
+    return live
 
 
 def _spec_prompt_sets(rng) -> dict:
@@ -2685,6 +2790,424 @@ def phase_fabric() -> dict:
     return summary
 
 
+# ResNet training at bench.py's shape (its "Config #2 (headline)"): B256
+# 224x224x3, bf16 compute on f32 parameters, 1000 classes, GroupNorm,
+# SGD(0.1, momentum 0.9); fwd + bwd counted as 3 x 4.1 GFLOP an image
+# (bench.py:349).
+RESNET_B, RESNET_HW, RESNET_WARMUP, RESNET_TIMED = 256, 224, 2, 10
+RESNET_FLOP_PER_IMAGE = 3 * 4.1e9
+RESNET_BATCHNORM_STEPS = 3
+# BASELINE.json's first configuration: ResNet-18 on CIFAR-10-sized images.
+R18_B, R18_HW, R18_STEPS = 256, 32, 5
+# f32 parity of one ResNet-18 small_inputs step, card against the CPU:
+# relative L2 bounds (cuDNN's f32 algorithms against the CPU's, no TF32).
+RESNET_PARITY_B = 4
+RESNET_PARITY_LIMITS = dict(loss=1e-5, grad=1e-4, param=1e-5)
+
+
+def _profiled(fn, device=None) -> dict:
+    """fn() once under torch.profiler: the wall (taken inside the profiled
+    block), the card's busy seconds and share, the top five kernels by
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                 if e.self_device_time_total > 0}
+    busy = sum(device_us.values()) / 1e6
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+            "top_kernels_ms": [[k[:150], v / 1e3] for k, v in top]}
+
+
+def _resnet_data(b, hw, device, seed=0):
+    """Synthetic ImageNet-shaped data from a seeded generator on `device`:
+    NHWC bf16 images and integer labels."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    images = torch.randn((b, hw, hw, 3), generator=gen, device=device, dtype=torch.bfloat16)
+    labels = torch.randint(0, 1000, (b,), generator=gen, device=device)
+    return images, labels
+
+
+def _resnet_step(model, opt, images, labels):
+    """bench.py:317-327's step: softmax cross entropy with integer labels on
+    the f32 logits, averaged; optax.sgd(0.1, momentum=0.9), which is
+    torch.optim.SGD (its first momentum buffer is the gradient, as optax's
+    trace)."""
+    loss = torch.nn.functional.cross_entropy(model(images).float(), labels)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def _layout_probe(model, images, labels) -> dict:
+    """One step with hooks on every norm: how many of its inputs and of
+    the gradients reaching its output were not channels_last (either would
+    make the norm's NHWC view copy)."""
+    from ray_tpu_torch.models.resnet import Norm
+
+    seen = {"inputs": 0, "inputs_not_cl": 0, "grads": 0, "grads_not_cl": 0}
+
+    def pre(_module, args):
+        seen["inputs"] += 1
+        seen["inputs_not_cl"] += not args[0].is_contiguous(memory_format=torch.channels_last)
+
+    def back(_module, _grad_in, grad_out):
+        seen["grads"] += 1
+        seen["grads_not_cl"] += not grad_out[0].is_contiguous(memory_format=torch.channels_last)
+
+    norms = [m for m in model.modules() if isinstance(m, Norm)]
+    handles = [m.register_forward_pre_hook(pre) for m in norms]
+    handles += [m.register_full_backward_hook(back) for m in norms]
+    opt = torch.optim.SGD(model.parameters(), lr=0.0)
+    try:
+        _resnet_step(model, opt, images, labels)
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def _resnet_loop(config):
+    """The train loop of the ResNet phase, run by TorchTrainer in its worker
+    actor: ResNet-50 (bf16 on f32 parameters, GroupNorm) on the worker's
+    device, warm-up, timed and one profiled step on one synthetic batch.
+    Each step reports its loss and wall time."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import ResNet50
+
+    device = train.get_device()
+    model = ResNet50(num_classes=1000, device=device, seed=0)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    images, labels = _resnet_data(RESNET_B, RESNET_HW, device)
+    step = train.prepare_step(lambda: _resnet_step(model, opt, images, labels))
+    n = config["warmup"] + config["timed"]
+    for i in range(n + 1):
+        metrics = {"step": i, "warmup": i < config["warmup"]}
+        if i == n:
+            holder = {}
+            metrics["profile"] = _profiled(lambda: holder.update(loss=step()), device)
+            loss, wall = holder["loss"], metrics["profile"]["wall_s"]
+            metrics["layout"] = _layout_probe(model, images, labels)
+        else:
+            t0 = time.perf_counter()
+            loss = step().item()  # syncs
+            wall = time.perf_counter() - t0
+        metrics.update(loss=float(loss), step_s=wall)
+        train.report(metrics)
+
+
+def _attention_counters() -> dict:
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    return {
+        "K1 paged_attention": paged_flash_attention,
+        "K2 flash_fwd": fa.flash_attention_fwd,
+        "K3 flash_bwd_fused": fa.flash_attention_bwd_fused,
+        "K4 flash_bwd_dq": fa.flash_bwd_dq,
+        "K5 flash_bwd_dkv": fa.flash_bwd_dkv,
+        "K6 flash_fwd_packed": fa.flash_attention_packed_fwd,
+        "K7 flash_bwd_packed": fa.flash_attention_packed_bwd,
+    }
+
+
+def _bare_resnet_steps(model, images, labels, steps) -> tuple:
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(_resnet_step(model, opt, images, labels).item())
+        times.append(time.perf_counter() - t0)
+    if not all(np.isfinite(losses)):
+        fail(f"[resnet] non-finite loss: {losses}")
+    return losses, times
+
+
+def _sgd_step_results(model, images, labels) -> tuple:
+    """One step of `_resnet_step`'s loss and SGD on `model`'s device: the
+    loss, every gradient and every parameter after the update, on the
+    host."""
+    dev = next(model.parameters()).device
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    loss = torch.nn.functional.cross_entropy(model(images.to(dev)).float(), labels.to(dev))
+    loss.backward()
+    grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+    opt.step()
+    return loss.item(), grads, {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+
+
+def _compare_steps(got: tuple, want: tuple, limits: dict) -> tuple:
+    """Two `_sgd_step_results` held against each other: the loss by its
+    relative difference, each gradient and each parameter after the update
+    by relative L2, against `limits` ("loss", "grad", "param"). Returns
+    (the worst of each, failure messages)."""
+    (lg, gg, pg), (lw, gw, pw) = got, want
+    grad_rel = {n: _rel_l2(gg[n], gw[n]) for n in gw}
+    param_rel = {n: _rel_l2(pg[n], pw[n]) for n in pw}
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_p = max(param_rel, key=param_rel.get)
+    res = {"loss_got": lg, "loss_want": lw, "loss_rel": abs(lg - lw) / abs(lw),
+           "grad_rel_max": grad_rel[worst_g], "grad_worst": worst_g,
+           "param_rel_max": param_rel[worst_p], "param_worst": worst_p,
+           "limits": limits, "leaves": len(gw)}
+    failures = []
+    if not res["loss_rel"] <= limits["loss"]:
+        failures.append(f"loss {lg} vs {lw}")
+    if not grad_rel[worst_g] <= limits["grad"]:
+        failures.append(f"gradient of {worst_g}: relative L2 {grad_rel[worst_g]}")
+    if not param_rel[worst_p] <= limits["param"]:
+        failures.append(f"parameter {worst_p} after the step: relative L2 {param_rel[worst_p]}")
+    return res, failures
+
+
+def _resnet_parity() -> dict:
+    """One f32 step of ResNet-18 small_inputs on a batch of 4, on the card
+    against the same step of the port on the CPU (same weights, with every
+    norm scale drawn from U(0.5, 1.5) so that each block's convolutions get
+    a gradient, and the same images): the loss, every gradient and every
+    parameter after the update by relative L2, within
+    RESNET_PARITY_LIMITS. cuDNN's f32 convolutions would default to TF32:
+    it is off for this check."""
+    from ray_tpu_torch.models import ResNet18
+    from ray_tpu_torch.models.resnet import Norm
+
+    gen = torch.Generator().manual_seed(7)
+    cpu = ResNet18(num_classes=1000, dtype=torch.float32, small_inputs=True,
+                   device="cpu", seed=1)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, Norm):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen) + 0.5)
+    card = ResNet18(num_classes=1000, dtype=torch.float32, small_inputs=True, seed=1)
+    card.load_state_dict(cpu.state_dict())
+    images = torch.randn((RESNET_PARITY_B, R18_HW, R18_HW, 3), generator=gen)
+    labels = torch.randint(0, 1000, (RESNET_PARITY_B,), generator=gen)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = _sgd_step_results(card, images, labels)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    res, failures = _compare_steps(got, _sgd_step_results(cpu, images, labels),
+                                   RESNET_PARITY_LIMITS)
+    res = {"model": "resnet18 small_inputs f32, card (got) vs CPU (want)",
+           "B": RESNET_PARITY_B, "HW": R18_HW, **res}
+    log("[resnet] f32 card vs CPU: " + json.dumps(res))
+    for msg in failures:
+        fail(f"[resnet] f32 card vs CPU: {msg}")
+    return res
+
+
+def phase_resnet(device_info: dict) -> dict:
+    """ResNet-50 at bench.py's shape through TorchTrainer.fit() on a worker
+    actor on cuda:0 (RESNET_WARMUP + RESNET_TIMED steps and one profiled),
+    with every attention kernel's counter set to 0 just before and read
+    just after (none may launch); then norm="batch" for a few bare steps
+    (running statistics finite and moved), ResNet-18 small_inputs at B256
+    32x32, and the f32 card-against-CPU step."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models import ResNet18, ResNet50
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    t_phase = time.perf_counter()
+    counters = _attention_counters()
+    ray_tpu_torch.init()
+    try:
+        trainer = TorchTrainer(
+            _resnet_loop,
+            train_loop_config={"warmup": RESNET_WARMUP, "timed": RESNET_TIMED},
+            scaling_config=ScalingConfig(num_workers=1),
+        )
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        fit_wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    finally:
+        ray_tpu_torch.shutdown()
+    if result.error is not None:
+        fail(f"[resnet] TorchTrainer.fit() failed: {result.error!r}")
+    history = result.metrics_history
+    losses = [m["loss"] for m in history]
+    if len(losses) != RESNET_WARMUP + RESNET_TIMED + 1 or not all(np.isfinite(losses)):
+        fail(f"[resnet] losses {losses}")
+    if any(launches.values()):
+        fail(f"[resnet] attention kernels launched on the ResNet path: {launches}")
+    timed = [m["step_s"] for m in history if not m["warmup"] and "profile" not in m]
+    step_p50 = statistics.median(timed)
+    images_per_s = RESNET_B / step_p50
+    tflops = images_per_s * RESNET_FLOP_PER_IMAGE / 1e12
+    prof, layout = history[-1]["profile"], history[-1]["layout"]
+    summary = {
+        "model": "resnet50 bf16 (f32 params), GroupNorm, SGD(0.1, momentum 0.9)",
+        "card": device_info["smi"], "B": RESNET_B, "HW": RESNET_HW,
+        "steps": {"warmup": RESNET_WARMUP, "timed": RESNET_TIMED, "profiled": 1},
+        "losses": losses, "step_s": [m["step_s"] for m in history],
+        "step_p50_s": step_p50, "images_per_s": images_per_s,
+        "train_tflops": tflops,
+        "share_of_989_tflops": tflops * 1e12 / PEAK_FLOPS[torch.bfloat16],
+        "fit_wall_s": fit_wall, "peak_alloc_mib": peak_mib,
+        "profiled_step": prof, "norm_layout": layout, "attention_launches": launches,
+    }
+    log("[resnet] " + json.dumps(summary))
+
+    # BatchNorm: a few bare steps; the running statistics move and stay finite.
+    model = ResNet50(num_classes=1000, norm="batch", seed=0)
+    images, labels = _resnet_data(RESNET_B, RESNET_HW, "cuda", seed=1)
+    before = {n: b.clone() for n, b in model.named_buffers()}
+    bn_losses, bn_times = _bare_resnet_steps(model, images, labels, RESNET_BATCHNORM_STEPS)
+    after = dict(model.named_buffers())
+    not_finite = [n for n, b in after.items() if not torch.isfinite(b).all()]
+    unmoved = [n for n, b in after.items() if torch.equal(b, before[n])]
+    if not_finite or unmoved:
+        fail(f"[resnet] batch norm statistics: not finite {not_finite[:3]}, "
+             f"unmoved {unmoved[:3]}")
+    summary["batchnorm"] = {"steps": RESNET_BATCHNORM_STEPS, "losses": bn_losses,
+                            "step_s": bn_times, "running_buffers": len(after),
+                            "var_mean_after": statistics.fmean(
+                                after[n].mean().item() for n in after if n.endswith("var"))}
+    log("[resnet] batch norm: " + json.dumps(summary["batchnorm"]))
+    del model, images, labels, before, after
+    torch.cuda.empty_cache()
+
+    # BASELINE.json's first configuration: ResNet-18 on 32x32 images.
+    model = ResNet18(num_classes=1000, small_inputs=True, seed=0)
+    images, labels = _resnet_data(R18_B, R18_HW, "cuda", seed=2)
+    r18_losses, r18_times = _bare_resnet_steps(model, images, labels, R18_STEPS)
+    r18_p50 = statistics.median(r18_times[1:])
+    summary["resnet18"] = {"B": R18_B, "HW": R18_HW, "steps": R18_STEPS,
+                           "losses": r18_losses, "step_s": r18_times,
+                           "step_p50_s": r18_p50, "images_per_s": R18_B / r18_p50}
+    log("[resnet] resnet18 small_inputs: " + json.dumps(summary["resnet18"]))
+    del model, images, labels
+    torch.cuda.empty_cache()
+
+    summary["parity"] = _resnet_parity()
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[resnet] phase wall {summary['wall_s']:.1f}s")
+    return summary
+
+
+# The MoE GPT: gpt2_125m with 8 experts in every second block (the
+# reference's defaults: top-2, capacity factor 1.25).
+MOE_EXPERTS = 8
+
+
+def phase_moe(server: dict) -> dict:
+    """gpt2_125m(num_experts=8): (a) TRAIN_STEPS fused_adamw steps at
+    TRAIN_B x TRAIN_S through K6/K7 with the aux losses in the loss, the
+    counters set to 0 just before and read just after; one more step
+    profiled; the routing (aux sum, dropped share per MoE layer) of step 1's
+    weights on its batch; f32 parity of one step against the plain
+    attention path. (b) LLMServer in bf16 with the server phase's engine
+    and 8 requests (K1, K2 counted), beside the dense server's numbers; f32
+    kernels against the plain versions, token-identical. (c) the card
+    memory left."""
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.models import GPT, collect_moe_losses, gpt2_125m
+
+    t_phase = time.perf_counter()
+    counters = _attention_counters()
+    cfg = gpt2_125m(num_experts=MOE_EXPERTS)
+    model = GPT(cfg, seed=0)
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    n_experts = sum(p.numel() for n, p in params.items() if "moe_mlp.w_" in n)
+    bf16 = sorted({n.split(".", 2)[2] for n, p in params.items() if p.dtype == torch.bfloat16})
+    if bf16 != ["moe_mlp.w_in", "moe_mlp.w_out"]:
+        fail(f"[moe] bf16 parameters {bf16}, not the experts alone")
+    tokens = _tokens(TRAIN_B, TRAIN_S)
+    with torch.no_grad():
+        _, inter = model(tokens, return_aux=True)
+    routing = {"aux_sum": collect_moe_losses(inter).item(),
+               "dropped_share": {k: v["moe_stats"]["dropped_share"].item()
+                                 for k, v in inter.items()}}
+    del inter
+    layers = cfg.num_layers
+
+    for f in counters.values():
+        f.launches = 0
+    losses, times, (opt, state, params) = _run_steps(model, tokens, TRAIN_STEPS)
+    launches = {k: f.launches for k, f in counters.items()}
+    if not losses[-1] < losses[0]:
+        fail(f"[moe] training loss did not fall on one batch: {losses}")
+    for name in ("K6 flash_fwd_packed", "K7 flash_bwd_packed"):
+        if launches[name] != layers * TRAIN_STEPS:
+            fail(f"[moe] {name} launched {launches[name]} times, not {layers} x {TRAIN_STEPS}")
+    step_p50 = statistics.median(times)
+
+    def one_step():
+        nonlocal state
+        _, _, state = _train_step(model, opt, state, params, tokens)
+
+    training = {
+        "model": f"gpt2_125m num_experts={MOE_EXPERTS} bf16 (f32 params, bf16 experts)",
+        "params": n_params, "expert_params": n_experts, "B": TRAIN_B, "S": TRAIN_S,
+        "steps": TRAIN_STEPS, "losses": losses, "step_s": times, "step_p50_s": step_p50,
+        "tokens_per_s": TRAIN_B * TRAIN_S / step_p50, "step1_routing": routing,
+        "launches": {k: v for k, v in launches.items() if v},
+        "profiled_step": _profiled(one_step),
+    }
+    log("[moe] train: " + json.dumps(training))
+    del model, opt, state, params, tokens
+    torch.cuda.empty_cache()
+    training["parity"] = _f32_parity(
+        gpt2_125m(num_experts=MOE_EXPERTS, dtype=torch.float32), PARITY_B, PARITY_S, tag="moe")
+
+    # Serving: the server phase's engine and traffic.
+    n_new = 32
+    prompts = _prompts(np.random.RandomState(0))
+    t0 = time.perf_counter()
+    srv = LLMServer(cfg, _engine_config(), seed=0)
+    up_s = time.perf_counter() - t0
+    counters["K1 paged_attention"].launches = 0
+    counters["K2 flash_fwd"].launches = 0
+    results, ttft, wall = _concurrent(srv, prompts, n_new)
+    serve_launches = {k: counters[k].launches for k in ("K1 paged_attention", "K2 flash_fwd")}
+    m = srv.metrics()
+    steps = [r["duration_s"] for r in srv.flight_record()["steps"]]
+    _free(srv)
+    del srv
+    if any(r is None or len(r) != n_new for r in results):
+        fail(f"[moe] not every request finished with {n_new} tokens")
+    if m["prefix_cache_hit_tokens"] <= 0:
+        fail("[moe] prefix cache never hit")
+    for name, n in serve_launches.items():
+        if n <= 0:
+            fail(f"[moe] {name} was not launched on the MoE serving path")
+    serving = {
+        "requests": len(prompts), "tokens": n_new * len(prompts), "up_s": up_s,
+        "wall_s": wall, "tokens_per_s": n_new * len(prompts) / wall,
+        "ttft_p50_s": statistics.median(ttft), "step_p50_s": statistics.median(steps),
+        "steps": m["steps"], "prefix_cache_hit_tokens": m["prefix_cache_hit_tokens"],
+        "launches": serve_launches,
+        "dense_server": {k: server[k] for k in ("tokens_per_s", "ttft_p50_s", "step_p50_s")},
+    }
+    log("[moe] serve: " + json.dumps(serving))
+    serving["f32_batched_live_slots"] = _f32_token_identity(
+        "moe", prompts, n_new, num_experts=MOE_EXPERTS)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {"train": training, "serve": serving,
+               "left_allocated_mib": torch.cuda.memory_allocated() / 2**20,
+               "wall_s": time.perf_counter() - t_phase}
+    log(f"[moe] {summary['left_allocated_mib']:.0f} MiB left allocated on the card; "
+        f"phase wall {summary['wall_s']:.1f}s")
+    return summary
+
+
 def _replace_attn():
     import dataclasses
 
@@ -2747,8 +3270,9 @@ KERNELS = {
 
 def kernels_line(rows: list, launches: dict, paths: dict) -> dict:
     """The kernels JSON line. `launches` is each kernel's count on its main
-    path; `paths` maps every later serving path (each counted from 0 just
-    before it ran) to its counts, which K1's and K2's entries carry as
+    path; `paths` maps every later path (each counted from 0 just before it
+    ran) to its counts, which the entries of the kernels it launched (K1
+    and K2 serving, K6 and K7 training the MoE GPT) carry as
     `launches_by_path`."""
     out = []
     for name, meta in KERNELS.items():
@@ -2793,6 +3317,8 @@ def main() -> int:
     phase_serve(server)
     loadgen = phase_loadgen()
     fabric = phase_fabric()
+    phase_resnet(device)
+    moe = phase_moe(server)
     launches.update(profile["launches"])
     paths = {"server": server["launches"]}
     for line in loadgen["cells"]:
@@ -2801,6 +3327,8 @@ def main() -> int:
     paths["fabric cold restore f32"] = fabric["spill_f32"]["launches"]
     for role, counts in fabric["disagg"]["launches_by_role"].items():
         paths[f"fabric disaggregated {role}"] = counts
+    paths["moe train"] = moe["train"]["launches"]
+    paths["moe server"] = moe["serve"]["launches"]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches, paths)))
     print(json.dumps({"ok": True, "device": {

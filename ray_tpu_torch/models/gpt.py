@@ -9,7 +9,9 @@ the tanh approximation of GELU, every dense product and the embeddings in
 Every parameter is stored in f32 and cast to the compute dtype at each use,
 as flax's ``nn.Dense`` / ``nn.Embed`` do with their default f32
 ``param_dtype``: gradients and optimizer updates land on f32 masters, where
-a bf16 weight would round most of a small update away.
+a bf16 weight would round most of a small update away. The one exception
+is the reference's own: an MoE block's experts are created in the compute
+dtype (``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.models.moe import MoEConfig, MoEMlp
 from ray_tpu_torch.ops.flash_attention import attention as attention_op
 from ray_tpu_torch.ops.flash_attention import flash_attention_packed
 from ray_tpu_torch.ops.paged_flash import paged_attention_impl
@@ -42,7 +45,8 @@ class GPTConfig:
     # "flash" (the CUDA kernels: packed at S <= 2048, blockwise above, and
     # the generation prefill), "reference", or "ring" (not ported yet).
     attention_impl: str = "flash"
-    # MoE: num_experts=0 keeps dense MLPs. MoE blocks are not ported yet.
+    # MoE: num_experts=0 keeps dense MLPs; otherwise every `moe_every`-th
+    # block swaps its MLP for a MoEMlp.
     num_experts: int = 0
     moe_every: int = 2
     num_experts_per_tok: int = 2
@@ -113,7 +117,7 @@ class Embed(nn.Embedding):
 
 
 class Block(nn.Module):
-    def __init__(self, config: GPTConfig, device=None):
+    def __init__(self, config: GPTConfig, use_moe: bool = False, device=None):
         super().__init__()
         cfg = config
         self.config = cfg
@@ -122,8 +126,20 @@ class Block(nn.Module):
         self.attn_qkv = Dense(e, 3 * e, dt, device)
         self.attn_proj = Dense(e, e, dt, device)
         self.ln_2 = LayerNorm(e, dt, device)
-        self.mlp_in = Dense(e, cfg.mlp_ratio * e, dt, device)
-        self.mlp_out = Dense(cfg.mlp_ratio * e, e, dt, device)
+        self.use_moe = use_moe
+        if use_moe:
+            self.moe_mlp = MoEMlp(
+                e, cfg.mlp_ratio * e,
+                MoEConfig(
+                    num_experts=cfg.num_experts,
+                    num_experts_per_tok=cfg.num_experts_per_tok,
+                    capacity_factor=cfg.moe_capacity_factor,
+                ),
+                dtype=dt, device=device,
+            )
+        else:
+            self.mlp_in = Dense(e, cfg.mlp_ratio * e, dt, device)
+            self.mlp_out = Dense(cfg.mlp_ratio * e, e, dt, device)
 
     def _heads(self, qkv: torch.Tensor):
         """q, k, v [B, S, H, D] views of the packed projection."""
@@ -141,9 +157,12 @@ class Block(nn.Module):
         return_kv: bool = False,
         paged_state: Optional[tuple] = None,
         paged_impl: str = "reference",
-    ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
-        """Returns (x, kv): kv is this layer's (k, v) [B, S, H, D] for the
-        fed tokens on the generation paths, else None."""
+        return_aux: bool = False,
+    ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]], dict]:
+        """Returns (x, kv, intermediates): kv is this layer's (k, v)
+        [B, S, H, D] for the fed tokens on the generation paths, else None;
+        intermediates holds an MoE block's aux losses (``moe_aux``) and
+        routing diagnostics (``moe_stats``) when `return_aux` is set."""
         cfg = self.config
         h = self.ln_1(x)
         b, s, _ = h.shape
@@ -191,9 +210,17 @@ class Block(nn.Module):
         attn = self.attn_proj(attn.reshape(b, s, cfg.embed_dim))
         x = x + attn
         h = self.ln_2(x)
-        h = F.gelu(self.mlp_in(h), approximate="tanh")
-        h = self.mlp_out(h)
-        return x + h, kv
+        inter = {}
+        if self.use_moe:
+            if return_aux:
+                h, aux, stats = self.moe_mlp(h, with_stats=True)
+                inter = {"moe_aux": (aux,), "moe_stats": stats}
+            else:
+                h, _ = self.moe_mlp(h)
+        else:
+            h = F.gelu(self.mlp_in(h), approximate="tanh")
+            h = self.mlp_out(h)
+        return x + h, kv, inter
 
 
 class GPT(nn.Module):
@@ -205,17 +232,15 @@ class GPT(nn.Module):
 
     def __init__(self, config: GPTConfig, device=None, seed: int = 0):
         super().__init__()
-        if config.num_experts:
-            raise NotImplementedError(
-                "MoE blocks (num_experts > 0) are not ported yet (ROADMAP §B: "
-                "the ResNet/MoE slice)"
-            )
         device = resolve_device(device)
         self.config = cfg = config
         self.wte = Embed(cfg.vocab_size, cfg.embed_dim, cfg.dtype, device)
         self.wpe = Embed(cfg.max_seq_len, cfg.embed_dim, cfg.dtype, device)
         self.h = nn.ModuleList(
-            Block(cfg, device) for _ in range(cfg.num_layers)
+            Block(cfg, use_moe=bool(
+                cfg.num_experts and i % cfg.moe_every == cfg.moe_every - 1
+            ), device=device)
+            for i in range(cfg.num_layers)
         )
         self.ln_f = LayerNorm(cfg.embed_dim, cfg.dtype, device)
         self.reset_parameters(seed)
@@ -237,7 +262,8 @@ class GPT(nn.Module):
         """Cast the dense layers and embeddings to the compute dtype once,
         for a model that serves and is never updated: the per-use casts
         become no-ops with the same values. LayerNorm parameters stay f32,
-        as its statistics are f32."""
+        as its statistics are f32; so does an MoE router (its experts are
+        in the compute dtype already)."""
         for module in self.modules():
             if isinstance(module, (Dense, Embed)):
                 module.to(self.config.dtype)
@@ -251,6 +277,7 @@ class GPT(nn.Module):
         return_kv: bool = False,
         paged_caches: Optional[tuple] = None,
         paged_impl: str = "reference",
+        return_aux: bool = False,
     ):
         """Forward pass: tokens [B, S] → bf16 (model dtype) logits [B, S, V].
 
@@ -264,6 +291,9 @@ class GPT(nn.Module):
             causally over the fed tokens, through the CUDA kernel when
             ``paged_impl`` resolves to it. ``positions`` [B, S] must carry
             each token's absolute position.
+          * ``return_aux=True`` also returns the intermediates of the MoE
+            blocks, ``{"h_{i}": {"moe_aux": (aux,), "moe_stats": {...}}}``,
+            last in the tuple: pass them to :func:`collect_moe_losses`.
         """
         cfg = self.config
         b, s = tokens.shape
@@ -276,6 +306,7 @@ class GPT(nn.Module):
             (k_cache, v_cache, block_tables, context_lens,
              k_scale, v_scale) = paged_caches
         kvs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        intermediates = {}
         for i, block in enumerate(self.h):
             paged_state = None
             if paged_caches is not None:
@@ -284,18 +315,20 @@ class GPT(nn.Module):
                     None if k_scale is None else k_scale[i],
                     None if v_scale is None else v_scale[i],
                 )
-            x, kv = block(
+            x, kv, inter = block(
                 x, return_kv=return_kv, paged_state=paged_state,
-                paged_impl=paged_impl,
+                paged_impl=paged_impl, return_aux=return_aux,
             )
             kvs.append(kv)
+            if inter:
+                intermediates[f"h_{i}"] = inter
         x = self.ln_f(x)
         # Tied LM head: logits through the embedding matrix in the model
         # dtype (bf16 logits, as in the reference; argmax runs on these).
         logits = self.wte.attend(x)
-        if return_kv:
-            return logits, kvs
-        return logits
+        out = (logits,) + ((kvs,) if return_kv else ()) + (
+            (intermediates,) if return_aux else ())
+        return out if len(out) > 1 else logits
 
 
 def cross_entropy_loss(logits, targets, mask: Optional[torch.Tensor] = None):
@@ -308,3 +341,33 @@ def cross_entropy_loss(logits, targets, mask: Optional[torch.Tensor] = None):
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def collect_moe_losses(intermediates: Any) -> torch.Tensor:
+    """Sum the MoE aux losses in the intermediates that
+    ``GPT.forward(..., return_aux=True)`` returns (the reference's sown
+    ``intermediates`` collection has the same form). Only ``moe_aux``
+    entries are summed: other diagnostics must never leak into the
+    training objective."""
+
+    def leaves(node: Any):
+        if isinstance(node, dict):
+            for sub in node.values():
+                yield from leaves(sub)
+        elif isinstance(node, (tuple, list)):
+            for sub in node:
+                yield from leaves(sub)
+        else:
+            yield node
+
+    def collect(node: Any, total: torch.Tensor) -> torch.Tensor:
+        if isinstance(node, dict):
+            for key, sub in node.items():
+                if key == "moe_aux":
+                    for leaf in leaves(sub):
+                        total = total + torch.as_tensor(leaf, dtype=torch.float32)
+                else:
+                    total = collect(sub, total)
+        return total
+
+    return collect(intermediates, torch.zeros((), dtype=torch.float32))

@@ -152,8 +152,8 @@ def test_paged_forward_matches_flax(numpy_params, shape):
 def test_unported_paths_raise(numpy_params):
     """The plain forward with attention_impl='flash' now runs the packed
     kernels' path (JAX: Pallas interpret; port: the plain versions) and
-    matches flax at f32; ring attention and MoE blocks still raise, naming
-    their slices, and an entry point without device= still needs CUDA."""
+    matches flax at f32; ring attention still raises, naming its slice,
+    and an entry point without device= still needs CUDA."""
     jax_model, model = _models(numpy_params, attention_impl="flash")
     toks = _tokens(2, 24)
     want = np.asarray(jax_model.apply(numpy_params, jnp.asarray(toks)))
@@ -163,8 +163,6 @@ def test_unported_paths_raise(numpy_params):
     _, ring = _models(numpy_params, attention_impl="ring")
     with pytest.raises(NotImplementedError, match="ring attention"):
         ring(torch.from_numpy(_tokens(1, 8)))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        GPT(GPTConfig(**TINY, num_experts=4), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             GPT(GPTConfig(**TINY))

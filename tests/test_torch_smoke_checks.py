@@ -61,3 +61,85 @@ def test_check_close_refuses_wrong_output(dtype, wrong):
     with pytest.raises(SystemExit, match="chip_smoke FAILED"):
         chip_smoke.check_close([], "K0", {"o": got, "lse": bad_lse},
                                {"o": w, "lse": lse}, "x", case="t")
+
+
+def _resnet_step_results():
+    from ray_tpu_torch.models import ResNet18
+
+    model = ResNet18(num_classes=10, num_filters=32, dtype=torch.float32,
+                     small_inputs=True, device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randn((2, 8, 8, 3), generator=gen)
+    labels = torch.tensor([1, 4])
+    return chip_smoke._sgd_step_results(model, images, labels)
+
+
+@pytest.mark.parametrize("wrong", [None, "loss", "grad", "param"])
+def test_resnet_step_comparison_refuses_a_wrong_leaf(wrong):
+    """The ResNet phase's card-against-CPU check passes the same step taken
+    twice and refuses a loss, one gradient or one parameter off by 1e-3."""
+    got = _resnet_step_results()
+    want = _resnet_step_results()
+    loss, grads, params = got
+    if wrong == "loss":
+        loss *= 1 + 1e-3
+    elif wrong == "grad":
+        grads["head.bias"] = grads["head.bias"] * (1 + 1e-3)
+    elif wrong == "param":
+        params["blocks.3.conv_1.weight"] = params["blocks.3.conv_1.weight"] * (1 + 1e-3)
+    res, failures = chip_smoke._compare_steps((loss, grads, params), want,
+                                              chip_smoke.RESNET_PARITY_LIMITS)
+    assert res["leaves"] == len(grads)
+    if wrong is None:
+        assert failures == [] and res["loss_rel"] == 0.0
+    else:
+        assert len(failures) == 1 and failures[0].startswith(wrong if wrong != "grad" else "gradient")
+
+
+def test_layout_probe_counts_norm_inputs_off_channels_last():
+    """The probe behind the ResNet phase's "norm_layout": a channels_last
+    run reads 0 of each; inputs in plain NCHW memory are counted."""
+    from ray_tpu_torch.models import ResNet18
+
+    model = ResNet18(num_classes=10, num_filters=32, dtype=torch.float32,
+                     small_inputs=True, device="cpu", seed=0)
+    images = torch.randn(2, 8, 8, 3)
+    labels = torch.tensor([1, 4])
+    seen = chip_smoke._layout_probe(model, images, labels)
+    assert seen["inputs"] == seen["grads"] == 20  # the stem, 2 a block, 3 projections
+    assert seen["inputs_not_cl"] == seen["grads_not_cl"] == 0
+    model.norm_init.register_forward_pre_hook(lambda m, a: (a[0].contiguous(),) + a[1:])
+    seen = chip_smoke._layout_probe(model, images, labels)
+    assert seen["inputs_not_cl"] == 1
+
+
+def test_routing_replay_counts_and_bounds_the_choices_it_overrides():
+    """The MoE f32 parity's routing replay: a second run of the same model
+    replays the first's expert choices with nothing to override; a run
+    whose router is negated has its own choices overridden (counted, with
+    a probability margin far past the near-tie bound)."""
+    from ray_tpu_torch.models import GPT, GPTConfig
+
+    cfg = GPTConfig(vocab_size=128, num_layers=2, num_heads=4, embed_dim=64,
+                    max_seq_len=64, dtype=torch.float32, attention_impl="reference",
+                    num_experts=4)
+    model = GPT(cfg, device="cpu", seed=0)
+    tokens = torch.randint(0, 128, (2, 16), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad(), chip_smoke._RoutingReplay() as replay:
+        want = model(tokens)
+        replay.replay()
+        again = model(tokens)
+        assert replay.summary()["tokens_whose_own_choice_differed"] == 0
+        assert replay.max_margin == 0.0 and torch.equal(again, want)
+    with torch.no_grad():
+        negated = GPT(cfg, device="cpu", seed=0)
+        negated.h[1].moe_mlp.router.neg_()
+        with chip_smoke._RoutingReplay() as replay:
+            model(tokens)
+            replay.replay()
+            negated(tokens)
+        assert replay.at == len(replay.recorded) == 1
+        assert replay.flips > 0 and replay.max_margin > chip_smoke.ROUTING_TIE
+    from ray_tpu_torch.models import moe
+
+    assert moe._top_k is replay.inner  # restored on exit
