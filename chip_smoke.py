@@ -125,8 +125,25 @@ Phases, each fatal on failure:
      the dense server's; in f32 the kernels against the plain versions,
      token-identical one request at a time and all 8 live together; (c) the
      card memory left.
-The last two lines are the kernels JSON (K1's, K2's, K6's and K7's entries
-also carry their launches on every later path, `launches_by_path`) and the
+ 14. tune    — Tune over the trainer: ray_tpu_torch.init with the card as
+     the GPU resource; Tuner(TorchTrainer(...)) trials of GPT-2 125M at B8
+     S1024 (K2, K3), each holding {"CPU": 1, "GPU": 0.5}, so two run at
+     once and a third waits; (a) ASHA over 4 trials (lr loguniform, seeded;
+     max_t 6, grace period 1, reduction factor 2): a trial stopped early;
+     (b) PBT over 2 trials (lr 0.05 and 3e-4 in a grid, perturbation
+     interval 2, 6 iterations, a host checkpoint of the parameters and both
+     moments every 2 steps): an exploit that resumes bit for bit from the
+     source's checkpoint (torch.equal and the on-card fingerprint). Each
+     fit() with the counters set to 0 just before and read just after: K2
+     and K3 12 x the steps the loops reported, K4-K7 none; the best trial's
+     loss below its first; `[tune]` lines per trial (lr, iterations, final
+     loss, stopped early, fit() wall minus the steps' wall) and per exploit.
+After each teardown (serve, every loadgen cell, loadgen, fabric, moe, each
+tune fit()) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
+its figure before the run; beyond it the script prints what holds the
+memory (`_card_holders`) and fails.
+The last two lines are the kernels JSON (K1's, K2's, K3's, K6's and K7's
+entries also carry their launches on every later path, `launches_by_path`) and the
 {"ok": true, ...} contract.
 """
 
@@ -136,6 +153,7 @@ import contextlib
 import gc
 import importlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -1942,21 +1960,11 @@ def phase_serve(server: dict) -> dict:
     # Measured here, once _serve_apps' locals (handles, the killed
     # replica's handle, the stream) are gone: what still holds the old
     # runtime holds its engines and their card memory. The handles'
-    # router threads end within a poll period of the runtime's shutdown;
-    # wait until less than half the smallest engine (the bf16 app's) is
-    # left above the start (what stays is cuBLAS's per-thread workspaces).
+    # router threads end within a poll period of the runtime's shutdown.
     mib = 2 ** 20
     mem0 = summary["memory"]["before_mib"] * mib
-    engine_bytes = summary["memory"]["added_mib"] * mib
     t0 = time.perf_counter()
-    while True:
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        left = torch.cuda.memory_allocated()
-        if left <= mem0 + engine_bytes / 2 or time.perf_counter() - t0 > 20:
-            break
-        time.sleep(0.25)
+    left = _settle(mem0, "serve") * mib
     summary["left_allocated_mib"] = left / mib
     summary["wall_s"] = time.perf_counter() - t_phase
     log(f"[serve] shut down: {left / mib:.0f} MiB left allocated on the card "
@@ -2163,13 +2171,13 @@ def _count_cells(sweep, driver, runner_cls):
 
     def counted(fn):
         def run(*args, **kwargs):
+            gc.collect()
+            torch.cuda.empty_cache()
+            mem0 = torch.cuda.memory_allocated()
             cell = fn(*args, **kwargs)
             cell["launches"] = runs.pop()
             # What the cell left allocated on the card after its teardown.
-            gc.collect()
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            cell["left_allocated_mib"] = torch.cuda.memory_allocated() / 2 ** 20
+            cell["left_allocated_mib"] = _settle(mem0, f"loadgen {cell.get('cell', fn.__name__)}")
             return cell
         return run
 
@@ -2350,14 +2358,7 @@ def phase_loadgen() -> dict:
         ray_tpu_torch.shutdown()
     mib = 2 ** 20
     t0 = time.perf_counter()
-    while True:
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        left = torch.cuda.memory_allocated()
-        if left <= mem0 + 300 * mib or time.perf_counter() - t0 > 20:
-            break
-        time.sleep(0.25)
+    left = _settle(mem0, "loadgen") * mib
     summary["left_allocated_mib"] = left / mib
     summary["wall_s"] = time.perf_counter() - t_phase
     log(f"[loadgen] shut down: {left / mib:.0f} MiB left allocated on the card "
@@ -2778,11 +2779,8 @@ def phase_fabric() -> dict:
         restore()
         ray_tpu_torch.shutdown()
     del host32
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     mib = 2 ** 20
-    summary["left_allocated_mib"] = torch.cuda.memory_allocated() / mib
+    summary["left_allocated_mib"] = _settle(mem0, "fabric")
     summary["wall_s"] = time.perf_counter() - t_phase
     log(f"[fabric] shut down: {summary['left_allocated_mib']:.0f} MiB left allocated on "
         f"the card ({mem0 / mib:.0f} before the servers); phase wall "
@@ -3118,6 +3116,9 @@ def phase_moe(server: dict) -> dict:
     from ray_tpu_torch.models import GPT, collect_moe_losses, gpt2_125m
 
     t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
     counters = _attention_counters()
     cfg = gpt2_125m(num_experts=MOE_EXPERTS)
     model = GPT(cfg, seed=0)
@@ -3129,7 +3130,7 @@ def phase_moe(server: dict) -> dict:
         fail(f"[moe] bf16 parameters {bf16}, not the experts alone")
     tokens = _tokens(TRAIN_B, TRAIN_S)
     with torch.no_grad():
-        _, inter = model(tokens, return_aux=True)
+        inter = model(tokens, return_aux=True)[1]  # the logits (786 MiB) not kept
     routing = {"aux_sum": collect_moe_losses(inter).item(),
                "dropped_share": {k: v["moe_stats"]["dropped_share"].item()
                                  for k, v in inter.items()}}
@@ -3198,13 +3199,434 @@ def phase_moe(server: dict) -> dict:
     serving["f32_batched_live_slots"] = _f32_token_identity(
         "moe", prompts, n_new, num_experts=MOE_EXPERTS)
 
+    summary = {"train": training, "serve": serving, "before_mib": mem0 / 2**20,
+               "left_allocated_mib": _settle(mem0, "moe"),
+               "wall_s": time.perf_counter() - t_phase}
+    log(f"[moe] {summary['left_allocated_mib']:.0f} MiB left allocated on the card "
+        f"({summary['before_mib']:.0f} before the phase); "
+        f"phase wall {summary['wall_s']:.1f}s")
+    return summary
+
+
+# Card memory that a teardown may leave above its figure before the run.
+LEFT_LIMIT_MIB = 64
+
+
+def _referrer_chain(obj, ignore: set, depth: int = 8) -> list:
+    """Who keeps `obj` alive: from it towards a root, one referrer a level
+    (skipping the ids in `ignore` and these helpers' own frames), each
+    described by its type and, for a dict, its owner and the key that leads
+    on; it ends at a module, a frame or after `depth` levels."""
+    frame_type = type(sys._getframe())
+    mine = ("_referrer_chain", "_card_holders")
+    chain = []
+    for _ in range(depth):
+        refs = [r for r in gc.get_referrers(obj)
+                if id(r) not in ignore and r is not chain
+                and not (isinstance(r, frame_type) and r.f_code.co_name in mine)]
+        if not refs:
+            chain.append("(no referrer gc can see)")
+            break
+        ref = refs[0]
+        ignore.update((id(ref), id(refs)))
+        del refs
+        if isinstance(ref, frame_type):
+            chain.append(f"frame {ref.f_code.co_name} "
+                         f"{ref.f_code.co_filename.split('/')[-1]}:{ref.f_lineno}")
+            break
+        if isinstance(ref, dict):
+            key = "?"  # a loop, not a generator: that would hold `obj` in a cell
+            for k, v in ref.items():
+                if v is obj:
+                    key = k
+                    break
+            owners = [o for o in gc.get_referrers(ref) if getattr(o, "__dict__", None) is ref]
+            ignore.add(id(owners))
+            owner = (f"{type(owners[0]).__qualname__} {getattr(owners[0], '__name__', '')}"
+                     .strip() if owners else "dict")
+            chain.append(f"{owner}[{str(key)[:40]}]")
+            if owners and type(owners[0]).__name__ == "module":
+                break
+            if owners:
+                ignore.add(id(ref))
+                ref = owners[0]
+        else:
+            chain.append(type(ref).__qualname__)
+        obj = ref
+    return chain
+
+
+def _card_holders(top: int = 5) -> dict:
+    """What holds the card memory still allocated: the CUDA tensors gc can
+    see (each storage once), their total against memory_allocated(), the
+    largest `top` with a referrer chain each, and the live threads."""
+    import warnings
+
+    gc.collect()
+    storages = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for obj in gc.get_objects():
+            try:
+                if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                    st = obj.untyped_storage()
+                    storages.setdefault(st.data_ptr(), (st.nbytes(), obj))
+            except Exception:  # noqa: BLE001 - half-built objects
+                continue
+        del obj
+    entries = sorted(storages.values(), key=lambda e: -e[0])
+    visible = sum(n for n, _ in entries)
+    sizes = [n for n, _ in entries[:top]]
+    tensors = [t for _, t in entries[:top]]
+    del storages, entries
+    ignore = {id(tensors)}
+    largest = []
+    for i in range(len(tensors)):
+        largest.append({"mib": sizes[i] / 2**20, "shape": list(tensors[i].shape),
+                        "dtype": str(tensors[i].dtype),
+                        "held_by": _referrer_chain(tensors[i], ignore)})
+    del tensors
+    out = {
+        "allocated_mib": torch.cuda.memory_allocated() / 2**20,
+        "gc_visible_mib": visible / 2**20, "largest": largest,
+        "threads": sorted(th.name for th in threading.enumerate()),
+    }
+    return out
+
+
+def _settle(mem0: int, tag: str, deadline_s: float = 20.0) -> float:
+    """Card memory (MiB) left allocated after a teardown, polled (gc,
+    synchronize, cuBLAS's workspaces cleared, empty_cache) until it is
+    within LEFT_LIMIT_MIB of `mem0` (the figure before the run) or
+    `deadline_s` passed; beyond the limit it prints what holds the memory
+    and fails. cuBLAS keeps a 32 MiB workspace for each (handle, stream)
+    that any thread has run a product on, after the thread ends, until
+    they are cleared: the library's cache, not the port's objects, so each
+    reading clears them first and says how much that freed."""
+    mib = 2**20
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    cleared = 0
+    t0 = time.perf_counter()
+    while True:
+        gc.collect()
+        torch.cuda.synchronize()
+        if clear is not None:
+            held = torch.cuda.memory_allocated()
+            clear()
+            cleared += held - torch.cuda.memory_allocated()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated()
+        if left <= mem0 + LEFT_LIMIT_MIB * mib or time.perf_counter() - t0 > deadline_s:
+            break
+        time.sleep(0.25)
+    log(f"[{tag}] card memory after the teardown: {left / mib:.0f} MiB allocated, "
+        f"{mem0 / mib:.0f} before the run ({cleared / mib:.0f} MiB of cuBLAS "
+        f"workspaces cleared first)")
+    if left > mem0 + LEFT_LIMIT_MIB * mib:
+        log(f"[{tag}] holders: " + json.dumps(_card_holders()))
+        fail(f"[{tag}] {left / mib:.0f} MiB left allocated on the card after the "
+             f"teardown, {(left - mem0) / mib:.0f} MiB above the {mem0 / mib:.0f} MiB "
+             f"before the run (limit {LEFT_LIMIT_MIB} MiB)")
+    return left / mib
+
+
+# The tune phase: ASHA over 4 trials, PBT over 2, each trial a TorchTrainer
+# fit of GPT-2 125M (attention_impl="auto", B8 S1024: K2 and K3) at half
+# the card, one Tune iteration a step.
+TUNE_MAX_T = 6
+TUNE_ASHA_TRIALS, TUNE_ASHA_SEED = 4, 0  # seed 0 draws the two poorest lrs last
+TUNE_PBT_LRS = (0.05, LR)  # Adam at 0.05 wrecks the model's loss; 3e-4 trains it
+TUNE_PBT_INTERVAL = 2
+TUNE_GPU = 0.5
+_TUNE = {"lock": threading.Lock(), "live": 0, "max_live": 0, "steps": {}, "devices": set()}
+
+
+def _tune_loop(config):
+    """A Tune trial's train loop, run by TorchTrainer in its worker actor:
+    _trainer_loop's model, batch and step at `config["lr"]`, one report a
+    step (its loss, wall and the fit's id), up to `config["steps"]` steps.
+    With `config["checkpoint_every"]`, every that many steps it reports a
+    checkpoint of the parameters and both moments on the host, with their
+    fingerprint (`_fingerprint`) taken on the card and an id. Resumed (a PBT
+    exploit), it restores that state, checks it bit for bit against the
+    checkpoint and reports, with its first step, the checkpoint's id and
+    fingerprint beside the restored state's fingerprint on the card. While
+    it runs it counts itself in _TUNE (trials at once, steps a fit)."""
+    import uuid
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.air import Checkpoint
+    from ray_tpu_torch.models.gpt import GPT, gpt2_125m
+    from ray_tpu_torch.ops import FusedAdamWState, fused_adamw
+
+    fit_id = uuid.uuid4().hex[:8]
+    with _TUNE["lock"]:
+        _TUNE["live"] += 1
+        _TUNE["max_live"] = max(_TUNE["max_live"], _TUNE["live"])
+        _TUNE["steps"][fit_id] = []
+    try:
+        device = train.get_device()
+        _TUNE["devices"].add(str(device))
+        model = GPT(gpt2_125m(attention_impl="auto"), device=device, seed=0)
+        params = dict(model.named_parameters())
+        opt = fused_adamw(config["lr"])
+        state = opt.init(params)
+        restored = None
+        saved = train.get_checkpoint()
+        if saved is not None:
+            t_restore = time.perf_counter()
+            saved = saved.to_dict()
+            with torch.no_grad():
+                for name, value in train.prepare_params(saved["params"]).items():
+                    params[name].copy_(value)
+            state = FusedAdamWState(count=saved["count"].clone(),
+                                    mu=train.prepare_params(saved["mu"]),
+                                    nu=train.prepare_params(saved["nu"]))
+            live = {"params": params, "mu": state.mu, "nu": state.nu}
+            restored = {
+                "ckpt_id": saved["ckpt_id"], "from_lr": saved["lr"], "at_step": saved["step"],
+                "bit_for_bit": all(torch.equal(live[part][k].detach().cpu(), saved[part][k])
+                                   for part in live for k in params),
+                "fingerprint_equal": _fingerprint(live) == saved["fingerprint"],
+                "leaves": len(saved["fingerprint"]),
+                "restore_s": time.perf_counter() - t_restore,
+            }
+            del saved
+        gen = torch.Generator().manual_seed(0)
+        tokens = train.prepare_batch(
+            torch.randint(0, 50257, (TRAIN_B, TRAIN_S), generator=gen))
+        opt_state = {"state": state}
+
+        def step():
+            loss, _, opt_state["state"] = _train_step(model, opt, opt_state["state"],
+                                                      params, tokens)
+            return loss
+
+        step = train.prepare_step(step)
+        start = int(state.count)
+        every = config.get("checkpoint_every")
+        for i in range(start, config["steps"]):
+            t0 = time.perf_counter()
+            loss = step().item()
+            wall = time.perf_counter() - t0
+            _TUNE["steps"][fit_id].append(wall)
+            metrics = {"loss": loss, "step": i, "step_s": wall, "fit_id": fit_id,
+                       "restored": restored if i == start else None}
+            ckpt = None
+            if every and (i + 1) % every == 0:
+                t_ckpt = time.perf_counter()
+                st = opt_state["state"]
+                fingerprint = _fingerprint({"params": params, "mu": st.mu, "nu": st.nu})
+                ckpt_id = uuid.uuid4().hex[:8]
+                ckpt = Checkpoint.from_dict({
+                    "params": {k: p.detach().cpu() for k, p in params.items()},
+                    "mu": {k: m.cpu() for k, m in st.mu.items()},
+                    "nu": {k: m.cpu() for k, m in st.nu.items()},
+                    "count": st.count.clone(), "lr": config["lr"], "step": i,
+                    "fingerprint": fingerprint, "ckpt_id": ckpt_id,
+                })
+                metrics.update(ckpt_id=ckpt_id, checkpoint_s=time.perf_counter() - t_ckpt)
+            train.report(metrics, checkpoint=ckpt)
+    finally:
+        with _TUNE["lock"]:
+            _TUNE["live"] -= 1
+
+
+def _tune_run(name: str, tuner_kwargs: dict, trainer_config: dict, counters: dict) -> dict:
+    """One Tuner.fit() over TorchTrainer(_tune_loop) trials: the launch
+    counters set to 0 just before fit() and read just after, each trial's
+    fit() walls (TorchTrainer.fit timed by its run name, the trial id), the
+    controller's experiment-state saves timed, and the card memory before
+    the fit and after it (polled, `_settle`)."""
+    import tempfile
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import CheckpointConfig, RunConfig, ScalingConfig, TorchTrainer
+    from ray_tpu_torch.train.data_parallel_trainer import DataParallelTrainer
+    from ray_tpu_torch.tune.execution.tune_controller import TuneController
+
+    fit_walls, state_saves = {}, []
+    saved = {"fit": DataParallelTrainer.fit, "save": TuneController._save_experiment_state}
+
+    def timed_fit(self):
+        t0 = time.perf_counter()
+        try:
+            return saved["fit"](self)
+        finally:
+            fit_walls.setdefault(self._run_name, []).append(time.perf_counter() - t0)
+
+    def timed_save(self):
+        t0 = time.perf_counter()
+        saved["save"](self)
+        state_saves.append(time.perf_counter() - t0)
+
+    trainer = TorchTrainer(
+        _tune_loop, train_loop_config=trainer_config,
+        scaling_config=ScalingConfig(num_workers=1),
+        run_config=RunConfig(checkpoint_config=CheckpointConfig(num_to_keep=1)))
+    _TUNE.update(live=0, max_live=0, steps={}, devices=set())
     gc.collect()
     torch.cuda.empty_cache()
-    summary = {"train": training, "serve": serving,
-               "left_allocated_mib": torch.cuda.memory_allocated() / 2**20,
-               "wall_s": time.perf_counter() - t_phase}
-    log(f"[moe] {summary['left_allocated_mib']:.0f} MiB left allocated on the card; "
-        f"phase wall {summary['wall_s']:.1f}s")
+    mem0 = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as root:
+        tuner = tune.Tuner(
+            trainer, resources_per_trial={"CPU": 1, "GPU": TUNE_GPU},
+            run_config=RunConfig(name=name, storage_path=root),
+            **tuner_kwargs)
+        DataParallelTrainer.fit, TuneController._save_experiment_state = timed_fit, timed_save
+        try:
+            for f in counters.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            grid = tuner.fit()
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = {k: f.launches for k, f in counters.items()}
+        finally:
+            DataParallelTrainer.fit = saved["fit"]
+            TuneController._save_experiment_state = saved["save"]
+        trials = tuner._controller.trials
+        pickled_mib = sum(
+            os.path.getsize(os.path.join(dirpath, f)) for dirpath, _, files in os.walk(root)
+            for f in files if f == "checkpoint.pkl") / 2**20
+        del tuner
+    for r in grid:
+        if r.error:
+            fail(f"[tune {name}] a trial failed: {r.error}")
+    out = {"grid": grid, "trials": trials, "wall_s": wall, "launches": launches,
+           "fit_walls": fit_walls, "state_saves_s": state_saves, "pickled_mib": pickled_mib,
+           "max_live": _TUNE["max_live"], "devices": sorted(_TUNE["devices"]),
+           "fit_steps": {k: list(v) for k, v in _TUNE["steps"].items()},
+           "mem0_mib": mem0 / 2**20}
+    del grid, trials
+    out["left_mib"] = _settle(mem0, f"tune {name}")
+    return out
+
+
+def _tune_checks(name: str, run: dict, layers: int) -> dict:
+    """What both runs must show: K2 and K3 launched 12 x the steps the
+    trials' loops reported (every report call, the one a stop raised in
+    included), K4-K7 none; at most two trials at once, all on cuda:0; the
+    best trial's loss below its first step's. Returns the per-trial lines."""
+    steps = sum(len(v) for v in run["fit_steps"].values())
+    want = {k: (layers * steps if k in ("K2 flash_fwd", "K3 flash_bwd_fused") else 0)
+            for k in run["launches"] if k != "K1 paged_attention"}
+    got = {k: v for k, v in run["launches"].items() if k != "K1 paged_attention"}
+    if got != want:
+        fail(f"[tune {name}] launches {got}, not {want} ({steps} steps)")
+    if run["max_live"] > 2 or run["devices"] != ["cuda:0"]:
+        fail(f"[tune {name}] {run['max_live']} trials at once on {run['devices']}")
+    lines = []
+    for t in run["trials"]:
+        seen = [r for r in t.results if "step" in r and not r.get("done")]
+        fits = {r["fit_id"] for r in seen}
+        step_s = sum(sum(run["fit_steps"].get(f, [])) for f in fits)
+        lines.append({
+            "trial": t.trial_id, "lr": t.config["train_loop_config"]["lr"],
+            "iterations": t.iteration, "final_loss": seen[-1]["loss"] if seen else None,
+            "first_loss": seen[0]["loss"] if seen else None, "status": t.status,
+            "stopped_early": t.iteration < TUNE_MAX_T, "fits": len(fits),
+            "steps_run": sum(len(run["fit_steps"].get(f, [])) for f in fits),
+            "checkpoints_s": sum(r.get("checkpoint_s", 0.0) for r in seen),
+            "fit_wall_s": sum(run["fit_walls"].get(t.trial_id, [])),
+            "fit_minus_steps_s": sum(run["fit_walls"].get(t.trial_id, [])) - step_s,
+        })
+    best = min((ln for ln in lines if ln["final_loss"] is not None),
+               key=lambda ln: ln["final_loss"])
+    if not best["final_loss"] < best["first_loss"]:
+        fail(f"[tune {name}] the best trial's loss did not fall: {best}")
+    return {"trials": lines, "steps": steps}
+
+
+def phase_tune() -> dict:
+    """Tune over the trainer on the card: ray_tpu_torch.init with the card
+    as the GPU resource, then (a) ASHA over 4 trials, lr loguniform
+    (seeded), max_t 6, grace period 1, reduction factor 2; (b) PBT over 2
+    trials, lr from a grid of one poor and one good value, perturbation
+    interval 2 over 6 iterations, each trial reporting a host checkpoint of
+    its parameters and both moments every 2 steps. Every trial is a
+    TorchTrainer fit of GPT-2 125M at B8 S1024 taking half the card
+    ({"CPU": 1, "GPU": 0.5}), so the card bounds the trials at once to two;
+    max_failures 0. Each fit() is counted from 0 (K2 and K3 12 a step, K4-K7
+    none); ASHA must stop a trial early, PBT must exploit, and the exploited
+    trial must resume bit for bit from the source's checkpoint; the card
+    memory after each fit() within LEFT_LIMIT_MIB of its figure before."""
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models.gpt import gpt2_125m
+    from ray_tpu_torch.tune.schedulers import PopulationBasedTraining
+
+    t_phase = time.perf_counter()
+    counters = _attention_counters()
+    layers = gpt2_125m().num_layers
+    summary = {}
+    ray_tpu_torch.init(num_cpus=8, num_gpus=1)
+    try:
+        asha = _tune_run("asha", dict(
+            param_space={"train_loop_config": {"lr": tune.loguniform(1e-5, 1e-3)}},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", num_samples=TUNE_ASHA_TRIALS, seed=TUNE_ASHA_SEED,
+                scheduler=tune.ASHAScheduler(max_t=TUNE_MAX_T, grace_period=1,
+                                             reduction_factor=2))),
+            {"steps": TUNE_MAX_T}, counters)
+        checked = _tune_checks("asha", asha, layers)
+        if not any(ln["stopped_early"] for ln in checked["trials"]):
+            fail(f"[tune asha] no trial stopped before max_t: {checked['trials']}")
+        for ln in checked["trials"]:
+            log("[tune] asha trial " + json.dumps(ln))
+        summary["asha"] = {**checked, **{k: asha[k] for k in (
+            "wall_s", "launches", "max_live", "devices", "state_saves_s", "pickled_mib",
+            "mem0_mib", "left_mib")}}
+        del asha
+
+        pbt = PopulationBasedTraining(
+            metric="loss", mode="min", perturbation_interval=TUNE_PBT_INTERVAL,
+            quantile_fraction=0.5, resample_probability=0.0, seed=0,
+            hyperparam_mutations={"train_loop_config": [{"lr": lr} for lr in TUNE_PBT_LRS]})
+        run = _tune_run("pbt", dict(
+            param_space={"train_loop_config": tune.grid_search(
+                [{"lr": lr} for lr in TUNE_PBT_LRS])},
+            tune_config=tune.TuneConfig(metric="loss", mode="min", scheduler=pbt)),
+            {"steps": TUNE_MAX_T, "checkpoint_every": TUNE_PBT_INTERVAL}, counters)
+        checked = _tune_checks("pbt", run, layers)
+        owners = {r["ckpt_id"]: (t.trial_id, r["step"]) for t in run["trials"]
+                  for r in t.results if r.get("ckpt_id")}
+        exploits = []
+        for t in run["trials"]:
+            for r in t.results:
+                restored = r.get("restored")
+                if not restored:
+                    continue
+                source = owners.get(restored["ckpt_id"], ("?", None))
+                exploits.append({"trial": t.trial_id, "source": source[0],
+                                 "source_step": restored["at_step"], "resumed_step": r["step"],
+                                 "new_lr": t.config["train_loop_config"]["lr"], **restored})
+        for ex in exploits:
+            log("[tune] pbt exploit " + json.dumps(ex))
+        if not exploits:
+            fail("[tune pbt] PBT exploited no trial")
+        for ex in exploits:
+            if not (ex["bit_for_bit"] and ex["fingerprint_equal"]) or ex["source"] in (
+                    "?", ex["trial"]):
+                fail(f"[tune pbt] the exploited trial did not resume bit for bit from "
+                     f"another trial's checkpoint: {ex}")
+        for ln in checked["trials"]:
+            log("[tune] pbt trial " + json.dumps(ln))
+        summary["pbt"] = {**checked, "exploits": exploits, **{k: run[k] for k in (
+            "wall_s", "launches", "max_live", "devices", "state_saves_s", "pickled_mib",
+            "mem0_mib", "left_mib")}}
+        del run
+    finally:
+        ray_tpu_torch.shutdown()
+    summary["wall_s"] = time.perf_counter() - t_phase
+    for name in ("asha", "pbt"):
+        s = summary[name]
+        log(f"[tune] {name}: fit() {s['wall_s']:.1f}s, {s['steps']} steps, "
+            f"{s['max_live']} trials at once on {s['devices']}, experiment state saved "
+            f"{len(s['state_saves_s'])}x in {sum(s['state_saves_s']):.2f}s "
+            f"({s['pickled_mib']:.0f} MiB of checkpoints pickled), card memory "
+            f"{s['mem0_mib']:.0f} MiB before and {s['left_mib']:.0f} MiB after")
+    log(f"[tune] phase wall {summary['wall_s']:.1f}s")
     return summary
 
 
@@ -3272,8 +3694,8 @@ def kernels_line(rows: list, launches: dict, paths: dict) -> dict:
     """The kernels JSON line. `launches` is each kernel's count on its main
     path; `paths` maps every later path (each counted from 0 just before it
     ran) to its counts, which the entries of the kernels it launched (K1
-    and K2 serving, K6 and K7 training the MoE GPT) carry as
-    `launches_by_path`."""
+    and K2 serving, K6 and K7 training the MoE GPT, K2 and K3 the Tune
+    trials) carry as `launches_by_path`."""
     out = []
     for name, meta in KERNELS.items():
         row = next(r for r in rows if r["kernel"] == name
@@ -3319,6 +3741,7 @@ def main() -> int:
     fabric = phase_fabric()
     phase_resnet(device)
     moe = phase_moe(server)
+    tuned = phase_tune()
     launches.update(profile["launches"])
     paths = {"server": server["launches"]}
     for line in loadgen["cells"]:
@@ -3329,6 +3752,8 @@ def main() -> int:
         paths[f"fabric disaggregated {role}"] = counts
     paths["moe train"] = moe["train"]["launches"]
     paths["moe server"] = moe["serve"]["launches"]
+    paths["tune asha"] = tuned["asha"]["launches"]
+    paths["tune pbt"] = tuned["pbt"]["launches"]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches, paths)))
     print(json.dumps({"ok": True, "device": {

@@ -68,6 +68,9 @@ class CheckpointConfig:
     num_to_keep: Optional[int] = None
     checkpoint_score_attribute: Optional[str] = None
     checkpoint_score_order: str = "max"  # "max" | "min"
+    # Tune: save each trial at its end, and every N iterations (0 = never).
+    checkpoint_at_end: bool = True
+    checkpoint_frequency: int = 0
 
     def __post_init__(self):
         if self.checkpoint_score_order not in ("max", "min"):
@@ -80,9 +83,12 @@ class RunConfig:
     storage_path: Optional[str] = None
     failure_config: FailureConfig = field(default_factory=FailureConfig)
     checkpoint_config: CheckpointConfig = field(default_factory=CheckpointConfig)
+    # Tune stopping criteria, e.g. {"training_iteration": 10}.
+    stop: Optional[dict] = None
 
     def resolved_storage_path(self) -> str:
+        # The port's own root: never the reference's ~/ray_tpu_results.
         base = self.storage_path or os.path.join(
-            os.path.expanduser("~"), "ray_tpu_results"
+            os.path.expanduser("~"), "ray_tpu_torch_results"
         )
         return os.path.join(base, self.name) if self.name else base

@@ -62,12 +62,18 @@ DRAIN_SECONDS_BOUNDARIES = [
 ]
 
 
-def _stop_replica_gracefully(handle, timeout_s: float) -> None:
+# How long an app's deletion or Serve's shutdown waits for its replicas'
+# graceful stops (inside serve.shutdown()'s 30 s wait for the controller).
+STOP_JOIN_S = 25.0
+
+
+def _stop_replica_gracefully(handle, timeout_s: float) -> threading.Thread:
     """Run the replica's shutdown hook, THEN kill — off-thread so the
     reconcile loop never blocks on user cleanup code (reference:
     deployment_state.py graceful shutdown with graceful_shutdown_timeout_s).
     Used for application teardown; SCALE-DOWN goes through the drain
-    protocol instead (ServeControllerActor._drain_replica_async)."""
+    protocol instead (ServeControllerActor._drain_replica_async). Returns
+    the thread, so that an app's deletion can wait for its stops."""
 
     def stop():
         from ray_tpu_torch import api as ray
@@ -81,7 +87,21 @@ def _stop_replica_gracefully(handle, timeout_s: float) -> None:
         except Exception:
             pass
 
-    threading.Thread(target=stop, daemon=True, name="serve-replica-stop").start()
+    thread = threading.Thread(target=stop, daemon=True, name="serve-replica-stop")
+    thread.start()
+    return thread
+
+
+def _join_stops(threads: list, timeout_s: float) -> None:
+    """Wait, under one deadline, for replica stops started by _stop_all.
+    An app's deletion and Serve's shutdown return only once each replica's
+    shutdown hook ran and the replica was killed: returning earlier let a
+    caller shut the runtime down under a hook still running, and a replica
+    that owned its engine (engine_per_replica) then left the engine's loop
+    thread, and the engine's card memory, alive."""
+    deadline = time.monotonic() + timeout_s
+    for thread in threads:
+        thread.join(timeout=max(0.0, deadline - time.monotonic()))
 
 
 class _DeploymentState:
@@ -356,21 +376,25 @@ class ServeControllerActor:
         return old_info.get("code_version") == new_info.get("code_version")
 
     def delete_application(self, app_name: str) -> None:
+        stops = []
         with self._lock:
             app = self._apps.pop(app_name, None)
             if app:
                 for st in app.values():
-                    self._stop_all(st)
+                    stops += self._stop_all(st)
             self._bump()
+        _join_stops(stops, STOP_JOIN_S)
 
     def graceful_shutdown(self) -> None:
+        stops = []
         with self._lock:
             for app in self._apps.values():
                 for st in app.values():
-                    self._stop_all(st)
+                    stops += self._stop_all(st)
             self._apps.clear()
             self._shutdown = True
             self._bump()
+        _join_stops(stops, STOP_JOIN_S)
 
     def set_target_replicas(
         self, app: str, deployment: str, num_replicas: int
@@ -845,16 +869,18 @@ class ServeControllerActor:
             target=drain, daemon=True, name=f"serve-replica-drain-{tag}"
         ).start()
 
-    def _stop_all(self, st: _DeploymentState) -> None:
+    def _stop_all(self, st: _DeploymentState) -> list:
         """Caller must hold self._lock. Teardown (app delete/shutdown)
         stops RUNNING and DRAINING replicas alike — a deleted app has no
-        surviving replicas to migrate onto."""
+        surviving replicas to migrate onto. Returns the stop threads."""
         timeout = st.info["config"].graceful_shutdown_timeout_s
+        stops = []
         for tag, h in list(st.replicas.items()) + list(st.draining.items()):
-            _stop_replica_gracefully(h, timeout)
+            stops.append(_stop_replica_gracefully(h, timeout))
             st.record_state_locked(tag, REPLICA_STOPPED)
         st.replicas.clear()
         st.draining.clear()
+        return stops
 
     def ping(self) -> str:
         return "pong"

@@ -2,7 +2,9 @@
 
 Reference: train/data_parallel_trainer.py:58,422 + train/trainer.py:41
 (TrainingIterator) + base_trainer.py:559 (fit). Differences by design: the
-trainer runs standalone (the reference wraps every fit in a 1-trial Tune run).
+trainer runs standalone (the reference wraps every fit in a 1-trial Tune run;
+here Tune drives trainers through `as_trainable` instead, keeping the fit
+path free of tune plumbing).
 """
 
 from __future__ import annotations
@@ -47,12 +49,16 @@ class DataParallelTrainer:
                     "not ported (ROADMAP.md §B9); pass a list"
                 )
         self._resume_checkpoint = resume_from_checkpoint
+        self._latest_checkpoint: Optional[Checkpoint] = None
+        self._result_callbacks: list[Callable[[dict], None]] = []
+        # Display name for the run registry (Tune sets it to the trial id).
+        self._run_name: Optional[str] = None
         # Live executor while fit() runs — the mid-fit liveness surface.
         self._executor: Optional[BackendExecutor] = None
 
     def profile_records(self) -> list:
         """Per-rank profiler rings straight from the live worker group —
-        mid-fit liveness (e.g. from another thread,
+        mid-fit liveness (e.g. from a result callback or another thread,
         without waiting for Result.train_report). [] before fit(), after
         shutdown, or when instrumentation is off."""
         executor = self._executor
@@ -60,13 +66,56 @@ class DataParallelTrainer:
             return []
         return executor.profile_records()
 
+    def add_result_callback(self, fn: Callable[[dict], None]) -> None:
+        """Called with rank-0 metrics after every report round (Tune hook)."""
+        self._result_callbacks.append(fn)
+
     def as_trainable(self) -> type:
-        """Tune over the trainer is not ported (the reference wraps fit()
-        as a Tune trial here)."""
-        raise NotImplementedError(
-            "DataParallelTrainer.as_trainable: Tune over the trainer is not "
-            "ported (ROADMAP.md §B4)"
-        )
+        """Wrap this trainer for Tune — every fit() becomes a (potentially
+        multi-worker) trial, the reference's BaseTrainer.fit-wraps-a-1-trial-
+        Tune-run flow inverted (train/base_trainer.py:559). Trial configs merge
+        under the `train_loop_config` key, like the reference. A stopped trial
+        (a scheduler's STOP, a PBT exploit) ends its fit at the next round:
+        the trial's report raises StopIteration inside the result callback,
+        and fit() shuts its worker group down on the way out."""
+        import copy
+
+        from ray_tpu_torch.tune.trainable import wrap_function
+
+        base = self
+
+        def train_fn(config):
+            from ray_tpu_torch.air import session
+
+            trainer = copy.copy(base)
+            trainer._train_config = {
+                **base._train_config,
+                **(config.get("train_loop_config") or {}),
+            }
+            if "scaling_config" in config:
+                trainer.scaling_config = config["scaling_config"]
+            # Tune-side restore (failure retry / PBT exploit / experiment
+            # resume) arrives as the trial's loaded checkpoint — seed the
+            # trainer so workers resume instead of restarting from scratch.
+            restored = session.get_checkpoint()
+            if restored is not None:
+                trainer._resume_checkpoint = restored
+            trainer._result_callbacks = list(base._result_callbacks)
+            # Trial rounds reuse the train run records: name the run after
+            # the trial so the registry/dashboard map trial -> telemetry.
+            ctx = session.get_context()
+            trainer._run_name = ctx.trial_name or ctx.trial_id or None
+            # Forward each result round — with the workers' latest checkpoint,
+            # so Tune-side save()/restore() (PBT, retries) is meaningful.
+            trainer.add_result_callback(
+                lambda m: session.report(m, checkpoint=trainer._latest_checkpoint)
+            )
+            result = trainer.fit()
+            if result.error:
+                raise result.error
+
+        train_fn.__name__ = type(base).__name__
+        return wrap_function(train_fn)
 
     # -- dataset sharding ----------------------------------------------------
 
@@ -98,7 +147,7 @@ class DataParallelTrainer:
 
             run = register_run(
                 TrainRunRecord(
-                    name=self.run_config.name or type(self).__name__,
+                    name=self._run_name or self.run_config.name or type(self).__name__,
                     trainer=type(self).__name__,
                     num_workers=self.scaling_config.num_workers,
                     straggler_factor=self.train_config.straggler_factor,
@@ -186,6 +235,7 @@ class DataParallelTrainer:
             checkpoint = rank0.get("checkpoint")
             if checkpoint is not None:
                 ckpt_manager.register(checkpoint, metrics)
+                self._latest_checkpoint = checkpoint
             else:
                 ckpt_manager.latest_metrics = dict(metrics)
             round_idx = len(history)
@@ -200,3 +250,5 @@ class DataParallelTrainer:
                         ckpt_manager.last_register_s if checkpoint is not None else 0.0
                     ),
                 )
+            for callback in self._result_callbacks:
+                callback(dict(metrics))

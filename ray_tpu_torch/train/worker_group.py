@@ -8,7 +8,9 @@ RunnerThread) and serves `next_result` from the rendezvous queue.
 
 from __future__ import annotations
 
+import queue
 import threading
+import time
 import traceback
 from typing import Any, Callable, Optional
 
@@ -19,6 +21,9 @@ from ray_tpu_torch.util import (
     placement_group,
     remove_placement_group,
 )
+
+# How long shutdown() waits for a stopped loop to finish its step.
+STOP_TIMEOUT_S = 120.0
 
 
 @ray_tpu_torch.remote
@@ -114,14 +119,25 @@ class RayTrainWorker:
             return None
         return item
 
-    def stop(self) -> None:
-        if self.session is not None:
-            self.session.stop_event.set()
+    def stop(self) -> bool:
+        """Stop the loop: every report() raises StopIteration from now on.
+        Keep draining the rendezvous (a parked report()'s put, then the
+        runner's finish()) until the runner thread has ended or
+        STOP_TIMEOUT_S passed; returns whether it ended. Its model and
+        optimizer state go with the thread's frames."""
+        if self.session is None:
+            return True
+        self.session.stop_event.set()
+        deadline = time.monotonic() + STOP_TIMEOUT_S
+        while True:
             # Unblock a report() waiting for a consumer.
             try:
                 self.session.result_queue.get_nowait()
-            except Exception:
+            except queue.Empty:
                 pass
+            if self.shutdown_check() or time.monotonic() >= deadline:
+                return self.shutdown_check()
+            self._thread.join(timeout=0.01)
 
     def shutdown_check(self) -> bool:
         return self._thread is None or not self._thread.is_alive()
@@ -196,6 +212,18 @@ class WorkerGroup:
         return self._pg
 
     def shutdown(self) -> None:
+        # End every runner thread before the kill. A loop stopped from
+        # outside (Tune's STOP reaching fit() through its report) is parked
+        # in report()'s rendezvous one round ahead, holding its model and
+        # optimizer state; killing the actor alone would leave that thread,
+        # and the card memory it holds, alive.
+        try:
+            ray_tpu_torch.get(
+                [w.stop.remote() for w in self.workers],
+                timeout=STOP_TIMEOUT_S + 10.0,
+            )
+        except Exception:
+            pass
         for worker in self.workers:
             try:
                 ray_tpu_torch.kill(worker)

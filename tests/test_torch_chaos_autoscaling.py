@@ -10,6 +10,10 @@ the pools come back to boot size, and an LLMAutoscalingPolicy scales up
 under a ramp and back down after it. Every wait is a polled condition
 with a deadline, and every program runs under a time limit.
 
+`test_drain_fault_degrades_to_kill_failover_zero_drops` is the test of
+ROADMAP §D17: a fault at either drain site must degrade to a kill with
+failover and no dropped token.
+
 `test_drain_migrates_streams_token_identical_pools_reclaimed` is also the
 test of ROADMAP §D7: its poll of the engine's metrics needs
 `LLMServer._lock`, which the engine loop released and re-took between
@@ -277,6 +281,118 @@ def test_drain_under_open_loop_traffic_token_identical_to_baseline(rt, weights):
     assert any(x["state"] == "DRAINING" for x in hist)
     assert stats["kv_pool_allocated"] == 0
     assert stats["spec_draft_pool_allocated"] == 0
+
+
+@pytest.mark.parametrize("site", ["controller.drain_replica", "replica.drain"])
+def test_drain_fault_degrades_to_kill_failover_zero_drops(rt, weights, site):
+    """ROADMAP §D17: a fault injected into the drain conversation, on the
+    controller's side (`controller.drain_replica`) or the replica's
+    (`replica.drain`), degrades the drain to the plain stop path: the
+    victim is killed, its streams fail over to the survivor, and every
+    stream still delivers each token exactly once, token-identical to the
+    reference's unbatched loop. Premises asserted: the engine ran at least
+    3 of the 4 slow streams when the scale-down fired, the fault fired
+    exactly once, and the victim went DRAINING before it STOPPED."""
+    model, params, state = weights
+    suffix = site.split(".")[-1].replace("_", "")
+    engine, app = f"drainfault-{suffix}", f"llmdrainfault-{suffix}"
+    n_new = 16
+    prompts = random_prompts((5, 7, 6, 8), seed=23)
+    want = [reference_greedy(model, params, p, n_new) for p in prompts]
+
+    def program():
+        handle = _build_llm_app(state, engine, app)
+        delay = fi.inject("llm.decode.seq", action="delay", delay_s=DECODE_DELAY_S,
+                          every=1, times=None)
+        fault = fi.inject(site, times=1)
+        got = [None] * len(prompts)
+        errors = []
+        running = []
+
+        def consume(i):
+            try:
+                stream = handle.options(
+                    stream=True, stream_resume_fn=llm_stream_resume
+                ).remote({"prompt_ids": prompts[i], "max_new_tokens": n_new,
+                          "stream": True})
+                got[i] = [d["token_id"] for d in stream]
+            except BaseException as exc:  # noqa: BLE001 — the drop IS the bug
+                errors.append((i, repr(exc)))
+
+        threads = [threading.Thread(target=consume, args=(i,), daemon=True)
+                   for i in range(len(prompts))]
+        try:
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 30.0
+            while time.monotonic() < deadline:
+                running.append(_engine_metrics(engine)["num_running"])
+                if running[-1] >= 3:
+                    break
+                time.sleep(0.02)
+            serve.scale_deployment("LLMIngress", 1, app_name=app)
+            for t in threads:
+                t.join(timeout=40)
+            assert not any(t.is_alive() for t in threads)
+        finally:
+            fi.remove(delay)
+            fi.remove(fault)
+        hist = _await_history(app, "LLMIngress",
+                              lambda h: any(x["state"] == "STOPPED" for x in h))
+        obs = ray_tpu_torch.get(get_or_create_controller().get_observability.remote())
+        return got, errors, running, fault.fires, hist, obs[app]["LLMIngress"]
+
+    got, errors, running, fires, hist, dep = _within(LIMIT_S, program)
+    assert max(running) >= 3, running  # the streams were live at the scale-down
+    assert fires == 1  # the drain conversation really failed
+    assert errors == []  # degradation still drops nothing
+    for i, tokens in enumerate(got):
+        assert tokens == want[i], f"stream {i} diverged across the failed drain"
+    drained_tags = {x["tag"] for x in hist if x["state"] == "DRAINING"}
+    assert len(drained_tags) == 1  # it tried to drain exactly one victim
+    (victim,) = drained_tags
+    states = [h["state"] for h in hist if h["tag"] == victim]
+    assert states[-1] == "STOPPED", states
+    assert dep["state_counts"]["RUNNING"] == 1
+
+
+def _engine_loops() -> int:
+    return sum(t.name == "llm-engine-loop" and t.is_alive() for t in threading.enumerate())
+
+
+def test_serve_shutdown_stops_every_owned_engine(weights):
+    """ROADMAP §D15: an app whose replicas own their engines
+    (engine_per_replica) torn down by serve.shutdown() and, at once, the
+    runtime's shutdown leaves no engine loop running. serve.shutdown()
+    used to return once the replicas' stop threads had started, so the
+    runtime went down under them and a replica that had not yet stopped
+    its engine left the engine's loop thread (and on the card its weights
+    and pools) alive. Three rounds; the premise (two engines up) is
+    asserted in each."""
+    from ray_tpu_torch._private.runtime import get_runtime
+    from ray_tpu_torch.util.runtime_metrics import list_llm_engine_actors
+
+    state = weights[2]
+    for round_ in range(3):
+        loops_before = _engine_loops()
+        ray_tpu_torch.init(num_cpus=8, num_gpus=0)
+        try:
+            handle = serve.run(
+                build_app(PORT_TINY, ECFG_SERVE, params=state, engine_name="owned",
+                          num_replicas=2, engine_per_replica=True, device="cpu"),
+                name="owned")
+            out = handle.remote({"prompt_ids": [1, 2, 3], "max_new_tokens": 2}).result(
+                timeout_s=60)
+            assert len(out["token_ids"]) == 2
+            assert len(list_llm_engine_actors(get_runtime())) == 2
+            assert _engine_loops() == loops_before + 2
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+        deadline = time.monotonic() + 5.0
+        while _engine_loops() > loops_before and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert _engine_loops() == loops_before, (round_, _engine_loops(), loops_before)
 
 
 def test_llm_autoscaling_ramp_scales_up_then_down(rt, weights):

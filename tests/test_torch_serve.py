@@ -257,8 +257,12 @@ def test_replica_health_check_replaces_unhealthy(both):
         @pkg.serve.deployment
         class Flaky:
             def __init__(self):
+                import uuid
+
                 self.healthy = True
-                self.id = id(self)
+                # Not id(self): the replacement can be allocated at the
+                # freed replica's address and so return the same id.
+                self.id = uuid.uuid4().hex
 
             def poison(self):
                 self.healthy = False

@@ -228,7 +228,8 @@ def test_tensor_checkpoint_roundtrips_bit_for_bit(runtime, tmp_path):
 def test_cuda_default_and_refusals():
     """The backend defaults to CUDA and raises without it (the CPU only
     when asked for); the reference's options the port does not carry are
-    refused with the slice that would bring them."""
+    refused with the slice that would bring them, and the lifted ones
+    (as_trainable) work."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TorchBackendConfig()
@@ -238,8 +239,11 @@ def test_cuda_default_and_refusals():
         TorchBackendConfig(device="cpu", mesh_strategy="fsdp")
     with pytest.raises(NotImplementedError, match="§B6/§B7"):
         TorchBackendConfig(device="cpu", multihost=True)
-    with pytest.raises(NotImplementedError, match="Tune"):
-        _trainer(lambda: None).as_trainable()
+    # Tune over the trainer is ported: as_trainable gives a Trainable class.
+    from ray_tpu_torch.tune import Trainable
+
+    trainable = _trainer(lambda: None).as_trainable()
+    assert isinstance(trainable, type) and issubclass(trainable, Trainable)
 
     class FakeDataset:
         def streaming_split(self, n):
