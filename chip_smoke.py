@@ -138,12 +138,32 @@ Phases, each fatal on failure:
      and K3 12 x the steps the loops reported, K4-K7 none; the best trial's
      loss below its first; `[tune]` lines per trial (lr, iterations, final
      loss, stopped early, fit() wall minus the steps' wall) and per exploit.
+ 15. rllib   — RLlib's PPO and IMPALA (ray_tpu_torch.rllib) at bench.py's
+     accelerator shapes, the learner on cuda:0 and the envs and the numpy
+     policy forward on the host: (a) PPO on CartPole-v1, 1 runner x 128
+     envs, fragment 64, batch 8192, minibatch 256, 4 epochs, 1 warm-up, 5
+     timed and 1 profiled train() (the learner's parameters and Adam state
+     on cuda:0, the runners' modules on the CPU, finite losses, the last
+     iteration's episode_return_mean above the first's; env-steps/s as
+     bench_ppo counts them, each update's wall, the sampling wait an
+     iteration, the card's busy share of the profiled iteration); (b)
+     IMPALA on MinAtar-Breakout, 1 runner x 256 envs, fragment 64, batch
+     4096, 1 + 10 train() (learner updates, no learner_error, finite
+     losses; env-steps/s, updates an iteration, queue occupancy); no
+     attention kernel launched on (a) or (b), counted from 0 just before
+     each; (c) f32 card against CPU of one PPO update (2 minibatches) and
+     one IMPALA update from the same state (RLLIB_PARITY); (d) two learner
+     actors at num_gpus_per_learner=0.5, equal bit for bit after an
+     update; (e) save()/restore() bit for bit; (f) a runner sampling with
+     sample_device="cuda". `[rllib]` lines carry the card's name and power
+     limit.
 After each teardown (serve, every loadgen cell, loadgen, fabric, moe, each
-tune fit()) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
+tune fit(), each rllib part) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
 its figure before the run; beyond it the script prints what holds the
 memory (`_card_holders`) and fails.
 The last two lines are the kernels JSON (K1's, K2's, K3's, K6's and K7's
-entries also carry their launches on every later path, `launches_by_path`) and the
+entries also carry their launches on every later path, `launches_by_path`, the
+rllib paths' zeros among them) and the
 {"ok": true, ...} contract.
 """
 
@@ -3630,6 +3650,423 @@ def phase_tune() -> dict:
     return summary
 
 
+# The rllib phase: RLlib's PPO and IMPALA at bench.py's accelerator shapes
+# (`bench_ppo`, `bench_impala`, branch `on_tpu`), the learner on cuda:0, the
+# envs and the numpy policy forward on the host.
+RLLIB_PPO = dict(envs=128, frag=64, train_batch=8192, minibatch=256, epochs=4, timed=5)
+RLLIB_IMPALA = dict(envs=256, frag=64, train_batch=4096, timed=10)
+RLLIB_SEED = 0
+# Card against CPU in f32 (TF32 off): each tensor's change over one update
+# within 1e-4 relative L2 and every element within 0.05 x lr, the metrics
+# within 1e-4. cuBLAS and the CPU's BLAS sum float32 products in different
+# orders (a few ulps a product); Adam turns a gradient element near 0 into a
+# step of up to lr either way, so elements are held to a share of lr, and a
+# step of the wrong sign or size (~lr) or a wrong bias correction fails. The
+# metrics' relative error has a floor of 0.01 under its denominator.
+RLLIB_PARITY = dict(rel_l2=1e-4, lr_share=0.05, metrics_rtol=1e-4)
+
+
+def _rllib_ppo_config(**learners):
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+
+    p = RLLIB_PPO
+    return (PPOConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=1, num_envs_per_env_runner=p["envs"],
+                         rollout_fragment_length=p["frag"])
+            .training(train_batch_size=p["train_batch"], minibatch_size=p["minibatch"],
+                      num_epochs=p["epochs"])
+            .learners(**learners).debugging(seed=RLLIB_SEED))
+
+
+def _timed_updates(learner, last_batch=None) -> list:
+    """Wrap the learner's update (an instance attribute) to record each
+    call's wall (and, given `last_batch`, keep the batch of the last call
+    there); an update ends by copying its metrics to the host, so the wall
+    covers its device work."""
+    walls = []
+    inner = learner.update
+
+    def update(batch):
+        if last_batch is not None:
+            last_batch[:] = [batch]
+        t0 = time.perf_counter()
+        out = inner(batch)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    learner.update = update
+    return walls
+
+
+@contextlib.contextmanager
+def _timed_waits(record: list):
+    """Record the seconds each ray_tpu_torch.wait() blocks: PPO's training
+    step waits there for its runners' fragments."""
+    import ray_tpu_torch
+
+    inner = ray_tpu_torch.wait
+
+    def wait(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            record.append(time.perf_counter() - t0)
+
+    ray_tpu_torch.wait = wait
+    try:
+        yield
+    finally:
+        ray_tpu_torch.wait = inner
+
+
+def _bare_update(learner, batch) -> dict:
+    """Two more PPO updates with the runners idle: the first timed alone,
+    its wall beside the timed iterations' (there the runner's sampling
+    thread shares the interpreter); the second under torch.profiler with
+    CPU and CUDA activity for its kernel launches and the five host ops
+    with the most self CPU time (the profiler slows the host, so that
+    update's wall is not reported)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learner.update(batch)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        learner.update(batch)
+    events = prof.key_averages()
+    top = sorted(events, key=lambda e: -e.self_cpu_time_total)[:5]
+    return {"wall_s": wall,
+            "launches": sum(e.count for e in events if e.key.startswith("cudaLaunch")),
+            "top_cpu_ops_ms": [[e.key[:80], e.self_cpu_time_total / 1e3, e.count] for e in top]}
+
+
+def _finite_losses(results: list, tag: str) -> None:
+    for r in results:
+        for k in ("total_loss", "policy_loss", "vf_loss"):
+            if not np.isfinite(r.get(k, float("nan"))):
+                fail(f"[{tag}] {k} is not finite: {r.get(k)} (learner_error "
+                     f"{r.get('learner_error')})")
+
+
+def _host_state(state: dict) -> dict:
+    """A learner state's tensors, flattened: weights, mu and nu by name."""
+    out = {f"weights/{k}": v for k, v in state["weights"].items()}
+    for moment in ("mu", "nu"):
+        out.update({f"{moment}/{k}": v for k, v in state["opt_state"][moment].items()})
+    return out
+
+
+def _rllib_ppo(card: str, counters: dict) -> dict:
+    """(a) PPO at bench_ppo's shape: 1 warm-up and RLLIB_PPO["timed"] timed
+    train() calls and one under torch.profiler, the counters set to 0 just
+    before the first and read just after the last; then (e) a checkpoint
+    round trip on the same algorithm."""
+    import ray_tpu_torch
+
+    algo = _rllib_ppo_config().build()
+    learner = algo.learner_group.local_learner
+    cuda0 = torch.device("cuda", 0)
+    placed = {
+        "params": sorted({str(p.device) for p in learner.module.params.values()}),
+        "adam": sorted({str(t.device) for m in ("mu", "nu")
+                        for t in learner._opt_state[m].values()}),
+        "local_runner": str(algo.env_runner_group.local_runner.module.device),
+        "remote_runner": ray_tpu_torch.get(
+            algo.env_runner_group.remote_runners()[1].module_device.remote()),
+    }
+    if placed["params"] != [str(cuda0)] or placed["adam"] != [str(cuda0)]:
+        fail(f"[rllib ppo] the learner's parameters or Adam state are not on cuda:0: {placed}")
+    if placed["local_runner"] != "cpu" or placed["remote_runner"] != "cpu":
+        fail(f"[rllib ppo] a runner's module is not on the CPU: {placed}")
+    last_batch: list = []
+    walls = _timed_updates(learner, last_batch)
+    waits: list = []
+    for f in counters.values():
+        f.launches = 0
+    results, iters = [], []
+    with _timed_waits(waits):
+        results.append(algo.train())  # warm-up, as bench_ppo
+        steps0 = algo._env_steps_total
+        t0 = time.perf_counter()
+        for _ in range(RLLIB_PPO["timed"]):
+            n_waits, t_iter = len(waits), time.perf_counter()
+            results.append(algo.train())
+            iters.append({"wall_s": time.perf_counter() - t_iter, "update_s": walls[-1],
+                          "sampling_wait_s": sum(waits[n_waits:])})
+        dt = time.perf_counter() - t0
+        env_steps_s = (algo._env_steps_total - steps0) / dt
+        n_waits = len(waits)
+        profiled = _profiled(lambda: results.append(algo.train()))
+        profiled.update(update_s=walls[-1], sampling_wait_s=sum(waits[n_waits:]))
+    launches = {k: f.launches for k, f in counters.items()}
+    # The runner's fragment for the next iteration ends before the bare update.
+    pending = list(algo._inflight_samples.values())
+    ray_tpu_torch.wait(pending, num_returns=len(pending), timeout=60.0)
+    bare = _bare_update(learner, last_batch[0])
+    _finite_losses(results, "rllib ppo")
+    first, last = (r.get("episode_return_mean", float("nan")) for r in (results[0], results[-1]))
+    if not last > first:
+        fail(f"[rllib ppo] episode_return_mean did not rise: first {first}, last {last}")
+    out = {
+        "card": card, "env_steps_s": env_steps_s, "timed_s": dt,
+        "update_s": [i["update_s"] for i in iters],
+        "iteration_s": [i["wall_s"] for i in iters],
+        "sampling_wait_s": [i["sampling_wait_s"] for i in iters],
+        "learner_steps_per_update": RLLIB_PPO["epochs"] * (
+            RLLIB_PPO["train_batch"] // RLLIB_PPO["minibatch"]),
+        "profiled": profiled, "bare_update": bare, "launches": launches, "placed": placed,
+        "episode_return_mean": [r.get("episode_return_mean") for r in results],
+        "last": {k: results[-1][k] for k in ("total_loss", "policy_loss", "vf_loss",
+                                            "entropy", "mean_kl", "grad_norm")},
+    }
+
+    # (e) save()/restore() bit for bit: the host state saved, one more
+    # iteration, the restore, then the learner's tensors on the card against
+    # the saved host copies.
+    ckpt = algo.save()
+    saved = _host_state(algo.learner_group.get_state())
+    count = learner._opt_state["count"]
+    algo.train()
+    moved = not all(torch.equal(v, saved[k])
+                    for k, v in _host_state(algo.learner_group.get_state()).items())
+    algo.restore(ckpt)
+    live = {f"weights/{k}": p.detach() for k, p in learner.module.params.items()}
+    for moment in ("mu", "nu"):
+        live.update({f"{moment}/{k}": t for k, t in learner._opt_state[moment].items()})
+    equal = all(torch.equal(t, saved[k].to(t.device)) for k, t in live.items())
+    out["checkpoint"] = {"tensors": len(live), "moved_by_the_next_iteration": moved,
+                         "restored_bit_for_bit": equal,
+                         "count": [count, learner._opt_state["count"]]}
+    if not (moved and equal and count == learner._opt_state["count"]):
+        fail(f"[rllib ppo] the checkpoint did not round-trip bit for bit: {out['checkpoint']}")
+    algo.stop()
+    del algo, learner, ckpt, saved, live, last_batch
+    return out
+
+
+def _rllib_impala(card: str, counters: dict) -> dict:
+    """(b) IMPALA at bench_impala's shape: 1 + RLLIB_IMPALA["timed"] train()
+    calls, the counters set to 0 just before and read just after."""
+    from ray_tpu_torch.rllib.algorithms.impala import IMPALAConfig
+
+    p = RLLIB_IMPALA
+    algo = (IMPALAConfig().environment("MinAtar-Breakout")
+            .env_runners(num_env_runners=1, num_envs_per_env_runner=p["envs"],
+                         rollout_fragment_length=p["frag"])
+            .training(train_batch_size=p["train_batch"])
+            .debugging(seed=RLLIB_SEED)).build()
+    walls = _timed_updates(algo.learner_group.local_learner)
+    for f in counters.values():
+        f.launches = 0
+    results = [algo.train()]  # pipeline fill, as bench_impala
+    steps0, updates0 = algo._env_steps_total, results[0]["num_learner_updates"]
+    t0 = time.perf_counter()
+    for _ in range(p["timed"]):
+        results.append(algo.train())
+    dt = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    env_steps_s = (algo._env_steps_total - steps0) / dt
+    errors = [r["learner_error"] for r in results if "learner_error" in r]
+    if errors or results[-1]["num_learner_updates"] <= 0:
+        fail(f"[rllib impala] learner updates {results[-1]['num_learner_updates']}, "
+             f"errors {errors}")
+    _finite_losses(results, "rllib impala")
+    out = {
+        "card": card, "env_steps_s": env_steps_s, "timed_s": dt,
+        "updates_per_iteration": (results[-1]["num_learner_updates"] - updates0) / p["timed"],
+        "queue_size": [r["learner_queue_size"] for r in results],
+        "batches_enqueued": [r["num_batches_enqueued"] for r in results],
+        "update_s": walls, "launches": launches,
+        "episode_return_mean": [r.get("episode_return_mean") for r in results],
+        "last": {k: results[-1][k] for k in ("total_loss", "policy_loss", "vf_loss",
+                                            "entropy", "mean_rho", "grad_norm")},
+    }
+    algo.stop()
+    del algo
+    return out
+
+
+def _rllib_parity(card: str) -> dict:
+    """(c) One PPO update (2 minibatches) and one IMPALA update on the same
+    batch from the same state, on cuda:0 and on the CPU, in f32: each
+    tensor's change and the metrics held by RLLIB_PARITY. Both learners
+    draw their epoch orders from the same seeded host generator."""
+    from ray_tpu_torch.rllib.algorithms.impala import IMPALAConfig, IMPALALearner
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig, PPOLearner
+    from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
+    from ray_tpu_torch.rllib.evaluation.env_runner import EnvRunner
+
+    out = {}
+    cases = (("ppo", PPOConfig, PPOLearner, "CartPole-v1", 64, 32, dict(minibatch_size=1024)),
+             ("impala", IMPALAConfig, IMPALALearner, "MinAtar-Breakout", 32, 64, {}))
+    for name, cfg_cls, learner_cls, env, envs, frag, training in cases:
+        cfg = (cfg_cls().environment(env)
+               .env_runners(num_envs_per_env_runner=envs, rollout_fragment_length=frag)
+               .training(num_epochs=1, **training).debugging(seed=RLLIB_SEED))
+        runner = EnvRunner(cfg)
+        batch = runner.sample()
+        obs_space, act_space = runner.spaces()
+        spec = RLModuleSpec(observation_space=obs_space, action_space=act_space,
+                            seed=RLLIB_SEED)
+        learners = {d: learner_cls(spec, cfg, device=d) for d in ("cuda", "cpu")}
+        for learner in learners.values():
+            learner.build()
+        learners["cuda"].set_weights(learners["cpu"].get_weights())
+        before = learners["cpu"].get_weights()
+        metrics = {d: learner.update(batch) for d, learner in learners.items()}
+        after = {d: learner.get_weights() for d, learner in learners.items()}
+        lr = learners["cpu"].optimizer.lr
+        worst = {"rel_l2": 0.0, "lr_share": 0.0, "metrics_rel": 0.0}
+        for k, b in before.items():
+            d_card, d_cpu = after["cuda"][k] - b, after["cpu"][k] - b
+            worst["rel_l2"] = max(worst["rel_l2"], float(
+                torch.linalg.vector_norm(d_card - d_cpu) / torch.linalg.vector_norm(d_cpu)))
+            worst["lr_share"] = max(worst["lr_share"],
+                                    float((d_card - d_cpu).abs().max()) / lr)
+        for k, v in metrics["cpu"].items():
+            # Relative, with a floor of 0.01: policy_loss is ~0 at the first
+            # step (standardised advantages at ratio 1).
+            worst["metrics_rel"] = max(worst["metrics_rel"],
+                                       abs(metrics["cuda"][k] - v) / max(abs(v), 1e-2))
+        out[name] = {"rows": batch.count, "steps": learners["cpu"]._opt_state["count"],
+                     "lr": lr, **worst, "grad_norm": metrics["cuda"]["grad_norm"]}
+        log(f"[rllib parity] ({card}) {name}: " + json.dumps(out[name]))
+        if (worst["rel_l2"] > RLLIB_PARITY["rel_l2"]
+                or worst["lr_share"] > RLLIB_PARITY["lr_share"]
+                or worst["metrics_rel"] > RLLIB_PARITY["metrics_rtol"]):
+            fail(f"[rllib parity] {name}: card against CPU beyond {RLLIB_PARITY}: {out[name]}")
+        del learners, before, after
+    return out
+
+
+def _rllib_cuda_runner() -> dict:
+    """(f) An env runner with sample_device="cuda": its module on the card,
+    the torch forward and a CUDA generator sampling each step's actions;
+    one PPO fragment of CartPole-v1 (128 envs x 64 steps), its columns
+    finite and its GAE present."""
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+    from ray_tpu_torch.rllib.evaluation.env_runner import EnvRunner
+    from ray_tpu_torch.rllib.policy.sample_batch import SampleBatch
+
+    runner = EnvRunner(PPOConfig().environment("CartPole-v1")
+                       .env_runners(num_envs_per_env_runner=RLLIB_PPO["envs"],
+                                    rollout_fragment_length=RLLIB_PPO["frag"],
+                                    sample_device="cuda").debugging(seed=RLLIB_SEED))
+    t0 = time.perf_counter()
+    batch = runner.sample()
+    wall = time.perf_counter() - t0
+    floats = [k for k, v in batch.items() if np.asarray(v).dtype.kind == "f"]
+    out = {"module": runner.module_device(), "numpy_path": runner._np_explore is not None,
+           "rows": batch.count, "fragment_s": wall,
+           "finite": all(np.isfinite(np.asarray(batch[k])).all() for k in floats),
+           "gae": SampleBatch.ADVANTAGES in batch}
+    if (out["module"] != "cuda:0" or out["numpy_path"] or not out["finite"]
+            or not out["gae"] or out["rows"] != RLLIB_PPO["envs"] * RLLIB_PPO["frag"]):
+        fail(f"[rllib cuda runner] {out}")
+    runner.stop()
+    del runner, batch
+    return out
+
+
+def _rllib_remote_learners() -> dict:
+    """(d) Two learner actors at num_gpus_per_learner=0.5 on the card: one
+    PPO iteration (gradients of two shards averaged on the host and applied
+    on both); both learners' weights equal bit for bit afterwards."""
+    import ray_tpu_torch
+
+    algo = (_rllib_ppo_config(num_learners=2, num_gpus_per_learner=0.5)
+            .training(train_batch_size=2048)).build()
+    t0 = time.perf_counter()
+    result = algo.train()
+    wall = time.perf_counter() - t0
+    weights = [ray_tpu_torch.get(w.get_weights.remote()) for w in algo.learner_group._workers]
+    equal = all(torch.equal(weights[0][k], weights[1][k]) for k in weights[0])
+    states = algo.learner_group.foreach_learner("get_state")
+    out = {"learners": len(weights), "bit_for_bit": equal, "iteration_s": wall,
+           "adam_counts": [s["opt_state"]["count"] for s in states],
+           "total_loss": result["total_loss"]}
+    if not equal or not np.isfinite(result["total_loss"]):
+        fail(f"[rllib remote learners] {out}")
+    algo.stop()
+    del algo, weights, states
+    return out
+
+
+def _rllib_log(name: str, card: str, part: dict) -> None:
+    """The `[rllib]` lines of one part of the phase, printed as it ends."""
+    if name in ("ppo", "impala"):
+        launched = {k: n for k, n in part["launches"].items() if n}
+        if launched:
+            fail(f"[rllib {name}] attention kernels launched on RLlib's path: {launched}")
+    if name == "ppo":
+        prof = part["profiled"]
+        log(f"[rllib] ({card}) ppo CartPole-v1: {part['env_steps_s']:.1f} env-steps/s "
+            f"(bench_ppo's count: 5 iterations after 1 warm-up, {part['timed_s']:.2f}s); "
+            f"update p50 {statistics.median(part['update_s']) * 1e3:.1f} ms "
+            f"({part['learner_steps_per_update']} minibatch steps), iteration p50 "
+            f"{statistics.median(part['iteration_s']) * 1e3:.1f} ms, sampling wait p50 "
+            f"{statistics.median(part['sampling_wait_s']) * 1e3:.1f} ms an iteration")
+        log(f"[rllib] ({card}) ppo profiled iteration: wall {prof['wall_s'] * 1e3:.1f} ms, "
+            f"update {prof['update_s'] * 1e3:.1f} ms, card busy "
+            f"{prof['device_busy_s'] * 1e3:.1f} ms ({prof['device_busy_share'] * 100:.1f}%), "
+            f"sampling wait {prof['sampling_wait_s'] * 1e3:.1f} ms; top kernels "
+            f"{json.dumps(prof['top_kernels_ms'])}")
+        bare = part["bare_update"]
+        log(f"[rllib] ({card}) ppo update with the runners idle: wall "
+            f"{bare['wall_s'] * 1e3:.1f} ms; under the profiler {bare['launches']} kernel "
+            f"launches, top host ops (self ms, calls) {json.dumps(bare['top_cpu_ops_ms'])}")
+        log(f"[rllib] ({card}) ppo episode_return_mean by iteration "
+            f"{json.dumps(part['episode_return_mean'])}; last losses {json.dumps(part['last'])}; "
+            f"placed {json.dumps(part['placed'])}; checkpoint {json.dumps(part['checkpoint'])}")
+    elif name == "impala":
+        log(f"[rllib] ({card}) impala MinAtar-Breakout: {part['env_steps_s']:.1f} env-steps/s "
+            f"(10 iterations after 1, {part['timed_s']:.2f}s); "
+            f"{part['updates_per_iteration']:.2f} learner updates an iteration, update p50 "
+            f"{statistics.median(part['update_s']) * 1e3:.1f} ms; queue occupancy "
+            f"{json.dumps(part['queue_size'])}; batches enqueued "
+            f"{json.dumps(part['batches_enqueued'])}; last losses {json.dumps(part['last'])}")
+    elif name in ("remote_learners", "cuda_runner"):
+        log(f"[rllib] ({card}) {name}: {json.dumps(part)}")
+
+
+def phase_rllib(device_info: dict) -> dict:
+    """RLlib's PPO and IMPALA on the port: the learner on cuda:0, the envs
+    and the numpy policy forward on the host, at bench.py's accelerator
+    shapes: (a) PPO on CartPole-v1 (1 runner x 128 envs, fragment 64, batch
+    8192, minibatch 256, 4 epochs: 1 warm-up, 5 timed and 1 profiled
+    iterations) and (e) its checkpoint round trip, (b) IMPALA on
+    MinAtar-Breakout (1 runner x 256 envs, fragment 64, batch 4096; 1 + 10
+    iterations), (c) f32 card against CPU of one update of each, (d) two
+    learner actors at half the card each, (f) a runner sampling through its
+    torch forward on the card. No attention kernel may launch on
+    (a) or (b): RLlib's networks are dense products. The card memory after
+    each algorithm's cleanup() within LEFT_LIMIT_MIB of its figure before."""
+    import ray_tpu_torch
+
+    t_phase = time.perf_counter()
+    card = device_info["smi"]
+    counters = _attention_counters()
+    summary = {}
+    ray_tpu_torch.init(num_cpus=8, num_gpus=1)
+    try:
+        for name, run in (("ppo", lambda: _rllib_ppo(card, counters)),
+                          ("impala", lambda: _rllib_impala(card, counters)),
+                          ("parity", lambda: _rllib_parity(card)),
+                          ("remote_learners", _rllib_remote_learners),
+                          ("cuda_runner", _rllib_cuda_runner)):
+            mem0 = torch.cuda.memory_allocated()
+            summary[name] = run()
+            summary[name]["left_mib"] = _settle(mem0, f"rllib {name}")
+            _rllib_log(name, card, summary[name])
+    finally:
+        ray_tpu_torch.shutdown()
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[rllib] phase wall {summary['wall_s']:.1f}s")
+    return summary
+
+
 def _replace_attn():
     import dataclasses
 
@@ -3742,6 +4179,7 @@ def main() -> int:
     phase_resnet(device)
     moe = phase_moe(server)
     tuned = phase_tune()
+    rllib = phase_rllib(device)
     launches.update(profile["launches"])
     paths = {"server": server["launches"]}
     for line in loadgen["cells"]:
@@ -3754,6 +4192,8 @@ def main() -> int:
     paths["moe server"] = moe["serve"]["launches"]
     paths["tune asha"] = tuned["asha"]["launches"]
     paths["tune pbt"] = tuned["pbt"]["launches"]
+    paths["rllib ppo"] = rllib["ppo"]["launches"]
+    paths["rllib impala"] = rllib["impala"]["launches"]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches, paths)))
     print(json.dumps({"ok": True, "device": {
