@@ -157,8 +157,29 @@ Phases, each fatal on failure:
      update; (e) save()/restore() bit for bit; (f) a runner sampling with
      sample_device="cuda". `[rllib]` lines carry the card's name and power
      limit.
+ 16. rllib_algos — the rest of RLlib (ray_tpu_torch.rllib), every learner
+     on cuda:0, envs, replay and offline files on the host: (a) DQN on
+     CartPole-v1 at DQNConfig's defaults ((256, 256), batch 32, fragment 4,
+     1,000 steps before learning, target sync every 500, double-Q), uniform
+     replay and n_step=3 prioritized, 5,000 env steps each (parameters,
+     Adam state and target on cuda:0, finite losses, priorities moved by
+     the TD errors, update p50, env-steps/s, kernel launches an update, the
+     card's busy share of one profiled iteration); (b) Ape-X, 2 replay
+     shards and 2 runners (shards fill, priorities return, stop() leaves no
+     shard actor); (c) SAC and TD3 on Pendulum-v1 at their defaults
+     ((256, 256), batch 256, fragment 1, tau 0.005, TD3's policy_delay 2),
+     1,000 updates each (alpha moved; TD3's actor bit for bit unchanged
+     across an off tick); (d) APPO at bench_impala's shape and A2C at
+     bench_ppo's, 1 + 3 iterations; (e) PPO tees its rollouts to disk and
+     BC clones them (its NLL falls), CQL trains from SAC's teed rollouts,
+     IS and WIS over the logs are finite; (f) MultiAgentCartPole PPO with a
+     shared policy and with two policies (each learner on cuda:0, their
+     parameters different); (g) f32 card against CPU of one update of each
+     new learner (DQN, SAC, TD3, CQL, A2C, APPO, BC) on the same batch,
+     weights and noise, by RLLIB_PARITY. No attention kernel launched on
+     any path, each counted from 0 just before it. `[rllib_algos]` lines.
 After each teardown (serve, every loadgen cell, loadgen, fabric, moe, each
-tune fit(), each rllib part) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
+tune fit(), each rllib and rllib_algos part) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
 its figure before the run; beyond it the script prints what holds the
 memory (`_card_holders`) and fails.
 The last two lines are the kernels JSON (K1's, K2's, K3's, K6's and K7's
@@ -4067,6 +4088,576 @@ def phase_rllib(device_info: dict) -> dict:
     return summary
 
 
+# The rllib_algos phase: the rest of RLlib on the port, each learner on
+# cuda:0 and the envs, replay and offline files on the host. DQN, SAC and
+# TD3 at their configs' defaults; APPO at bench_impala's shape and A2C at
+# bench_ppo's (envs, fragment, batch).
+ALGOS_DQN_STEPS = 5000  # env steps a DQN run (1,000 before learning)
+ALGOS_SAC_UPDATES = 1000  # updates a SAC / TD3 run (after 1,000 env steps)
+ALGOS_APEX_ITERS = 40
+ALGOS_ON_POLICY_ITERS = 3  # timed after 1 warm-up (APPO: pipeline fill)
+ALGOS_BC_ITERS = 40
+ALGOS_CQL_ITERS = 20
+ALGOS_PPO_LOG = dict(envs=32, frag=64, iters=8)  # PPO whose rollouts BC clones
+
+
+def _on_cuda0(learner) -> dict:
+    """Where a learner's parameters, Adam moments and extra state live."""
+    extra = []
+
+    def walk(tree):
+        if isinstance(tree, torch.Tensor):
+            extra.append(str(tree.device))
+        elif isinstance(tree, dict):
+            for v in tree.values():
+                walk(v)
+
+    walk(learner.extra_train_state)
+    return {"params": sorted({str(p.device) for p in learner.module.params.values()}),
+            "adam": sorted({str(t.device) for m in ("mu", "nu")
+                            for t in learner._opt_state[m].values()}),
+            "extra": sorted(set(extra))}
+
+
+def _check_placed(tag: str, learner) -> dict:
+    placed = _on_cuda0(learner)
+    if any(v and v != ["cuda:0"] for v in placed.values()) or not placed["params"]:
+        fail(f"[{tag}] the learner's state is not all on cuda:0: {placed}")
+    return placed
+
+
+def _launches_per_update(learner, batch) -> int:
+    """Kernel launches (cudaLaunchKernel and friends) of one update, counted
+    by torch.profiler's host events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        learner.update(batch)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunch"))
+
+
+def _finite(results: list, keys, tag: str) -> None:
+    for r in results:
+        for k in keys:
+            if k in r and not np.isfinite(r[k]):
+                fail(f"[{tag}] {k} is not finite: {r[k]}")
+
+
+def _zero(counters: dict) -> None:
+    for f in counters.values():
+        f.launches = 0
+
+
+def _read(counters: dict) -> dict:
+    return {k: f.launches for k, f in counters.items()}
+
+
+def _train_loop(algo, tag: str, counters: dict, until) -> dict:
+    """train() until `until(algo, results)`, the learner's updates timed,
+    the attention counters set to 0 just before and read just after; then
+    one more iteration under torch.profiler (the card's busy share) and the
+    launches of one bare update on the last batch."""
+    learner = algo.learner_group.local_learner
+    last_batch: list = []
+    walls = _timed_updates(learner, last_batch)
+    results = []
+    _zero(counters)
+    t0 = time.perf_counter()
+    while not until(algo, results):
+        results.append(algo.train())
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    steps, updates = algo._env_steps_total, list(walls)
+    if not updates:
+        fail(f"[{tag}] the learner took no update")
+    iterations = len(results)
+    profiled = _profiled(lambda: results.append(algo.train()))
+    return {"iterations": iterations, "env_steps": steps, "wall_s": wall,
+            "env_steps_s": steps / wall, "updates": len(updates),
+            "update_p50_ms": statistics.median(updates) * 1e3,
+            "update_p90_ms": float(np.percentile(updates, 90)) * 1e3,
+            "launches_per_update": _launches_per_update(learner, last_batch[0]),
+            "busy_share": profiled["device_busy_share"],
+            "profiled_wall_ms": profiled["wall_s"] * 1e3, "launches": launches,
+            "placed": _check_placed(tag, learner), "results": results}
+
+
+def _algos_dqn(counters: dict, prioritized: bool) -> dict:
+    """(a) DQN on CartPole-v1 at DQNConfig's defaults, uniform replay or
+    n_step=3 with prioritized replay, to ALGOS_DQN_STEPS env steps."""
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNConfig
+    from ray_tpu_torch.rllib.utils.replay_buffers import PrioritizedReplayBuffer
+
+    cfg = DQNConfig().environment("CartPole-v1").debugging(seed=RLLIB_SEED)
+    if prioritized:
+        cfg = cfg.training(n_step=3, replay_buffer_config=dict(
+            cfg.replay_buffer_config, type="PrioritizedReplayBuffer"))
+    algo = cfg.build()
+    tag = "rllib_algos dqn" + (" prioritized" if prioritized else "")
+    out = _train_loop(algo, tag, counters,
+                      lambda a, r: a._env_steps_total >= ALGOS_DQN_STEPS)
+    _finite(out["results"], ("total_loss", "td_error_abs", "qf_mean"), tag)
+    buf = algo.replay_buffer
+    out["buffer"] = type(buf).__name__
+    if prioritized:
+        pri = buf._priorities[: len(buf)]
+        out["priorities"] = {"max_priority": buf._max_priority, "distinct": int(np.unique(pri).size),
+                             "min": float(pri.min()), "max": float(pri.max())}
+        if not (isinstance(buf, PrioritizedReplayBuffer) and buf._max_priority > 1.0
+                and out["priorities"]["distinct"] > 100):
+            fail(f"[{tag}] the TD errors did not move the priorities: {out['priorities']}")
+    last = out.pop("results")[-1]
+    out["last"] = {k: last[k] for k in ("total_loss", "td_error_abs", "qf_mean", "grad_norm")}
+    out["episode_return_mean"] = last.get("episode_return_mean")
+    algo.stop()
+    del algo, buf
+    return out
+
+
+def _algos_apex(counters: dict) -> dict:
+    """(b) Ape-X on CartPole: 2 replay shards, 2 env runners, learning from
+    256 env steps, ALGOS_APEX_ITERS iterations: every shard fills, the TD
+    errors come back as priorities, and stop() leaves no shard actor."""
+    from ray_tpu_torch.rllib.algorithms.apex_dqn import ApexDQNConfig
+
+    cfg = (ApexDQNConfig().environment("CartPole-v1").env_runners(num_env_runners=2)
+           .training(num_steps_sampled_before_learning_starts=256).debugging(seed=RLLIB_SEED))
+    algo = cfg.build()
+    shards = list(algo.replay_shards)
+    names = {f"actor-{s._actor_id.hex()[:8]}" for s in shards}
+    _zero(counters)
+    t0 = time.perf_counter()
+    results = [algo.train() for _ in range(ALGOS_APEX_ITERS)]
+    wall = time.perf_counter() - t0
+    launches = _read(counters)
+    sizes = [_get(s.size.remote()) for s in shards]
+    weights = [_get(s.sample.remote(32))["weights"] for s in shards]
+    placed = _check_placed("rllib_algos apex", algo.learner_group.local_learner)
+    updates = sum(1 for r in results if "td_error_abs" in r)
+    algo.stop()
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline and names & {t.name for t in threading.enumerate()}:
+        time.sleep(0.05)
+    alive = sorted(names & {t.name for t in threading.enumerate()})
+    out = {"shards": len(shards), "shard_sizes": sizes, "iterations": len(results),
+           "updates": updates, "env_steps": algo._env_steps_total, "wall_s": wall,
+           "priorities_returned": [bool(float(w.min()) < 1.0) for w in weights],
+           "actor_threads_after_stop": alive, "placed": placed, "launches": launches}
+    if (not all(sizes) or not any(out["priorities_returned"]) or alive or not updates
+            or algo.replay_shards):
+        fail(f"[rllib_algos apex] {out}")
+    del algo, shards
+    return out
+
+
+def _get(ref):
+    import ray_tpu_torch
+
+    return ray_tpu_torch.get(ref, timeout=120.0)
+
+
+def _algos_sac_td3(counters: dict, name: str, output: str) -> dict:
+    """(c) SAC or TD3 on Pendulum-v1 at its config's defaults until
+    ALGOS_SAC_UPDATES updates after the 1,000 env steps before learning;
+    its rollouts tee to `output` (part e). SAC: alpha moved. TD3: the actor
+    bit for bit unchanged across an off tick, moved on a delay tick."""
+    from ray_tpu_torch.rllib.algorithms.sac import SACConfig
+    from ray_tpu_torch.rllib.algorithms.td3 import TD3Config
+
+    cfg_cls = SACConfig if name == "sac" else TD3Config
+    algo = (cfg_cls().environment("Pendulum-v1").offline_data(output=output)
+            .debugging(seed=RLLIB_SEED)).build()
+    learner = algo.learner_group.local_learner
+    tag = f"rllib_algos {name}"
+    ticks = []
+    if name == "td3":
+        inner = learner.update
+
+        def update(batch):
+            step = learner.extra_train_state["step"]
+            if len(ticks) < 4:
+                pi = {k: v.detach().clone() for k, v in learner.module.params.items()
+                      if k.startswith("pi.")}
+            out = inner(batch)
+            if len(ticks) < 4:
+                same = all(torch.equal(learner.module.params[k], v) for k, v in pi.items())
+                ticks.append({"step": step, "delay_tick": step % delay == 0,
+                              "pi_unchanged": same})
+            return out
+
+        delay = algo.algo_config.policy_delay
+        learner.update = update
+    start = cfg_cls().num_steps_sampled_before_learning_starts
+    out = _train_loop(algo, tag, counters,
+                      lambda a, r: a._env_steps_total >= start + ALGOS_SAC_UPDATES)
+    keys = ("total_loss", "critic_loss", "actor_loss", "mean_q") + (
+        ("alpha_loss", "alpha") if name == "sac" else ())
+    _finite(out["results"], keys, tag)
+    last = out.pop("results")[-1]
+    out["last"] = {k: last[k] for k in keys}
+    out["episode_return_mean"] = last.get("episode_return_mean")
+    if name == "sac" and not last["alpha"] != 1.0:
+        fail(f"[{tag}] alpha did not move from 1.0: {last['alpha']}")
+    if name == "td3":
+        out["ticks"] = ticks
+        if not ticks or any(t["pi_unchanged"] == t["delay_tick"] for t in ticks):
+            fail(f"[{tag}] the actor moved on an off tick or stood on a delay tick: {ticks}")
+    algo.stop()
+    del algo, learner
+    return out
+
+
+def _algos_on_policy(counters: dict, name: str) -> dict:
+    """(d) APPO on MinAtar-Breakout at bench_impala's shape and A2C on
+    CartPole-v1 at bench_ppo's (envs, fragment, batch; A2C's one pass over
+    the batch), 1 + ALGOS_ON_POLICY_ITERS train() calls."""
+    from ray_tpu_torch.rllib.algorithms.a2c import A2CConfig
+    from ray_tpu_torch.rllib.algorithms.appo import APPOConfig
+
+    if name == "appo":
+        p = RLLIB_IMPALA
+        cfg = (APPOConfig().environment("MinAtar-Breakout")
+               .env_runners(num_env_runners=1, num_envs_per_env_runner=p["envs"],
+                            rollout_fragment_length=p["frag"])
+               .training(train_batch_size=p["train_batch"]))
+    else:
+        p = RLLIB_PPO
+        cfg = (A2CConfig().environment("CartPole-v1")
+               .env_runners(num_env_runners=1, num_envs_per_env_runner=p["envs"],
+                            rollout_fragment_length=p["frag"])
+               .training(train_batch_size=p["train_batch"], minibatch_size=p["train_batch"]))
+    algo = cfg.debugging(seed=RLLIB_SEED).build()
+    learner = algo.learner_group.local_learner
+    walls = _timed_updates(learner)
+    _zero(counters)
+    results = [algo.train()]
+    steps0 = algo._env_steps_total
+    t0 = time.perf_counter()
+    for _ in range(ALGOS_ON_POLICY_ITERS):
+        results.append(algo.train())
+    dt = time.perf_counter() - t0
+    launches = _read(counters)
+    tag = f"rllib_algos {name}"
+    _finite(results, ("total_loss", "policy_loss", "vf_loss"), tag)
+    errors = [r["learner_error"] for r in results if "learner_error" in r]
+    if errors or not walls:
+        fail(f"[{tag}] learner errors {errors}, {len(walls)} updates")
+    last = results[-1]
+    out = {"env_steps_s": (algo._env_steps_total - steps0) / dt, "timed_s": dt,
+           "update_p50_ms": statistics.median(walls) * 1e3, "updates": len(walls),
+           "launches": launches, "placed": _check_placed(tag, learner),
+           "last": {k: last[k] for k in ("total_loss", "policy_loss", "vf_loss", "entropy")
+                    + (("mean_ratio",) if name == "appo" else ())},
+           "episode_return_mean": [r.get("episode_return_mean") for r in results]}
+    algo.stop()
+    del algo, learner
+    return out
+
+
+def _algos_offline(counters: dict, sac_dir: str, ppo_dir: str) -> dict:
+    """(e) PPO tees its CartPole rollouts to `ppo_dir` (ALGOS_PPO_LOG);
+    BC trains from them and its NLL falls; CQL trains from SAC's Pendulum
+    rollouts of part (c) in `sac_dir`, finite losses and penalty; IS and WIS
+    of BC's policy from PPO's logs are finite."""
+    from ray_tpu_torch.rllib.algorithms.bc import BCConfig
+    from ray_tpu_torch.rllib.algorithms.cql import CQLConfig
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+    from ray_tpu_torch.rllib.offline import (
+        ImportanceSampling,
+        JsonReader,
+        WeightedImportanceSampling,
+        estimate_from_reader,
+    )
+
+    p = ALGOS_PPO_LOG
+    ppo = (PPOConfig().environment("CartPole-v1")
+           .env_runners(num_envs_per_env_runner=p["envs"], rollout_fragment_length=p["frag"])
+           .training(train_batch_size=p["envs"] * p["frag"], minibatch_size=256, num_epochs=4,
+                     lr=1e-3)
+           .offline_data(output=ppo_dir).debugging(seed=RLLIB_SEED)).build()
+    ppo_returns = [ppo.train().get("episode_return_mean") for _ in range(p["iters"])]
+    ppo.stop()
+    del ppo
+    out = {"ppo_files": sorted(os.listdir(ppo_dir)), "ppo_returns": ppo_returns,
+           "sac_files": len(os.listdir(sac_dir))}
+
+    bc = (BCConfig().environment("CartPole-v1").offline_data(input_=ppo_dir)
+          .training(train_batch_size=1024, lr=3e-3).debugging(seed=RLLIB_SEED)).build()
+    _zero(counters)
+    walls = _timed_updates(bc.learner_group.local_learner)
+    nll = [bc.train()["bc_nll"] for _ in range(ALGOS_BC_ITERS)]
+    out["bc"] = {"nll_first": nll[0], "nll_last5_mean": float(np.mean(nll[-5:])),
+                 "update_p50_ms": statistics.median(walls) * 1e3, "launches": _read(counters),
+                 "placed": _check_placed("rllib_algos bc", bc.learner_group.local_learner)}
+    module = bc.get_module()
+
+    def target_logp(obs, actions):
+        with torch.no_grad():
+            fwd = module.forward_train(module.params,
+                                       {"obs": torch.as_tensor(obs, device=module.device)})
+            dist = module.dist_cls(fwd["action_dist_inputs"])
+            return dist.logp(torch.as_tensor(actions, device=module.device)).cpu().numpy()
+
+    for est_cls in (ImportanceSampling, WeightedImportanceSampling):
+        est = estimate_from_reader(est_cls(target_logp), JsonReader(ppo_dir, seed=RLLIB_SEED),
+                                   num_batches=4)
+        out[est_cls.__name__] = est
+        if not (np.isfinite(est["v_target"]) and np.isfinite(est["v_behavior"])
+                and est["num_episodes"] > 0):
+            fail(f"[rllib_algos offline] {est_cls.__name__}: {est}")
+    bc.stop()
+    del bc, module
+    if not all(np.isfinite(nll)) or not out["bc"]["nll_last5_mean"] < nll[0]:
+        fail(f"[rllib_algos bc] the NLL did not fall: {out['bc']}")
+
+    cql = (CQLConfig().environment("Pendulum-v1").offline_data(input_=sac_dir)
+           .debugging(seed=RLLIB_SEED)).build()
+    _zero(counters)
+    walls = _timed_updates(cql.learner_group.local_learner)
+    results = [cql.train() for _ in range(ALGOS_CQL_ITERS)]
+    keys = ("total_loss", "critic_loss", "actor_loss", "alpha_loss", "cql_penalty")
+    _finite(results, keys, "rllib_algos cql")
+    out["cql"] = {"last": {k: results[-1][k] for k in keys},
+                  "update_p50_ms": statistics.median(walls) * 1e3, "launches": _read(counters),
+                  "placed": _check_placed("rllib_algos cql", cql.learner_group.local_learner)}
+    cql.stop()
+    del cql
+    return out
+
+
+def _algos_multi_agent(counters: dict) -> dict:
+    """(f) MultiAgentCartPole at the reference tests' configurations: PPO
+    with a shared policy (2 agents, fragment 32, batch 128, minibatch 64, 2
+    epochs; 3 iterations), then per-policy PPO with two policies and a
+    mapping function (max_steps 50, seed 7; 2 iterations): each policy's
+    learner on cuda:0, their parameters different."""
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+
+    out = {}
+    algo = (PPOConfig().environment("MultiAgentCartPole", env_config={"num_agents": 2})
+            .env_runners(rollout_fragment_length=32)
+            .training(train_batch_size=128, minibatch_size=64, num_epochs=2)
+            .debugging(seed=0)).build()
+    _zero(counters)
+    t0 = time.perf_counter()
+    results = [algo.train() for _ in range(3)]
+    out["shared"] = {"wall_s": time.perf_counter() - t0, "launches": _read(counters),
+                     "env_steps": results[-1]["num_env_steps_sampled_lifetime"],
+                     "runner": type(algo.env_runner_group.local_runner).__name__,
+                     "placed": _check_placed("rllib_algos multi-agent shared",
+                                             algo.learner_group.local_learner)}
+    _finite(results, ("total_loss",), "rllib_algos multi-agent shared")
+    algo.stop()
+    del algo
+    algo = (PPOConfig().environment("MultiAgentCartPole",
+                                    env_config={"num_agents": 2, "max_steps": 50})
+            .multi_agent(policies=["left", "right"],
+                         policy_mapping_fn=lambda aid, **kw: "left" if str(aid).endswith("0")
+                         else "right")
+            .env_runners(rollout_fragment_length=32)
+            .training(train_batch_size=128, minibatch_size=64, num_epochs=2)
+            .debugging(seed=7)).build()
+    _zero(counters)
+    t0 = time.perf_counter()
+    results = [algo.train() for _ in range(2)]
+    group = algo.learner_group.local_learner
+    w = {pid: group[pid].module.params for pid in ("left", "right")}
+    differ = any(not torch.equal(w["left"][k], w["right"][k]) for k in w["left"])
+    out["per_policy"] = {
+        "wall_s": time.perf_counter() - t0, "launches": _read(counters),
+        "policies_in_results": sorted({k.split("/")[0] for k in results[-1] if "/" in k}),
+        "params_differ": differ,
+        "placed": {pid: _check_placed(f"rllib_algos multi-agent {pid}", group[pid])
+                   for pid in w}}
+    if not differ or out["per_policy"]["policies_in_results"] != ["left", "right"]:
+        fail(f"[rllib_algos multi-agent] per-policy: {out['per_policy']}")
+    algo.stop()
+    del algo, group, w
+    return out
+
+
+def _parity_batches() -> dict:
+    """Each learner's batch, sampled on the host: DQN's and BC's and A2C's
+    from CartPole-v1, SAC/TD3/CQL's from Pendulum-v1, APPO's from
+    MinAtar-Breakout fragments."""
+    from ray_tpu_torch.rllib.algorithms.appo import APPOConfig
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig
+    from ray_tpu_torch.rllib.evaluation.env_runner import EnvRunner
+
+    def sample(cfg):
+        runner = EnvRunner(cfg.debugging(seed=RLLIB_SEED))
+        batch = runner.sample()
+        runner.stop()
+        return batch
+
+    cart = sample(PPOConfig().environment("CartPole-v1")
+                  .env_runners(num_envs_per_env_runner=16, rollout_fragment_length=32))
+    pend = sample(PPOConfig().environment("Pendulum-v1")
+                  .env_runners(num_envs_per_env_runner=8, rollout_fragment_length=32))
+    minatar = sample(APPOConfig().environment("MinAtar-Breakout")
+                     .env_runners(num_envs_per_env_runner=32, rollout_fragment_length=64))
+    return {"cart": cart, "pend": pend, "minatar": minatar}
+
+
+def _algos_parity(card: str) -> dict:
+    """(g) One update of each new learner in f32 on cuda:0 and on the CPU
+    from the same weights, on the same batch, row orders and noise (the
+    CPU learner's draws, copied to the card): each tensor's change and the
+    metrics held by RLLIB_PARITY (DQN's per-sample TD errors among them)."""
+    from ray_tpu_torch.rllib.algorithms.a2c import A2CConfig, A2CLearner
+    from ray_tpu_torch.rllib.algorithms.appo import APPOConfig, APPOLearner
+    from ray_tpu_torch.rllib.algorithms.bc import BCConfig, BCLearner
+    from ray_tpu_torch.rllib.algorithms.cql import CQLConfig, CQLLearner
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNConfig, DQNLearner, DQNModule
+    from ray_tpu_torch.rllib.algorithms.sac import SACConfig, SACLearner, SACModule
+    from ray_tpu_torch.rllib.algorithms.td3 import TD3Config, TD3Learner, TD3Module
+    from ray_tpu_torch.rllib.core.rl_module import RLModule, RLModuleSpec
+    from ray_tpu_torch.rllib.env import make_env
+
+    batches = _parity_batches()
+    cases = (
+        ("dqn", DQNConfig(), DQNLearner, DQNModule,
+         "CartPole-v1", "cart"),
+        ("sac", SACConfig(), SACLearner, SACModule, "Pendulum-v1", "pend"),
+        ("td3", TD3Config(), TD3Learner, TD3Module, "Pendulum-v1", "pend"),
+        ("cql", CQLConfig(), CQLLearner, SACModule, "Pendulum-v1", "pend"),
+        ("a2c", A2CConfig().training(minibatch_size=256), A2CLearner, RLModule,
+         "CartPole-v1", "cart"),
+        ("appo", APPOConfig().training(use_kl_loss=True).env_runners(rollout_fragment_length=64),
+         APPOLearner, RLModule, "MinAtar-Breakout", "minatar"),
+        ("bc", BCConfig().training(minibatch_size=256), BCLearner, RLModule, "CartPole-v1",
+         "cart"),
+    )
+    out = {}
+    for name, cfg, learner_cls, module_cls, env, which in cases:
+        batch = batches[which]
+        if name == "dqn":
+            batch = type(batch)(dict(batch))
+            batch["weights"] = np.linspace(0.25, 1.0, batch.count, dtype=np.float32)
+        probe = make_env(env)
+        spec = RLModuleSpec(module_class=module_cls, observation_space=probe.observation_space,
+                            action_space=probe.action_space, seed=RLLIB_SEED)
+        cfg = cfg.debugging(seed=RLLIB_SEED)
+        learners = {d: learner_cls(spec, cfg, device=d) for d in ("cpu", "cuda")}
+        for learner in learners.values():
+            learner.build()
+        learners["cuda"].set_weights(learners["cpu"].get_weights())
+        drawn: list = []
+        cpu_noise, cuda_noise = learners["cpu"].sample_noise, learners["cuda"].sample_noise
+
+        def draw_cpu(b, inner=cpu_noise):
+            z = inner(b)
+            drawn.append(z)
+            return z
+
+        def draw_cuda(b, inner=cuda_noise, device=learners["cuda"].device):
+            z = drawn.pop(0)
+            if isinstance(z, dict):
+                return {k: v.to(device) for k, v in z.items()}
+            return inner(b)
+
+        learners["cpu"].sample_noise = draw_cpu
+        learners["cuda"].sample_noise = draw_cuda
+        before = learners["cpu"].get_weights()
+        metrics = {d: learners[d].update(batch) for d in ("cpu", "cuda")}
+        after = {d: learner.get_weights() for d, learner in learners.items()}
+        lr = learners["cpu"].optimizer.lr
+        worst = {"rel_l2": 0.0, "lr_share": 0.0, "metrics_rel": 0.0, "moved": 0, "still": 0}
+        for k, b in before.items():
+            d_card, d_cpu = after["cuda"][k] - b, after["cpu"][k] - b
+            norm = float(torch.linalg.vector_norm(d_cpu))
+            if norm == 0.0:  # BC's value head: not reached by the loss
+                worst["still"] += 1
+                worst["rel_l2"] = max(worst["rel_l2"], float(torch.linalg.vector_norm(d_card)))
+                continue
+            worst["moved"] += 1
+            worst["rel_l2"] = max(worst["rel_l2"], float(
+                torch.linalg.vector_norm(d_card - d_cpu)) / norm)
+            worst["lr_share"] = max(worst["lr_share"], float((d_card - d_cpu).abs().max()) / lr)
+        for k, v in metrics["cpu"].items():
+            got = np.asarray(metrics["cuda"][k], np.float64)
+            v = np.asarray(v, np.float64)
+            worst["metrics_rel"] = max(worst["metrics_rel"], float(
+                np.max(np.abs(got - v) / np.maximum(np.abs(v), 1e-2))))
+        out[name] = {"rows": batch.count, "steps": learners["cpu"]._opt_state["count"],
+                     "lr": lr, **worst}
+        log(f"[rllib_algos parity] ({card}) {name}: " + json.dumps(out[name]))
+        if (worst["rel_l2"] > RLLIB_PARITY["rel_l2"]
+                or worst["lr_share"] > RLLIB_PARITY["lr_share"]
+                or worst["metrics_rel"] > RLLIB_PARITY["metrics_rtol"] or not worst["moved"]):
+            fail(f"[rllib_algos parity] {name}: card against CPU beyond {RLLIB_PARITY}: "
+                 f"{out[name]}")
+        del learners, before, after
+    return out
+
+
+def _algos_log(name: str, card: str, part: dict) -> None:
+    """The `[rllib_algos]` lines of one part, printed as it ends."""
+    launched = {}
+    for key in ("launches",):
+        launched.update({k: n for k, n in part.get(key, {}).items() if n})
+    for sub in ("bc", "cql", "shared", "per_policy"):
+        if isinstance(part.get(sub), dict):
+            launched.update({f"{sub} {k}": n for k, n in part[sub].get("launches", {}).items()
+                             if n})
+    if launched:
+        fail(f"[rllib_algos {name}] attention kernels launched on RLlib's path: {launched}")
+    brief = {k: v for k, v in part.items() if k not in ("launches",)}
+    log(f"[rllib_algos] ({card}) {name}: " + json.dumps(brief, default=str))
+
+
+def phase_rllib_algos(device_info: dict) -> dict:
+    """The rest of RLlib on the port, every learner on cuda:0, the envs,
+    replay and offline files on the host: (a) DQN on CartPole-v1 at its
+    defaults, uniform and n_step=3 prioritized replay, ALGOS_DQN_STEPS env
+    steps each; (b) Ape-X with 2 shards and 2 runners; (c) SAC and TD3 on
+    Pendulum-v1 at their defaults, ALGOS_SAC_UPDATES updates each, their
+    rollouts teed to disk; (d) APPO at bench_impala's shape and A2C at
+    bench_ppo's; (e) offline: PPO's teed rollouts train BC, SAC's train CQL,
+    IS and WIS over the logs; (f) multi-agent PPO, shared and per-policy;
+    (g) f32 card against CPU of one update of each new learner. The
+    attention counters are set to 0 before each path and read after (none
+    may launch); the card memory after each part within LEFT_LIMIT_MIB of
+    its figure before."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+
+    t_phase = time.perf_counter()
+    card = device_info["smi"]
+    counters = _attention_counters()
+    summary = {}
+    logs = tempfile.mkdtemp(prefix="rllib_algos_")
+    sac_dir, td3_dir, ppo_dir = (os.path.join(logs, d) for d in ("sac", "td3", "ppo"))
+    ray_tpu_torch.init(num_cpus=8, num_gpus=1)
+    try:
+        for name, run in (("dqn", lambda: _algos_dqn(counters, False)),
+                          ("dqn_prioritized", lambda: _algos_dqn(counters, True)),
+                          ("apex", lambda: _algos_apex(counters)),
+                          ("sac", lambda: _algos_sac_td3(counters, "sac", sac_dir)),
+                          ("td3", lambda: _algos_sac_td3(counters, "td3", td3_dir)),
+                          ("appo", lambda: _algos_on_policy(counters, "appo")),
+                          ("a2c", lambda: _algos_on_policy(counters, "a2c")),
+                          ("offline", lambda: _algos_offline(counters, sac_dir, ppo_dir)),
+                          ("multi_agent", lambda: _algos_multi_agent(counters)),
+                          ("parity", lambda: _algos_parity(card))):
+            mem0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            summary[name] = run()
+            summary[name]["part_s"] = time.perf_counter() - t0
+            summary[name]["left_mib"] = _settle(mem0, f"rllib_algos {name}")
+            _algos_log(name, card, summary[name])
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(logs, ignore_errors=True)
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[rllib_algos] phase wall {summary['wall_s']:.1f}s")
+    return summary
+
+
 def _replace_attn():
     import dataclasses
 
@@ -4180,6 +4771,7 @@ def main() -> int:
     moe = phase_moe(server)
     tuned = phase_tune()
     rllib = phase_rllib(device)
+    algos = phase_rllib_algos(device)
     launches.update(profile["launches"])
     paths = {"server": server["launches"]}
     for line in loadgen["cells"]:
@@ -4194,6 +4786,12 @@ def main() -> int:
     paths["tune pbt"] = tuned["pbt"]["launches"]
     paths["rllib ppo"] = rllib["ppo"]["launches"]
     paths["rllib impala"] = rllib["impala"]["launches"]
+    for name in ("dqn", "dqn_prioritized", "apex", "sac", "td3", "appo", "a2c"):
+        paths[f"rllib {name}"] = algos[name]["launches"]
+    for name in ("bc", "cql"):
+        paths[f"rllib {name}"] = algos["offline"][name]["launches"]
+    for name in ("shared", "per_policy"):
+        paths[f"rllib multi-agent {name}"] = algos["multi_agent"][name]["launches"]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches, paths)))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@ same protocol the reference uses (tune/trainable/trainable.py:350).
 Devices: the learner runs on `learners(device=...)`, "cuda" by default; the
 env runners sample on `env_runners(sample_device=...)`, "cpu" by default.
 Naming CUDA without it raises at build time; nothing falls back to another
-device. Multi-agent training and offline IO are not ported yet and raise.
+device. Multi-agent envs sample through the multi-agent runners
+(`multi_agent(policies=...)` trains one learner per policy, each on the
+learner device); `offline_data(output=...)` tees sampled batches to a
+JsonWriter on the host, and `input_` feeds the offline algorithms (BC, CQL).
 """
 
 from __future__ import annotations
@@ -27,13 +30,6 @@ from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
 from ray_tpu_torch.rllib.evaluation.worker_set import EnvRunnerGroup
 from ray_tpu_torch.rllib.policy.sample_batch import SampleBatch, concat_samples
 from ray_tpu_torch.tune.trainable import Trainable
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ray_tpu_torch.rllib trains single-agent "
-        "PPO and IMPALA from sampled envs (ROADMAP.md §B9)"
-    )
 
 
 class AlgorithmConfig:
@@ -70,10 +66,14 @@ class AlgorithmConfig:
         self.num_cpus_per_learner: float = 1
         self.num_gpus_per_learner: float = 0
         self.learner_device: str = "cuda"
-        # multi-agent and offline IO (not ported: their setters raise)
+        # multi-agent: {policy_id: RLModuleSpec|None} + agent->policy mapping.
+        # None policies = shared-policy mode (agents flattened into one
+        # module, the common parameter-sharing configuration).
         self.policies: Optional[dict] = None
+        self.policy_mapping_fn: Optional[Any] = None
+        # offline IO: directory to tee sampled rollouts into (JsonWriter)
         self.output: Optional[str] = None
-        self.input_: Optional[str] = None
+        self.input_: Optional[str] = None  # offline dataset dir (BC/CQL)
         # debugging / reproducibility
         self.seed: Optional[int] = 0
         # internal
@@ -117,7 +117,15 @@ class AlgorithmConfig:
         return self
 
     def offline_data(self, *, input_=None, output=None) -> "AlgorithmConfig":
-        raise _not_ported("offline_data() (rllib/offline: JsonWriter, JsonReader)")
+        """Offline IO: `input_` is a directory of .jsonl batches for offline
+        algorithms (BC/CQL); `output` tees every sampled rollout to a
+        JsonWriter there (feeding off-policy estimation and later offline
+        training — reference AlgorithmConfig.offline_data)."""
+        if input_ is not None:
+            self.input_ = input_
+        if output is not None:
+            self.output = output
+        return self
 
     def training(self, **kwargs) -> "AlgorithmConfig":
         for k, v in kwargs.items():
@@ -132,7 +140,21 @@ class AlgorithmConfig:
         policies: Optional[Any] = None,
         policy_mapping_fn: Optional[Any] = None,
     ) -> "AlgorithmConfig":
-        raise _not_ported("multi_agent() (per-policy modules and multi-agent runners)")
+        """Per-policy multi-agent training (reference: marl_module.py +
+        AlgorithmConfig.multi_agent): `policies` maps policy ids to
+        RLModuleSpecs (None values derive specs from the env's spaces);
+        `policy_mapping_fn(agent_id, **kwargs) -> policy_id` routes each
+        agent. Every policy trains its own parameters with its own
+        optimizer state — independent per-policy optimization."""
+        if policies is not None:
+            self.policies = (
+                dict(policies)
+                if isinstance(policies, dict)
+                else {p: None for p in policies}
+            )
+        if policy_mapping_fn is not None:
+            self.policy_mapping_fn = policy_mapping_fn
+        return self
 
     def learners(
         self,
@@ -201,6 +223,35 @@ class AlgorithmConfig:
     def build_learner_group(self, spec: RLModuleSpec) -> LearnerGroup:
         learner_cls = self.get_default_learner_class()
         cfg = self
+        if self.policies:
+            from ray_tpu_torch.rllib.core.learner import MultiAgentLearner
+
+            # Per-policy init seeds (same formula as the runner) so policies
+            # start from independently-initialized parameters.
+            specs = {}
+            for offset, (pid, pspec) in enumerate(sorted(self.policies.items())):
+                s = pspec or spec
+                specs[pid] = RLModuleSpec(
+                    observation_space=s.observation_space,
+                    action_space=s.action_space,
+                    model_config=s.model_config,
+                    seed=(s.seed or 0) + 7727 * (offset + 1),
+                )
+            if self.num_learners:
+                raise ValueError(
+                    "per-policy multi-agent training requires a local learner "
+                    "group (num_learners=0) for now"
+                )
+
+            def builder():
+                return MultiAgentLearner(
+                    {
+                        pid: (lambda s=s: learner_cls(s, config=cfg))
+                        for pid, s in specs.items()
+                    }
+                )
+
+            return LearnerGroup(builder, num_learners=0)
 
         def builder():
             return learner_cls(spec, config=cfg)
@@ -235,10 +286,6 @@ class Algorithm(Trainable):
 
     def setup(self, config: dict) -> None:
         cfg = self.algo_config
-        if cfg.policies:
-            raise _not_ported("policies (per-policy multi-agent training)")
-        if cfg.output or cfg.input_:
-            raise _not_ported("offline IO (output=, input_=)")
         # Both devices are checked before any actor starts: a missing one
         # raises here, never after a fallback.
         resolve_device(cfg.learner_device)
@@ -258,6 +305,11 @@ class Algorithm(Trainable):
         self.learner_group = cfg.build_learner_group(spec)
         self.env_runner_group.sync_weights(self.learner_group.get_weights())
         self._env_steps_total = 0
+        self._output_writer = None
+        if getattr(cfg, "output", None):
+            from ray_tpu_torch.rllib.offline import JsonWriter
+
+            self._output_writer = JsonWriter(cfg.output)
 
     def step(self) -> dict:
         results = self.training_step()
@@ -277,6 +329,8 @@ class Algorithm(Trainable):
             batches.append(batch)
             count += batch.count
         train_batch = concat_samples(batches)
+        if self._output_writer is not None:
+            self._output_writer.write(train_batch)
         self._env_steps_total += train_batch.count
         learner_results = self.learner_group.update(train_batch)
         self.env_runner_group.sync_weights(
@@ -302,6 +356,8 @@ class Algorithm(Trainable):
             self.env_runner_group.sync_weights(self.learner_group.get_weights())
 
     def cleanup(self) -> None:
+        if getattr(self, "_output_writer", None) is not None:
+            self._output_writer.close()
         self.env_runner_group.stop()
         self.learner_group.shutdown()
 
@@ -310,7 +366,14 @@ class Algorithm(Trainable):
     def get_module(self, module_id: Optional[str] = None):
         if not self.learner_group.is_local:
             return None
-        return self.learner_group.local_learner.module
+        learner = self.learner_group.local_learner
+        from ray_tpu_torch.rllib.core.learner import MultiAgentLearner
+
+        if isinstance(learner, MultiAgentLearner):
+            if module_id is not None:
+                return learner[module_id].module
+            return {pid: learner[pid].module for pid in learner.keys()}
+        return learner.module
 
     def compute_single_action(self, obs, explore: bool = False):
         """Serving-style single-action inference (reference algorithm.py

@@ -220,6 +220,8 @@ class IMPALA(Algorithm):
                 batches.append(b)
                 count += b.count
             train_batch = concat_samples(batches)
+            if self._output_writer is not None:
+                self._output_writer.write(train_batch)
             self._env_steps_total += train_batch.count
             results = self.learner_group.update(train_batch)
             group.sync_weights(
@@ -320,6 +322,8 @@ class IMPALA(Algorithm):
                 if train_batch is None:
                     continue
                 self._env_steps_total += train_batch.count
+                if self._output_writer is not None:
+                    self._output_writer.write(train_batch)
                 # Bounded queue = backpressure: sampling throttles when the
                 # learner falls behind, capping policy lag.
                 self._queue.put(train_batch)

@@ -174,6 +174,8 @@ class PPO(Algorithm):
         if not batches:
             raise RuntimeError("All env runners failed to sample")
         train_batch = concat_samples(batches)
+        if self._output_writer is not None:
+            self._output_writer.write(train_batch)
         self._env_steps_total += train_batch.count
         learner_results = self.learner_group.update(train_batch)
         self.env_runner_group.sync_weights(

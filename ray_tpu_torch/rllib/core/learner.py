@@ -8,7 +8,10 @@ card by default): the train batch is copied there once per update, each
 minibatch is gathered there, and the per-minibatch metrics stay there until
 one copy to the host at the end of the update. Subclasses implement
 `compute_loss(params, batch, rng, extra)` returning (scalar_loss,
-metrics_dict); everything else is generic.
+metrics_dict); everything else is generic. A loss that consumes random
+draws (SAC's squashed samples, TD3's smoothing noise, CQL's action sets)
+gets them as `rng`: `sample_noise(batch)` draws them first from the
+learner's device generator, so the loss is a pure function of its noise.
 
 The optimizer is optax's `chain(clip_by_global_norm(clip), adam(lr))`
 written out in torch in optax's order of operations (`ClippedAdam`):
@@ -175,6 +178,12 @@ class Learner:
     ) -> Tuple[torch.Tensor, dict]:
         raise NotImplementedError
 
+    def sample_noise(self, batch: Mapping) -> Any:
+        """The random draws `compute_loss` consumes on `batch` (a minibatch
+        on the device), made from the learner's device generator before the
+        loss runs; the generator itself for losses that draw nothing."""
+        return self._rng
+
     # -- update path -------------------------------------------------------
 
     def update(self, batch: SampleBatch) -> dict:
@@ -231,7 +240,8 @@ class Learner:
 
     def _loss_and_grads(self, batch: Mapping):
         params = self.module.params
-        loss, metrics = self.compute_loss(params, batch, self._rng, self.extra_train_state)
+        loss, metrics = self.compute_loss(params, batch, self.sample_noise(batch),
+                                          self.extra_train_state)
         tensors = list(params.values())
         grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(tensors, grads)]
@@ -309,7 +319,16 @@ class Learner:
                 for k, v in opt[moment].items():
                     self._opt_state[moment][k].copy_(torch.as_tensor(v))
         self._opt_state["count"] = int(opt["count"])
-        self.extra_train_state = state.get("extra", self.extra_train_state)
+        if "extra" in state:
+            # Target networks come back to the learner's device.
+            def to_device(tree):
+                if isinstance(tree, torch.Tensor):
+                    return tree.to(self.device, copy=True)
+                if isinstance(tree, dict):
+                    return {k: to_device(v) for k, v in tree.items()}
+                return tree
+
+            self.extra_train_state = to_device(state["extra"])
 
 
 class MultiAgentLearner:

@@ -3,7 +3,9 @@
 Reference: rllib/core/learner/learner_group.py:61. Two modes mirroring the
 reference's `num_learners == 0` (local) vs `>= 1` (remote actors):
 
-* local: one Learner in-process, on its device (the card by default);
+* local: one Learner in-process, on its device (the card by default), or
+  a MultiAgentLearner holding one such Learner per policy (per-policy
+  multi-agent training is local only, as in the reference);
 * remote: N learner actors, each building the same Learner; a train batch is
   sharded across them, each computes gradients, the group averages the
   host copies of the gradients and applies the average everywhere, so every

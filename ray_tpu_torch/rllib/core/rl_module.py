@@ -150,18 +150,26 @@ class QNet(nn.Module):
 
 
 def params_from_flax(flax_params: Mapping, net: nn.Module) -> dict:
-    """The JAX package's parameters of a PiVfNet / QNet as `net`'s state
-    dict: every Dense `kernel [in, out]` becomes `weight [out, in]`, `bias`
-    stays. `flax_params` is the module's `params` (with or without the
-    top-level "params" key), as numpy or JAX arrays."""
+    """The JAX package's parameters of a net as `net`'s state dict: every
+    Dense `kernel [in, out]` becomes `weight [out, in]`, `bias` stays, and a
+    Dense nested in a submodule (SAC's and TD3's `pi.fc_0`, `q1.out`, ...)
+    is found down the same path of flax's tree; a bare parameter of the net
+    (SAC's scalar `log_alpha`) is copied as it is. `flax_params` is the
+    module's `params` (with or without the top-level "params" key), as
+    numpy or JAX arrays."""
     p = flax_params.get("params", flax_params)
     out = {}
-    for name, child in net.named_children():
+    for path, child in net.named_modules():
         if isinstance(child, nn.Linear):
-            layer = p[name]
-            out[f"{name}.weight"] = torch.from_numpy(
+            layer = p
+            for part in path.split("."):
+                layer = layer[part]
+            out[f"{path}.weight"] = torch.from_numpy(
                 np.array(layer["kernel"], dtype=np.float32).T.copy())
-            out[f"{name}.bias"] = torch.from_numpy(np.array(layer["bias"], dtype=np.float32))
+            out[f"{path}.bias"] = torch.from_numpy(np.array(layer["bias"], dtype=np.float32))
+    for name, param in net.named_parameters(recurse=False):
+        out[name] = torch.from_numpy(
+            np.array(p[name], dtype=np.float32).reshape(tuple(param.shape)))
     missing = set(net.state_dict()) - set(out)
     if missing:
         raise KeyError(f"flax parameters lack {sorted(missing)}")

@@ -14,36 +14,7 @@ from typing import Any, Optional
 
 import ray_tpu_torch
 from ray_tpu_torch.rllib.evaluation.env_runner import EnvRunner, RemoteEnvRunner
-from ray_tpu_torch.rllib.env.env import MultiAgentEnv, make_env
 from ray_tpu_torch.rllib.policy.sample_batch import SampleBatch, concat_samples
-
-
-_PROBE_CACHE: dict = {}
-
-
-def is_multi_agent_env(env_spec, env_config) -> bool:
-    """Class-check without instantiation when the spec is a class; registered
-    names/callables are probed once and cached (envs may bind simulators or
-    sockets — don't pay that per worker-group construction). A copy of the
-    JAX package's (evaluation/multi_agent_runner.py), whose runners are not
-    ported."""
-    if isinstance(env_spec, type):
-        return issubclass(env_spec, MultiAgentEnv)
-    key = None
-    try:
-        # str specs key by value; callables by identity (the cache holds the
-        # callable, keeping its id stable).
-        key = (env_spec, repr(sorted((env_config or {}).items())))
-        if key in _PROBE_CACHE:
-            return _PROBE_CACHE[key]
-    except TypeError:
-        key = None  # unhashable spec: probe every time
-    probe = make_env(env_spec, env_config)
-    result = isinstance(probe, MultiAgentEnv)
-    probe.close()
-    if key is not None:
-        _PROBE_CACHE[key] = result
-    return result
 
 
 class EnvRunnerGroup:
@@ -54,17 +25,28 @@ class EnvRunnerGroup:
         self._remote: dict[int, Any] = {}
         self._weights: Any = None
         self._global_filter_stat = None
-        # Multi-agent sampling (the shared-policy and per-policy runners) is
-        # not ported yet.
-        if getattr(config, "policies", None) or is_multi_agent_env(
-            config.env, getattr(config, "env_config", None) or {}
-        ):
-            raise NotImplementedError(
-                "multi-agent envs and policies are not ported yet: "
-                "ray_tpu_torch.rllib samples single-agent envs only (ROADMAP.md §B9)"
-            )
-        self._runner_cls = EnvRunner
-        self._remote_runner_cls = RemoteEnvRunner
+        from ray_tpu_torch.rllib.evaluation.multi_agent_runner import (
+            MultiAgentEnvRunner,
+            PerPolicyMultiAgentRunner,
+            RemoteMultiAgentEnvRunner,
+            RemotePerPolicyMultiAgentRunner,
+            is_multi_agent_env,
+        )
+
+        # Multi-agent envs sample through the shared-policy runner; the
+        # interface is identical so everything downstream is unchanged.
+        if is_multi_agent_env(config.env, getattr(config, "env_config", None) or {}):
+            if getattr(config, "policies", None):
+                # Per-policy mode: distinct modules routed by
+                # policy_mapping_fn, MultiAgentBatch samples.
+                self._runner_cls = PerPolicyMultiAgentRunner
+                self._remote_runner_cls = RemotePerPolicyMultiAgentRunner
+            else:
+                self._runner_cls = MultiAgentEnvRunner
+                self._remote_runner_cls = RemoteMultiAgentEnvRunner
+        else:
+            self._runner_cls = EnvRunner
+            self._remote_runner_cls = RemoteEnvRunner
         if local or self.num_workers == 0:
             self.local_runner = self._runner_cls(config, worker_index=0)
         for i in range(1, self.num_workers + 1):

@@ -381,14 +381,17 @@ def test_refusals():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             _cpu(PPOConfig().environment("CartPole-v1")
                  .env_runners(sample_device="cuda")).build()
-    with pytest.raises(NotImplementedError, match="§B9"):
-        PPOConfig().multi_agent(policies={"a", "b"})
-    with pytest.raises(NotImplementedError, match="§B9"):
-        PPOConfig().offline_data(output="/nowhere")
-    with pytest.raises(NotImplementedError, match="§B9"):
-        _cpu(PPOConfig().environment("MultiAgentCartPole")).build()
-    with pytest.raises(NotImplementedError, match="§B9"):
-        _cpu(PPOConfig().environment("CartPole-v1").training(policies={"a": None})).build()
+        # The slice's algorithms and paths default to the card as well.
+        from ray_tpu_torch.rllib.algorithms.dqn import DQNConfig
+        from ray_tpu_torch.rllib.algorithms.sac import SACConfig
+
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DQNConfig().environment("CartPole-v1").build()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            SACConfig().environment("Pendulum-v1").build()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PPOConfig().environment("MultiAgentCartPole").multi_agent(
+                policies=["a", "b"]).build()
     from ray_tpu_torch.rllib.core.learner import Learner
 
     with pytest.raises(NotImplementedError, match="§B7"):
