@@ -178,13 +178,32 @@ Phases, each fatal on failure:
      new learner (DQN, SAC, TD3, CQL, A2C, APPO, BC) on the same batch,
      weights and noise, by RLLIB_PARITY. No attention kernel launched on
      any path, each counted from 0 just before it. `[rllib_algos]` lines.
+ 17. data    — Ray Data (ray_tpu_torch.data) feeding TorchTrainer through
+     datasets=: (a) range_tensor(96, shape=(8,)) through
+     iter_device_batches(batch_size=32): 3 batches on cuda:0, bit for bit
+     iter_batches' host batches, each next batch's copy enqueued (pinned
+     memory, a copy stream) before a batch is handed out, by the
+     iterator's own order log; (b) GPT-2 125M from a Dataset (seeded int64
+     token rows, random_shuffle(seed=0), map_batches into input and
+     target) on two workers at half the card each on cuda:0, each reading
+     get_dataset_shard("train").iter_device_batches(batch_size=8) for 5
+     steps with "auto" attention (no gradient sync between them): K2 and
+     K3 12 a step per worker, K4-K7 none, finite losses, the ranks' rows
+     disjoint and every row read once, the samples clock at the rows read;
+     step p50 beside the trainer phase's, the data_wait share of each
+     round, samples/s and data_blame; (c) ResNet-50 at bench.py's shape
+     from a Dataset of seeded uint8 HWC images made on the host (38.5 MB a
+     batch) through iter_device_batches, scaled into bf16 on the card, 2
+     warm-up and 5 timed steps: no attention launch, the first batch's
+     checksums on the card equal to the host's, images/s beside the resnet
+     phase's and the data_wait share of each step. `[data]` lines.
 After each teardown (serve, every loadgen cell, loadgen, fabric, moe, each
-tune fit(), each rllib and rllib_algos part) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
+tune fit(), each rllib and rllib_algos part, each data fit()) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
 its figure before the run; beyond it the script prints what holds the
 memory (`_card_holders`) and fails.
 The last two lines are the kernels JSON (K1's, K2's, K3's, K6's and K7's
 entries also carry their launches on every later path, `launches_by_path`, the
-rllib paths' zeros among them) and the
+rllib and data resnet paths' zeros among them) and the
 {"ok": true, ...} contract.
 """
 
@@ -4658,6 +4677,333 @@ def phase_rllib_algos(device_info: dict) -> dict:
     return summary
 
 
+# The data phase: Ray Data (ray_tpu_torch.data) feeding TorchTrainer through
+# datasets=, streamed by the port's executor and copied to the card by
+# iter_device_batches. GPT-2 125M on two workers at half the card each: N =
+# workers x rows a step x steps seeded token rows in DATA_BLOCKS blocks (each
+# block's rows a multiple of the block count, so the seeded shuffle's
+# repartition keeps every block the same size and the round-robin split
+# gives each rank the same rows). ResNet-50 at bench.py's shape from seeded
+# uint8 images made on the host.
+DATA_WORKERS, DATA_GPU = 2, 0.5
+DATA_GPT_B, DATA_GPT_STEPS, DATA_BLOCKS = 8, 5, 4
+DATA_ROW_KEY = 8  # leading tokens that name a row (asserted unique)
+DATA_RESNET_WARMUP, DATA_RESNET_TIMED = 2, 5
+_DATA = {"lock": threading.Lock(), "ranks": {}}
+
+
+def _data_device_batches() -> dict:
+    """range_tensor(96, shape=(8,)) through iter_device_batches(batch_size=32)
+    on cuda:0: 3 batches of (32, 8) on cuda:0, bit for bit iter_batches'
+    host batches, and the copy of batch N+1 enqueued before batch N was
+    handed out (the iterator's own order log)."""
+    from ray_tpu_torch import data as rd
+
+    ds = rd.range_tensor(96, shape=(8,), parallelism=4)
+    host = list(ds.iter_batches(batch_size=32, drop_last=True))
+    it = ds.iter_device_batches(batch_size=32)
+    got = list(it)
+    torch.cuda.synchronize()
+    if len(got) != 3 or len(host) != 3:
+        fail(f"[data] device batches: {len(got)} on the card, {len(host)} on the host, not 3")
+    for g, h in zip(got, host):
+        t = g["data"]
+        if t.device != torch.device("cuda", 0) or tuple(t.shape) != (32, 8):
+            fail(f"[data] device batch on {t.device}, shape {tuple(t.shape)}")
+        if not torch.equal(t.cpu(), torch.from_numpy(h["data"])):
+            fail("[data] a device batch differs from its host batch")
+    ahead = all(it.order.index(("copy", n + 1)) < it.order.index(("yield", n))
+                for n in range(len(got) - 1))
+    if not ahead or it.copies_ahead != len(got) - 1:
+        fail(f"[data] the next batch's copy was not enqueued before a batch was "
+             f"handed out: {it.order}")
+    out = {"batches": len(got), "shape": [32, 8], "dtype": str(got[0]["data"].dtype),
+           "bit_for_bit": True, "order": [f"{a} {n}" for a, n in it.order],
+           "copies_ahead": it.copies_ahead}
+    log("[data] device batches: " + json.dumps(out))
+    return out
+
+
+def _data_gpt_loop(config):
+    """A worker's loop: GPT-2 125M (attention_impl="auto", bf16 on f32
+    parameters) takes one fused_adamw step on each batch of its shard of
+    the Dataset, read with iter_device_batches on its device. Per rank it
+    records in _DATA the leading tokens of each batch's rows, the losses,
+    each step's wall and the wait for each batch."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import cross_entropy_loss
+    from ray_tpu_torch.models.gpt import GPT, gpt2_125m
+    from ray_tpu_torch.ops import fused_adamw
+
+    device = train.get_device()
+    rank = train.get_world_rank()
+    model = GPT(gpt2_125m(attention_impl="auto"), device=device, seed=0)
+    params = dict(model.named_parameters())
+    opt = fused_adamw(LR)
+    state = {"opt": opt.init(params)}
+
+    def step(batch):
+        loss = cross_entropy_loss(model(batch["input"]), batch["target"])
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        _, state["opt"] = opt.apply(grads, state["opt"], params)
+        return loss.detach()
+
+    step = train.prepare_step(step)
+    seen = {"rows": [], "losses": [], "step_s": [], "wait_s": [], "devices": set(),
+            "dtypes": set()}
+    shard = train.get_dataset_shard("train")
+    t_wait = time.perf_counter()
+    for i, batch in enumerate(shard.iter_device_batches(batch_size=DATA_GPT_B, device=device)):
+        seen["wait_s"].append(time.perf_counter() - t_wait)
+        seen["devices"].update(str(t.device) for t in batch.values())
+        seen["dtypes"].update(str(t.dtype) for t in batch.values())
+        t0 = time.perf_counter()
+        loss = step(batch)
+        wall = time.perf_counter() - t0
+        seen["rows"] += batch["input"][:, :DATA_ROW_KEY].cpu().tolist()
+        seen["losses"].append(loss.item())
+        seen["step_s"].append(wall)
+        train.report({"step": i, "loss": seen["losses"][-1], "step_s": wall})
+        t_wait = time.perf_counter()
+    with _DATA["lock"]:
+        _DATA["ranks"][rank] = seen
+
+
+def _data_images(batch: dict) -> dict:
+    """map_batches fn: seeded uint8 HWC images (RESNET_HW square, 3
+    channels) and int64 labels for a block of ids, seeded by its first id."""
+    ids = batch["id"]
+    rng = np.random.default_rng(int(ids[0]))
+    return {"image": rng.integers(0, 256, (len(ids), RESNET_HW, RESNET_HW, 3), dtype=np.uint8),
+            "label": rng.integers(0, 1000, len(ids), dtype=np.int64)}
+
+
+def _checksums(flat) -> list:
+    """The plain and the position-weighted sum of a flat integer array
+    (a torch tensor on any device, or numpy)."""
+    if isinstance(flat, torch.Tensor):
+        flat = flat.to(torch.int64)
+        weight = torch.arange(flat.numel(), device=flat.device) % 65521 + 1
+        return [flat.sum().item(), (flat * weight).sum().item()]
+    flat = flat.astype(np.int64)
+    weight = np.arange(flat.size, dtype=np.int64) % 65521 + 1
+    return [int(flat.sum()), int((flat * weight).sum())]
+
+
+def _data_resnet_loop(config):
+    """The worker's loop: ResNet-50 (bf16 on f32 parameters, GroupNorm,
+    SGD(0.1, momentum 0.9)) on batches read with iter_device_batches,
+    scaled on the card from uint8 into bf16 in [-1, 1]. Each step reports
+    its loss, the step's wall and the iteration's (the wait for the batch,
+    the scaling and the step); the first also the checksums of its images
+    on the card."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import ResNet50
+
+    device = train.get_device()
+    model = ResNet50(num_classes=1000, device=device, seed=0)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    step = train.prepare_step(lambda images, labels: _resnet_step(model, opt, images, labels))
+    shard = train.get_dataset_shard("train")
+    t_iter = time.perf_counter()
+    for i, batch in enumerate(shard.iter_device_batches(batch_size=RESNET_B, device=device)):
+        raw = batch["image"]
+        checksums = _checksums(raw.reshape(-1)) if i == 0 else None
+        images = (raw.float() * (2.0 / 255.0) - 1.0).to(torch.bfloat16)
+        t0 = time.perf_counter()
+        loss = step(images, batch["label"]).item()
+        t1 = time.perf_counter()
+        train.report({"step": i, "warmup": i < config["warmup"], "loss": loss,
+                      "step_s": t1 - t0, "iter_s": t1 - t_iter, "checksums": checksums,
+                      "device": str(raw.device), "dtype": str(raw.dtype),
+                      "label_dtype": str(batch["label"].dtype)})
+        t_iter = time.perf_counter()
+
+
+def _data_fit(loop, ds, scaling, config, counters) -> tuple:
+    """TorchTrainer(datasets={"train": ds}, instrumented) on cuda:0 with the
+    launch counters set to 0 just before fit() and read just after, the
+    card memory after it within LEFT_LIMIT_MIB of the figure before."""
+    from ray_tpu_torch.train import TorchBackendConfig, TorchTrainer, TrainConfig
+
+    trainer = TorchTrainer(
+        loop, train_loop_config=config, datasets={"train": ds}, scaling_config=scaling,
+        backend_config=TorchBackendConfig(device="cuda:0"),
+        train_config=TrainConfig(instrument=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    if result.error is not None:
+        fail(f"[data] TorchTrainer.fit() failed: {result.error!r}")
+    del trainer
+    return result, wall, launches, mem0
+
+
+def _round_shares(report: dict) -> dict:
+    """From a train_report: each round's data_wait share per rank
+    (data_wait over the round's duration), samples a second by round (all
+    ranks' samples over the slowest rank's duration), and the data_blame
+    each rank's rounds carried."""
+    shares, rates, blame = [], [], set()
+    for row in report["rounds"]:
+        ranks = row["ranks"]
+        shares.append([r["phases"]["data_wait"] / r["duration_s"] for r in ranks])
+        rates.append(sum(r["samples"] for r in ranks) / max(r["duration_s"] for r in ranks))
+        blame.update(r.get("data_blame") for r in ranks if r.get("data_blame"))
+    return {"data_wait_share_by_round": shares, "samples_per_s_by_round": rates,
+            "data_blame": sorted(blame)}
+
+
+def _data_gpt(trainer: dict, counters: dict) -> dict:
+    """GPT-2 125M from a Dataset through TorchTrainer on two workers at half
+    the card each: launches (K2 and K3 12 a step per worker, K4-K7 none),
+    finite losses, the ranks' rows disjoint and every row read once."""
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.models.gpt import gpt2_125m
+    from ray_tpu_torch.train import ScalingConfig
+
+    layers = gpt2_125m().num_layers
+    n_rows = DATA_WORKERS * DATA_GPT_B * DATA_GPT_STEPS
+    tokens = np.random.RandomState(0).randint(0, 50257, (n_rows, TRAIN_S + 1)).astype(np.int64)
+    keys = {tuple(row[:DATA_ROW_KEY]): r for r, row in enumerate(tokens.tolist())}
+    if len(keys) != n_rows:
+        fail("[data gpt2] the rows' leading tokens do not name them apart")
+    per_block = n_rows // DATA_BLOCKS
+    ds = (rd.from_numpy([tokens[b * per_block:(b + 1) * per_block] for b in range(DATA_BLOCKS)])
+          .random_shuffle(seed=0)
+          .map_batches(lambda b: {"input": b["data"][:, :-1], "target": b["data"][:, 1:]}))
+    _DATA["ranks"] = {}
+    scaling = ScalingConfig(num_workers=DATA_WORKERS, resources_per_worker={"GPU": DATA_GPU})
+    result, wall, launches, mem0 = _data_fit(_data_gpt_loop, ds, scaling, {}, counters)
+    ranks = dict(_DATA["ranks"])
+    _DATA["ranks"] = {}
+    want = {k: (layers * DATA_GPT_STEPS * DATA_WORKERS
+                if k in ("K2 flash_fwd", "K3 flash_bwd_fused") else 0)
+            for k in launches if k != "K1 paged_attention"}
+    got = {k: v for k, v in launches.items() if k != "K1 paged_attention"}
+    if got != want:
+        fail(f"[data gpt2] launches {got}, not {want}")
+    if sorted(ranks) != list(range(DATA_WORKERS)):
+        fail(f"[data gpt2] ranks that finished: {sorted(ranks)}")
+    rows = {r: [keys.get(tuple(k)) for k in seen["rows"]] for r, seen in ranks.items()}
+    everything = [x for r in rows.values() for x in r]
+    if None in everything or sorted(everything) != list(range(n_rows)):
+        fail(f"[data gpt2] the ranks' rows are not every row once: {rows}")
+    for r, seen in ranks.items():
+        if len(seen["losses"]) != DATA_GPT_STEPS or not all(np.isfinite(seen["losses"])):
+            fail(f"[data gpt2] rank {r} losses {seen['losses']}")
+        if seen["devices"] != {"cuda:0"} or seen["dtypes"] != {"torch.int64"}:
+            fail(f"[data gpt2] rank {r} batches on {seen['devices']} as {seen['dtypes']}")
+    steps = [s for seen in ranks.values() for s in seen["step_s"][1:]]
+    shares = _round_shares(result.train_report)
+    out = {
+        "model": "gpt2_125m bf16 (f32 params), attention_impl=auto, from a Dataset",
+        "workers": DATA_WORKERS, "gpu_per_worker": DATA_GPU, "B": DATA_GPT_B, "S": TRAIN_S,
+        "steps": DATA_GPT_STEPS, "rows": n_rows, "blocks": DATA_BLOCKS,
+        "rows_by_rank": {r: sorted(v) for r, v in rows.items()},
+        "losses_by_rank": {r: seen["losses"] for r, seen in ranks.items()},
+        "step_s_by_rank": {r: seen["step_s"] for r, seen in ranks.items()},
+        "batch_wait_s_by_rank": {r: seen["wait_s"] for r, seen in ranks.items()},
+        "step_p50_s": statistics.median(steps),
+        "trainer_phase_step_p50_s": trainer["step_p50_s"],
+        "samples_total": result.train_report["samples_total"],
+        "samples_per_s_p50": statistics.median(shares["samples_per_s_by_round"][1:]),
+        **shares, "fit_wall_s": wall, "launches": launches,
+    }
+    if out["samples_total"] != n_rows:
+        fail(f"[data gpt2] samples clock {out['samples_total']}, not {n_rows}")
+    del result
+    out["left_mib"] = _settle(mem0, "data gpt2")
+    return out
+
+
+def _data_resnet(resnet: dict, counters: dict) -> dict:
+    """ResNet-50 at bench.py's shape from a Dataset of seeded uint8 images
+    made on the host, through TorchTrainer on one worker on cuda:0: no
+    attention kernel launched, finite losses, the first batch's checksums
+    on the card equal to the host's."""
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.train import ScalingConfig
+
+    n = DATA_RESNET_WARMUP + DATA_RESNET_TIMED
+    ds = rd.range(RESNET_B * n, parallelism=n).map_batches(_data_images, batch_size=RESNET_B)
+    host_first = _checksums(_data_images({"id": np.arange(RESNET_B)})["image"].reshape(-1))
+    result, wall, launches, mem0 = _data_fit(
+        _data_resnet_loop, ds, ScalingConfig(num_workers=1),
+        {"warmup": DATA_RESNET_WARMUP}, counters)
+    history = result.metrics_history
+    losses = [m["loss"] for m in history]
+    if len(history) != n or not all(np.isfinite(losses)):
+        fail(f"[data resnet] losses {losses}")
+    if any(launches.values()):
+        fail(f"[data resnet] attention kernels launched on the ResNet path: {launches}")
+    first = history[0]
+    if first["checksums"] != host_first:
+        fail(f"[data resnet] first batch's checksums {first['checksums']} on the card, "
+             f"{host_first} on the host")
+    if {(m["device"], m["dtype"], m["label_dtype"]) for m in history} != {
+            ("cuda:0", "torch.uint8", "torch.int64")}:
+        fail(f"[data resnet] batches not uint8 / int64 on cuda:0: {history[0]}")
+    timed = [m for m in history if not m["warmup"]]
+    iter_p50 = statistics.median(m["iter_s"] for m in timed)
+    shares = _round_shares(result.train_report)
+    out = {
+        "model": "resnet50 bf16 (f32 params), GroupNorm, SGD(0.1, momentum 0.9), from a Dataset",
+        "B": RESNET_B, "HW": RESNET_HW, "batch_mb": RESNET_B * RESNET_HW * RESNET_HW * 3 / 1e6,
+        "steps": {"warmup": DATA_RESNET_WARMUP, "timed": DATA_RESNET_TIMED},
+        "losses": losses, "step_s": [m["step_s"] for m in history],
+        "iter_s": [m["iter_s"] for m in history],
+        "step_p50_s": statistics.median(m["step_s"] for m in timed), "iter_p50_s": iter_p50,
+        "images_per_s": RESNET_B / iter_p50,
+        "resnet_phase_images_per_s": resnet["images_per_s"],
+        "first_batch_checksums": first["checksums"], **shares,
+        "fit_wall_s": wall, "launches": launches,
+    }
+    del result, history
+    out["left_mib"] = _settle(mem0, "data resnet")
+    return out
+
+
+def phase_data(device_info: dict, trainer: dict, resnet: dict) -> dict:
+    """Ray Data on the port feeding the trainer on the card (phase 17):
+    device batches one batch ahead; GPT-2 125M from a shuffled Dataset on
+    two workers at half the card; ResNet-50 B256 from a Dataset of host
+    images. Each fit() with the attention counters set to 0 just before it
+    and read just after, and the card memory after it within LEFT_LIMIT_MIB
+    of its figure before."""
+    import ray_tpu_torch
+
+    t_phase = time.perf_counter()
+    card = device_info["smi"]
+    counters = _attention_counters()
+    summary = {}
+    ray_tpu_torch.init(num_cpus=8, num_gpus=1)
+    try:
+        summary["device_batches"] = _data_device_batches()
+        summary["gpt2"] = _data_gpt(trainer, counters)
+        log("[data] gpt2 " + json.dumps({"card": card, **summary["gpt2"]}))
+        summary["resnet"] = _data_resnet(resnet, counters)
+        log("[data] resnet " + json.dumps({"card": card, **summary["resnet"]}))
+    finally:
+        ray_tpu_torch.shutdown()
+    g, r = summary["gpt2"], summary["resnet"]
+    log(f"[data] gpt2 from a Dataset: step p50 {g['step_p50_s'] * 1e3:.1f} ms on two workers "
+        f"sharing the card (trainer phase, one worker: {g['trainer_phase_step_p50_s'] * 1e3:.1f} "
+        f"ms), {g['samples_per_s_p50']:.1f} samples/s, data_blame {g['data_blame']}; resnet50 "
+        f"from a Dataset: {r['images_per_s']:.1f} images/s (resnet phase, data on the card: "
+        f"{r['resnet_phase_images_per_s']:.1f}); {card}")
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[data] phase wall {summary['wall_s']:.1f}s")
+    return summary
+
+
 def _replace_attn():
     import dataclasses
 
@@ -4723,7 +5069,7 @@ def kernels_line(rows: list, launches: dict, paths: dict) -> dict:
     path; `paths` maps every later path (each counted from 0 just before it
     ran) to its counts, which the entries of the kernels it launched (K1
     and K2 serving, K6 and K7 training the MoE GPT, K2 and K3 the Tune
-    trials) carry as `launches_by_path`."""
+    trials and the GPT fed by a Dataset) carry as `launches_by_path`."""
     out = []
     for name, meta in KERNELS.items():
         row = next(r for r in rows if r["kernel"] == name
@@ -4767,11 +5113,12 @@ def main() -> int:
     phase_serve(server)
     loadgen = phase_loadgen()
     fabric = phase_fabric()
-    phase_resnet(device)
+    resnet = phase_resnet(device)
     moe = phase_moe(server)
     tuned = phase_tune()
     rllib = phase_rllib(device)
     algos = phase_rllib_algos(device)
+    data = phase_data(device, trainer, resnet)
     launches.update(profile["launches"])
     paths = {"server": server["launches"]}
     for line in loadgen["cells"]:
@@ -4792,6 +5139,8 @@ def main() -> int:
         paths[f"rllib {name}"] = algos["offline"][name]["launches"]
     for name in ("shared", "per_policy"):
         paths[f"rllib multi-agent {name}"] = algos["multi_agent"][name]["launches"]
+    paths["data gpt2"] = data["gpt2"]["launches"]
+    paths["data resnet"] = data["resnet"]["launches"]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches, paths)))
     print(json.dumps({"ok": True, "device": {

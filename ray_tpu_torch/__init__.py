@@ -12,6 +12,14 @@ on the CPU every kernel wrapper runs its plain PyTorch version. Importing
 the package creates no CUDA context.
 """
 
+import os as _os
+
+# pyarrow's bundled jemalloc pool can corrupt itself under heavy thread churn
+# (runtime shutdown's pool-thread exits followed by an arrow call segfault);
+# the system allocator does not. It must be set before pyarrow's first
+# import, which ray_tpu_torch.data defers to blocks or files of its formats.
+_os.environ.setdefault("ARROW_DEFAULT_MEMORY_POOL", "system")
+
 from ray_tpu_torch import exceptions
 from ray_tpu_torch.actor import ActorClass, ActorHandle, method
 from ray_tpu_torch.api import (

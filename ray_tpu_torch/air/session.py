@@ -108,9 +108,14 @@ def get_dataset_shard(name: str = "train"):
     shards = session.dataset_shards
     if name not in shards:
         raise KeyError(f"No dataset shard named {name!r}; have {list(shards)}")
-    # Shards are plain lists (DataParallelTrainer refuses Datasets until
-    # the data slice), already materialized: nothing to wait on.
-    return shards[name]
+    shard = shards[name]
+    # Instrumented sessions see the shard through a data_wait clock; list
+    # shards (already materialized, nothing to wait on) pass through.
+    if session.profiler is not None and hasattr(shard, "iter_batches"):
+        from ray_tpu_torch.train.observability import ProfiledDataIterator
+
+        return ProfiledDataIterator(shard, session.profiler)
+    return shard
 
 
 def get_world_rank() -> int:

@@ -42,12 +42,6 @@ class DataParallelTrainer:
         self.run_config = run_config or RunConfig()
         self.train_config = train_config or TrainConfig()
         self._datasets = dict(datasets or {})
-        for name, ds in self._datasets.items():
-            if hasattr(ds, "streaming_split") or hasattr(ds, "iter_batches"):
-                raise NotImplementedError(
-                    f"datasets[{name!r}]: Dataset shards (ray_tpu.data) are "
-                    "not ported (ROADMAP.md §B9); pass a list"
-                )
         self._resume_checkpoint = resume_from_checkpoint
         self._latest_checkpoint: Optional[Checkpoint] = None
         self._result_callbacks: list[Callable[[dict], None]] = []
@@ -120,14 +114,32 @@ class DataParallelTrainer:
     # -- dataset sharding ----------------------------------------------------
 
     def _dataset_shard_fn(self, rank: int, world_size: int) -> Optional[dict]:
-        """Plain-list shards: rank r gets items r, r + world_size, ...; any
-        other value goes to every rank as it is."""
+        """A Dataset (anything with `streaming_split`) gives rank r the r-th
+        of `world_size` iterators over one pass of its stream; a list gives
+        rank r items r, r + world_size, ...; any other value goes to every
+        rank as it is."""
         if not self._datasets:
             return None
-        return {
-            name: ds[rank::world_size] if isinstance(ds, (list, tuple)) else ds
-            for name, ds in self._datasets.items()
-        }
+        # streaming_split iterators share ONE coordinator: build the split
+        # once per (dataset, world_size) and hand rank-th iterators out.
+        # Per-rank splits would each spawn a coordinator whose other n-1
+        # queues nobody drains — the feeder blocks and training hangs.
+        cache = getattr(self, "_split_cache", None)
+        if cache is None:
+            cache = self._split_cache = {}
+        shards = {}
+        for name, ds in self._datasets.items():
+            split = getattr(ds, "streaming_split", None)
+            if split is not None:
+                key = (name, world_size)
+                if key not in cache:
+                    cache[key] = ds.streaming_split(world_size)
+                shards[name] = cache[key][rank]
+            elif isinstance(ds, (list, tuple)):
+                shards[name] = ds[rank::world_size]
+            else:
+                shards[name] = ds
+        return shards
 
     # -- fit -----------------------------------------------------------------
 
@@ -164,6 +176,9 @@ class DataParallelTrainer:
                     # the re-form (e.g. placement raced node-failure
                     # detection) counts as another recoverable failure.
                     executor.restart()
+                    # Fresh split coordinators per attempt: after a worker
+                    # failure the old iterators are mid-stream/exhausted.
+                    self._split_cache = {}
                     self._run_training(executor, ckpt_manager, history, run)
                     break
                 except TrainingWorkerError as exc:

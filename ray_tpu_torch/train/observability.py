@@ -10,7 +10,8 @@ gated by ``TrainConfig.instrument`` the way the engine plane is gated by
 
       - ``report``     time blocked in the rendezvous (driver consumption);
                        always at the start of the round it is recorded in
-      - ``data_wait``  ``prepare_batch`` (the host→device copy)
+      - ``data_wait``  dataset-iterator ``next()`` waits + ``prepare_batch``
+                       (the host→device copy)
       - ``compute``    ``prepare_step``-wrapped steps (bounded by
                        ``torch.cuda.synchronize``, so asynchronous launches
                        cannot hide device time)
@@ -166,6 +167,7 @@ class StepProfiler:
         self._round_start = time.perf_counter()
         self._phases: Dict[str, float] = {p: 0.0 for p in TRAIN_PHASES}
         self._samples = 0
+        self._data_sources: list = []
 
     @contextlib.contextmanager
     def phase(self, name: str):
@@ -185,6 +187,30 @@ class StepProfiler:
     def add_samples(self, n: int) -> None:
         self._samples += n
 
+    def has_data_sources(self) -> bool:
+        return bool(self._data_sources)
+
+    def note_data_source(self, dataset: Any) -> None:
+        """Remember the Dataset feeding this worker so ``data_wait`` can be
+        blamed on its slowest operator (``executor.dominant_stage``)."""
+        if dataset is not None and all(d is not dataset for d in self._data_sources):
+            self._data_sources.append(dataset)
+
+    def _data_blame(self) -> Optional[str]:
+        try:
+            from ray_tpu_torch.data._internal.executor import dominant_stage
+        except Exception:
+            return None
+        best: Optional[tuple] = None
+        for ds in self._data_sources:
+            stats = getattr(ds, "_stats", None)
+            if not stats:
+                continue
+            stage = dominant_stage(stats)
+            if stage is not None and (best is None or stage[1] > best[1]):
+                best = stage
+        return best[0] if best else None
+
     def end_round(self) -> dict:
         """Close the current round (called by ``session.report`` just
         before the rendezvous put), record it, emit its worker spans, and
@@ -199,6 +225,7 @@ class StepProfiler:
             "duration_s": round(duration, 6),
             "phases": phases,
             "samples": self._samples,
+            "data_blame": self._data_blame() if phases["data_wait"] else None,
             "time": now_ts,
         }
         self.records.append(record)
@@ -224,6 +251,7 @@ class StepProfiler:
                 "rank": self.rank,
                 "round": record["round"],
                 "samples": record["samples"],
+                "data_blame": record["data_blame"],
                 **{f"{p}_s": v for p, v in record["phases"].items()},
             },
         )
@@ -243,6 +271,44 @@ class StepProfiler:
                 parent_span_id=worker_span_id,
             )
             cursor += seconds
+
+
+class ProfiledDataIterator:
+    """Wraps a ``DataIterator`` so the time the train loop *waits* for a
+    batch — not the pipeline's background execution — counts as
+    ``data_wait``, and batches are counted for samples/sec."""
+
+    def __init__(self, inner: Any, profiler: StepProfiler):
+        self._inner = inner
+        self._prof = profiler
+        profiler.note_data_source(getattr(inner, "_owner", None))
+
+    def _timed(self, stream) -> Any:
+        prof = self._prof
+        it = iter(stream)
+        while True:
+            with prof.phase("data_wait"):
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+            prof.add_samples(batch_rows(item))
+            yield item
+
+    def iter_batches(self, **kwargs):
+        return self._timed(self._inner.iter_batches(**kwargs))
+
+    def iter_device_batches(self, **kwargs):
+        return self._timed(self._inner.iter_device_batches(**kwargs))
+
+    def iter_rows(self):
+        return self._timed(self._inner.iter_rows())
+
+    def __iter__(self):
+        return self._timed(iter(self._inner))
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
 
 
 # ---------------------------------------------------------------------------
@@ -398,6 +464,7 @@ class TrainRunRecord:
                     "work_s": round(work, 6),
                     "median_work_s": round(median, 6),
                     "phase": dominant,
+                    "data_blame": record.get("data_blame"),
                 }
             )
         self.stragglers.extend(out)

@@ -7,13 +7,16 @@ its torch.device and host collective group before the user loop starts.
 In-loop helpers (the reference's `prepare_params`/`prepare_batch`/
 `prepare_step`, train/torch/train_loop_utils.py:245,329 in Ray):
 `prepare_params` moves a parameter dict or module to the worker's device,
-`prepare_batch` copies a batch there, and `prepare_step` times the step.
+`prepare_batch` copies a batch there (numpy leaves become tensors on the
+device, as the reference's `jax.device_put` makes them device arrays), and
+`prepare_step` times the step.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from ray_tpu_torch.air import session
@@ -35,9 +38,22 @@ class TorchTrainer(DataParallelTrainer):
 # -- in-loop helpers ---------------------------------------------------------
 
 
+def _numpy_to_tensor(x: Any, device: torch.device) -> torch.Tensor:
+    """A numpy array or scalar as a tensor of its dtype. For the CPU it is a
+    copy, so a step that writes into its batch never writes through to the
+    dataset's block; for another device the copy to it is the only one
+    (the host array is read in place where it is contiguous and writable)."""
+    x = np.asarray(x)
+    if device.type == "cpu" or not (x.flags.writeable and x.flags.c_contiguous):
+        x = np.array(x, order="C")
+    return torch.from_numpy(x)
+
+
 def _to_device(tree: Any, device: torch.device, non_blocking: bool) -> Any:
     if isinstance(tree, torch.Tensor):
         return tree.to(device, non_blocking=non_blocking)
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return _numpy_to_tensor(tree, device).to(device, non_blocking=non_blocking)
     if isinstance(tree, dict):
         return {k: _to_device(v, device, non_blocking) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -55,10 +71,12 @@ def prepare_params(params: Any) -> Any:
 
 
 def prepare_batch(batch: Any) -> Any:
-    """Copy a batch (a tensor or a tree of them) to the session's device,
-    non-blocking. Under an instrumented session the copy counts as
-    `data_wait` (it is the step's wait-for-input tail), and batches feed the
-    samples/sec clock."""
+    """Copy a batch (a tree of tensors and numpy arrays, e.g. a numpy batch
+    of `iter_batches`) to the session's device, non-blocking; numpy leaves
+    become tensors of their dtype. Under an instrumented session the copy
+    counts as `data_wait` (it is the step's wait-for-input tail), and
+    batches feed the samples/sec clock unless a profiled dataset iterator
+    is already counting them."""
     from ray_tpu_torch.train.observability import batch_rows, current_profiler
 
     device = session.get_device()
@@ -67,7 +85,8 @@ def prepare_batch(batch: Any) -> Any:
         return _to_device(batch, device, non_blocking=True)
     with profiler.phase("data_wait"):
         out = _to_device(batch, device, non_blocking=True)
-    profiler.add_samples(batch_rows(batch))
+    if not profiler.has_data_sources():
+        profiler.add_samples(batch_rows(batch))
     return out
 
 

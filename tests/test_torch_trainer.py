@@ -229,7 +229,7 @@ def test_cuda_default_and_refusals():
     """The backend defaults to CUDA and raises without it (the CPU only
     when asked for); the reference's options the port does not carry are
     refused with the slice that would bring them, and the lifted ones
-    (as_trainable) work."""
+    (as_trainable, Dataset shards in datasets=) work."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TorchBackendConfig()
@@ -249,8 +249,10 @@ def test_cuda_default_and_refusals():
         def streaming_split(self, n):
             return [self] * n
 
-    with pytest.raises(NotImplementedError, match="§B9"):
-        _trainer(lambda: None, datasets={"train": FakeDataset()})
+    # Dataset shards are ported: rank r of n gets the r-th of one split.
+    ds = FakeDataset()
+    trainer = _trainer(lambda: None, datasets={"train": ds, "eval": [0, 1, 2, 3]})
+    assert trainer._dataset_shard_fn(1, 2) == {"train": ds, "eval": [1, 3]}
 
 
 # ------------------------------------------------------------ the slice
