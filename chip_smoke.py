@@ -197,13 +197,42 @@ Phases, each fatal on failure:
      warm-up and 5 timed steps: no attention launch, the first batch's
      checksums on the card equal to the host's, images/s beside the resnet
      phase's and the data_wait share of each step. `[data]` lines.
+ 18. procs   — GPT-2 125M in GPU actors and tasks that own their worker
+     processes and CUDA contexts (ray_tpu_torch.init with
+     isolation="process", the memory monitor polling every 0.1 s on an
+     injected host-memory fraction): (a) two LLMServer actors at half the
+     card each (max_restarts=1) serve the server phase's 8 prompts through
+     ActorPool.map_unordered, one prompt at a time from an empty prefix
+     cache, token-identical to the in-process server, K1 and K2 launched in
+     the children (each actor's counters set to 0 just before and summed
+     just after), their pids apart from the driver's; (b) with one actor's
+     call in flight the fraction reads 0.99: the monitor kills it, its pid
+     is gone and the card's used memory (mem_get_info) falls by at least
+     what it held; the fraction falls, the actor restarts in a new process
+     and the pool's next map gives the same tokens; (c) a DAG make_tokens
+     (host, B8 S1025) -> train (num_gpus=1: 5 bf16 fused_adamw steps through
+     K6/K7, the f32 parameters back on the host) -> evaluate (num_gpus=1:
+     the held-out loss) run straight, then as a workflow whose evaluate
+     fails once: resume() does not run train again (one run, no K6/K7 in
+     the resumed children) and gives the straight run's losses and
+     evaluation bit for bit; the straight run's two crossings of the
+     ~500 MB train result (worker to driver, driver to worker), and the
+     step results' bytes and load and save seconds; (d) the trainer
+     phase's loop through TorchTrainer on two worker processes at half the
+     card: K2 = K3 = 120 over the children, step p50 beside the data
+     phase's two thread workers and the trainer phase's one; (e) after
+     shutdown() no worker pid is alive and the card's used memory is
+     within LEFT_LIMIT_MIB of the phase's start; (f) the same trainer loop
+     on two thread workers under a thread runtime, K2 = K3 = 120, its step
+     p50 beside (d)'s. `[procs]` lines.
 After each teardown (serve, every loadgen cell, loadgen, fabric, moe, each
 tune fit(), each rllib and rllib_algos part, each data fit()) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
 its figure before the run; beyond it the script prints what holds the
 memory (`_card_holders`) and fails.
 The last two lines are the kernels JSON (K1's, K2's, K3's, K6's and K7's
 entries also carry their launches on every later path, `launches_by_path`, the
-rllib and data resnet paths' zeros among them) and the
+rllib and data resnet paths' zeros among them, and the procs paths counted
+in the worker processes) and the
 {"ok": true, ...} contract.
 """
 
@@ -1529,6 +1558,16 @@ def phase_server() -> dict:
     # kernel prescales q in bf16, the reference scales f32 logits).
     server.reset_prefix_cache()
     got = _sequential(server, prompts, n_new)
+    # Each prompt alone from an empty prefix cache too: the tokens the procs
+    # phase's actors must give (which prompt shares a cached prefix with
+    # which depends on how a pool spreads them).
+    cold = []
+    for p in prompts:
+        server.reset_prefix_cache()
+        cold.append(server.generate(p, max_new_tokens=n_new)["token_ids"])
+    summary["bf16_sequential_tokens"], summary["bf16_cold_tokens"] = got, cold
+    log(f"[server] bf16 one at a time: a cold prefix cache gives the warm one's "
+        f"tokens: {cold == got}")
     weights = server.engine.runner.model.state_dict()
     plain = LLMServer(gpt2_125m(attention_impl="reference"), _replace_attn(),
                       params=weights)
@@ -5004,6 +5043,584 @@ def phase_data(device_info: dict, trainer: dict, resnet: dict) -> dict:
     return summary
 
 
+# The procs phase (18): GPT-2 125M in GPU actors and tasks that own their
+# worker processes and CUDA contexts (isolation="process"): served through
+# an ActorPool, one server OOM-killed by the memory monitor (its memory
+# fraction injected) and restarted, trained and evaluated by a DAG and by a
+# workflow resumed after a failure, and trained by TorchTrainer on two worker
+# processes at half the card each. Launch counters live in the process that
+# launches, so each actor or task zeroes its own just before its path and
+# reports them just after, and the phase sums them. The driver holds no card
+# memory of this phase: the card's figures are device-wide (mem_get_info).
+PROCS_GPU = 0.5
+PROCS_HOLD_S = 30.0  # the victim's call in flight while the monitor decides
+PROCS_EVAL_SEED = 1
+PROCS_TIMEOUT_S = 300.0
+PROCS_TALLY = "procs_tally"
+
+
+class _Fraction:
+    """The memory monitor's injected host-memory fraction."""
+
+    def __init__(self, value: float):
+        self.value = value
+
+    def __call__(self) -> float:
+        return self.value
+
+
+def _device_used() -> int:
+    """Bytes in use on the whole card: every process's contexts and
+    allocations (the driver's memory_allocated sees only its own)."""
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def _pid_alive(pid: int) -> bool:
+    """True while the process exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def _own_counts(zero: bool = False) -> dict:
+    """This process's attention-kernel launch counts, zeroed first when
+    `zero`: what a GPU actor or task reports of its own path."""
+    counters = _attention_counters()
+    if zero:
+        for f in counters.values():
+            f.launches = 0
+    return {k: f.launches for k, f in counters.items()}
+
+
+def _sum_counts(parts) -> dict:
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _want_counts(counts: dict, launched: dict) -> None:
+    """`counts` must be `launched` for those kernels and 0 for the rest."""
+    want = {k: launched.get(k, 0) for k in counts}
+    if counts != want:
+        fail(f"[procs] launches {counts}, not {want}")
+
+
+def _until(cond, what: str, deadline_s: float = 30.0) -> float:
+    """Seconds until cond() holds; fails after `deadline_s`."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > deadline_s:
+            fail(f"[procs] {what}: not within {deadline_s:.0f}s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+class _GPTServerActor:
+    """An LLMServer on the card in a worker process of its own."""
+
+    def __init__(self, cfg, ecfg, device):
+        from ray_tpu_torch.llm import LLMServer
+
+        self.server = LLMServer(cfg, ecfg, seed=0, device=device)
+
+    def info(self) -> dict:
+        return {"pid": os.getpid(), "device": torch.cuda.current_device(),
+                "reserved": torch.cuda.memory_reserved()}
+
+    def zero(self) -> None:
+        _own_counts(zero=True)
+
+    def counts(self) -> dict:
+        return _own_counts()
+
+    def generate(self, i, prompt, n_new) -> tuple:
+        """Prompt `i` alone, from an empty prefix cache."""
+        self.server.reset_prefix_cache()
+        return i, self.server.generate(prompt, max_new_tokens=n_new)["token_ids"]
+
+    def hold(self, seconds: float) -> None:
+        time.sleep(seconds)
+
+
+class _Tally:
+    """Launch counts the trainer's worker processes report, by pid."""
+
+    def __init__(self):
+        self.parts = {}
+
+    def add(self, pid: int, counts: dict) -> None:
+        self.parts[pid] = counts
+
+    def read(self) -> dict:
+        return dict(self.parts)
+
+
+def _procs_map(pool, actors, prompts, n_new, want) -> dict:
+    """The prompts through pool.map_unordered with every actor's counters
+    set to 0 just before and read just after: tokens identical to `want`,
+    K1 and K2 launched."""
+    import ray_tpu_torch
+
+    ray_tpu_torch.get([a.zero.remote() for a in actors], timeout=PROCS_TIMEOUT_S)
+    t0 = time.perf_counter()
+    got = dict(pool.map_unordered(lambda a, item: a.generate.remote(*item, n_new),
+                                  list(enumerate(prompts))))
+    wall = time.perf_counter() - t0
+    launches = _sum_counts(ray_tpu_torch.get([a.counts.remote() for a in actors],
+                                             timeout=PROCS_TIMEOUT_S))
+    tokens = [got.get(i) for i in range(len(prompts))]
+    if tokens != want:
+        bad = [i for i, (g, w) in enumerate(zip(tokens, want)) if g != w]
+        fail(f"[procs] prompts {bad}: the actors' tokens differ from the in-process "
+             "server's")
+    for name in ("K1 paged_attention", "K2 flash_fwd"):
+        if launches[name] <= 0:
+            fail(f"[procs] {name} was not launched in the actors: {launches}")
+    return {"requests": len(prompts), "tokens": n_new * len(prompts), "wall_s": wall,
+            "tokens_per_s": n_new * len(prompts) / wall, "token_identical": True,
+            "launches": launches}
+
+
+def _procs_pool(runtime, fraction, server: dict, card: str, pids: set) -> tuple:
+    """Two GPT-2 125M servers at half the card each behind an ActorPool;
+    then one of them OOM-killed by the memory monitor and restarted."""
+    import ray_tpu_torch
+    from ray_tpu_torch.exceptions import ActorDiedError
+    from ray_tpu_torch.models.gpt import gpt2_125m
+    from ray_tpu_torch.util.actor_pool import ActorPool
+
+    n_new = 32
+    prompts = _prompts(np.random.RandomState(0))
+    want = server["bf16_cold_tokens"]
+    cls = ray_tpu_torch.remote(_GPTServerActor).options(num_gpus=PROCS_GPU, max_restarts=1)
+    t0 = time.perf_counter()
+    actors = [cls.remote(gpt2_125m(), _engine_config(), "cuda") for _ in range(2)]
+    infos = ray_tpu_torch.get([a.info.remote() for a in actors], timeout=PROCS_TIMEOUT_S)
+    up_s = time.perf_counter() - t0
+    apids = [i["pid"] for i in infos]
+    pids.update(apids)
+    if len(set(apids)) != 2 or os.getpid() in apids:
+        fail(f"[procs] actor pids {apids}, driver {os.getpid()}")
+    pool = ActorPool(actors)
+    first = _procs_map(pool, actors, prompts, n_new, want)
+    first.update(actors=infos, driver_pid=os.getpid(), up_s=up_s)
+    log("[procs] actor_pool " + json.dumps({"card": card, **first}))
+
+    # One server busy (the monitor kills only workers with work in flight)
+    # while the fraction reads 0.99: the monitor kills it, and its card
+    # memory returns, before the fraction falls and the restart may begin.
+    victim = actors[1]
+    held = ray_tpu_torch.get(victim.info.remote(), timeout=PROCS_TIMEOUT_S)["reserved"]
+    used_before = _device_used()
+    kills0 = runtime.memory_monitor.kills
+    hold = victim.hold.remote(PROCS_HOLD_S)
+    time.sleep(0.5)  # the call is in flight
+    fraction.value = 0.99
+    kill_s = _until(lambda: runtime.memory_monitor.kills > kills0, "an OOM kill")
+    exit_s = _until(lambda: not _pid_alive(apids[1]), "the killed actor's exit")
+    back_s = _until(lambda: used_before - _device_used() >= held,
+                    "the killed actor's card memory returning")
+    dropped = used_before - _device_used()
+    try:
+        ray_tpu_torch.get(hold, timeout=PROCS_TIMEOUT_S)
+        fail("[procs] the killed actor's call returned")
+    except ActorDiedError as exc:
+        death = str(exc)
+    if not _pid_alive(apids[0]):
+        fail("[procs] the monitor killed both actors")
+    fraction.value = 0.5
+    t0 = time.perf_counter()
+    while True:
+        try:
+            again = ray_tpu_torch.get(victim.info.remote(), timeout=PROCS_TIMEOUT_S)
+            break
+        except ActorDiedError:
+            if time.perf_counter() - t0 > PROCS_TIMEOUT_S:
+                fail("[procs] the killed actor never restarted")
+            time.sleep(0.2)
+    restart_s = time.perf_counter() - t0
+    pids.add(again["pid"])
+    if again["pid"] in apids:
+        fail(f"[procs] the restarted actor runs in pid {again['pid']}")
+    second = _procs_map(pool, actors, prompts, n_new, want)
+    oom = {**second, "kills": runtime.memory_monitor.kills - kills0,
+           "killed_pid": apids[1], "restarted_pid": again["pid"],
+           "held_reserved_mib": held / 2**20, "device_used_drop_mib": dropped / 2**20,
+           "kill_s": kill_s, "exit_s": exit_s, "memory_back_s": back_s,
+           "restart_s": restart_s, "death": death[:240]}
+    log("[procs] oom " + json.dumps({"card": card, **oom}))
+    for a in actors:  # the card's GPU resource goes to the DAG's tasks
+        ray_tpu_torch.kill(a)
+    return first, oom
+
+
+def _procs_make_tokens(seed: int, b: int, s: int) -> np.ndarray:
+    return np.random.RandomState(seed).randint(0, 50257, (b, s)).astype(np.int64)
+
+
+def _procs_train(tokens, cfg, steps: int, device: str, count_path: str) -> dict:
+    """`steps` fused_adamw steps of a GPT on one batch: the train phase's
+    step (attention_impl="flash": K6 forward, K7 backward), the shift taken
+    outside the model as the data phase takes it. Returns the losses, the
+    f32 parameters on the host and this process's launches; appends a mark
+    to `count_path`, which counts its runs. `returned_at` is stamped on the
+    host's clock just before the return, whose frame the worker then pickles
+    and sends."""
+    from ray_tpu_torch.models import cross_entropy_loss
+    from ray_tpu_torch.models.gpt import GPT
+    from ray_tpu_torch.ops import fused_adamw
+
+    with open(count_path, "a") as f:
+        f.write("x")
+    t0 = time.perf_counter()
+    _own_counts(zero=True)
+    model = GPT(cfg, device=device, seed=0)
+    params = dict(model.named_parameters())
+    opt = fused_adamw(LR)
+    state = opt.init(params)
+    batch = torch.from_numpy(tokens).to(next(model.parameters()).device)
+    losses = []
+    for _ in range(steps):
+        loss = cross_entropy_loss(model(batch[:, :-1]), batch[:, 1:])
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        _, state = opt.apply(grads, state, params)
+        losses.append(loss.item())
+    launches = _own_counts()
+    host = {k: p.detach().cpu() for k, p in params.items()}
+    del model, params, state, grads, loss, batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "params": host, "shape": list(tokens.shape),
+            "launches": launches, "pid": os.getpid(), "wall_s": time.perf_counter() - t0,
+            "returned_at": time.time()}
+
+
+def _procs_evaluate(trained: dict, cfg, seed: int, device: str, marker) -> dict:
+    """The trained parameters' loss on a seeded held-out batch of the train
+    batch's shape. Given a `marker` path, the first attempt creates the file
+    and fails. `entered_at` is stamped on the host's clock on entry, once the
+    trained parameters have arrived and been unpickled."""
+    entered_at = time.time()
+    if marker is not None and not os.path.exists(marker):
+        open(marker, "w").close()
+        raise RuntimeError("evaluate fails on its first attempt (marker file)")
+    from ray_tpu_torch.models import cross_entropy_loss
+    from ray_tpu_torch.models.gpt import GPT
+
+    _own_counts(zero=True)
+    model = GPT(cfg, device=device, seed=0)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(trained["params"][k])
+        x = torch.from_numpy(_procs_make_tokens(seed, *trained["shape"]))
+        x = x.to(next(model.parameters()).device)
+        loss = cross_entropy_loss(model(x[:, :-1]), x[:, 1:]).item()
+    launches = _own_counts()
+    del model, x
+    torch.cuda.empty_cache()
+    return {"loss": loss, "launches": launches, "pid": os.getpid(),
+            "train_losses": trained["losses"], "train_launches": trained["launches"],
+            "train_pid": trained["pid"], "train_wall_s": trained["wall_s"],
+            "train_returned_at": trained["returned_at"], "entered_at": entered_at,
+            "params_bytes": sum(t.numel() * t.element_size()
+                                for t in trained["params"].values())}
+
+
+def _procs_dag(device: str, count_path: str, marker):
+    """make_tokens (host) -> train (the card) -> evaluate (the card)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    make = ray_tpu_torch.remote(_procs_make_tokens)
+    train = ray_tpu_torch.remote(_procs_train).options(num_gpus=1)
+    evaluate = ray_tpu_torch.remote(_procs_evaluate).options(num_gpus=1)
+    tokens = make.bind(0, TRAIN_B, TRAIN_S + 1)
+    trained = train.bind(tokens, gpt2_125m(), TRAIN_STEPS, device, count_path)
+    return evaluate.bind(trained, gpt2_125m(attention_impl="auto"), PROCS_EVAL_SEED,
+                         device, marker)
+
+
+def _procs_run_checks(out: dict, tag: str, layers: int) -> None:
+    """A DAG run's train took TRAIN_STEPS steps through K6 and K7 (whose
+    wrapper launches K4's and K5's kernels on the packed strides, so their
+    counters count as many), with finite losses that fell, and its
+    evaluation is finite."""
+    per = layers * TRAIN_STEPS
+    _want_counts(out["train_launches"], {"K6 flash_fwd_packed": per, "K7 flash_bwd_packed": per,
+                                         "K4 flash_bwd_dq": per, "K5 flash_bwd_dkv": per})
+    losses = out["train_losses"]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"[procs] {tag} train losses {losses}")
+    if not np.isfinite(out["loss"]):
+        fail(f"[procs] {tag} evaluation loss {out['loss']}")
+
+
+def _procs_crossing(runtime, out: dict) -> dict:
+    """The step result's two crossings of the process boundary in a straight
+    DAG run, in seconds on the host's clock. To the driver: from train's
+    return in its worker to the driver's FINISHED mark for train, set once
+    the frame was pickled, sent, read and sealed in the store. To a worker:
+    from the driver's RUNNING mark for evaluate, set at its dispatch, to
+    evaluate's first line, once its worker fetched the value by get_by_id in
+    one frame and unpickled it."""
+    def mark(name: str, state: str) -> float:
+        (at,) = [e.state_times[state] for e in runtime.task_events.list_events()
+                 if e.name == name and state in e.state_times]
+        return at
+
+    return {"to_driver_s": mark("_procs_train", "FINISHED") - out["train_returned_at"],
+            "to_worker_s": out["entered_at"] - mark("_procs_evaluate", "RUNNING"),
+            "same_worker": out["pid"] == out["train_pid"]}
+
+
+def _procs_workflow(runtime, card: str, pids: set) -> tuple:
+    """The DAG once straight (dag.execute()), then as a workflow whose
+    evaluate fails on its first attempt: run() raises, resume() finishes it
+    without running train again (its run count stays 1, and the resumed
+    children launch no K6 or K7); losses and evaluation bit for bit the
+    straight run's."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.models.gpt import gpt2_125m
+    from ray_tpu_torch.workflow.storage import WorkflowStorage
+
+    layers = gpt2_125m().num_layers
+    base = tempfile.mkdtemp(prefix="procs-workflow-")
+    try:
+        t0 = time.perf_counter()
+        straight = ray_tpu_torch.get(
+            _procs_dag("cuda", os.path.join(base, "straight.count"), None).execute(),
+            timeout=PROCS_TIMEOUT_S)
+        straight_s = time.perf_counter() - t0
+        _procs_run_checks(straight, "dag", layers)
+        _want_counts(straight["launches"], {"K2 flash_fwd": layers})
+        pids.update((straight["pid"], straight["train_pid"]))
+        dag = {"wall_s": straight_s, "train_losses": straight["train_losses"],
+               "eval_loss": straight["loss"], "train_wall_s": straight["train_wall_s"],
+               "params_bytes": straight["params_bytes"],
+               "crossing": _procs_crossing(runtime, straight),
+               "pids": [straight["train_pid"], straight["pid"]],
+               "launches": _sum_counts([straight["train_launches"], straight["launches"]])}
+        log("[procs] dag " + json.dumps({"card": card, **dag}))
+
+        workflow.init(storage=os.path.join(base, "store"))
+        count = os.path.join(base, "workflow.count")
+        wdag = _procs_dag("cuda", count, os.path.join(base, "evaluate.failed-once"))
+        t0 = time.perf_counter()
+        try:
+            workflow.run(wdag, workflow_id="procs")
+            fail("[procs] the workflow's first run did not fail")
+        except RuntimeError as exc:
+            first_error = str(exc)
+        run_s = time.perf_counter() - t0
+        if workflow.get_status("procs") != "RESUMABLE":
+            fail(f"[procs] workflow status {workflow.get_status('procs')} after the failure")
+        t0 = time.perf_counter()
+        resumed = workflow.resume("procs")
+        resume_s = time.perf_counter() - t0
+        train_runs = len(open(count).read())
+        if train_runs != 1 or workflow.get_status("procs") != "SUCCESSFUL":
+            fail(f"[procs] train ran {train_runs} times; status "
+                 f"{workflow.get_status('procs')}")
+        _procs_run_checks(resumed, "workflow", layers)
+        _want_counts(resumed["launches"], {"K2 flash_fwd": layers})  # no K6, no K7
+        pids.update((resumed["pid"], resumed["train_pid"]))
+        same = (resumed["train_losses"] == straight["train_losses"]
+                and resumed["loss"] == straight["loss"])
+        if not same:
+            fail(f"[procs] the workflow's losses {resumed['train_losses']} / "
+                 f"{resumed['loss']} differ from the straight run's "
+                 f"{straight['train_losses']} / {straight['loss']}")
+        store = WorkflowStorage("procs")
+        steps = sorted(os.listdir(os.path.join(store.root, "steps")))
+        step_bytes = {f: os.path.getsize(os.path.join(store.root, "steps", f)) for f in steps}
+        train_step = next(f[:-4] for f in steps if f.endswith("_procs_train.pkl"))
+        t0 = time.perf_counter()
+        value = store.load_step_result(train_step)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        WorkflowStorage("procs-save-timing").save_step_result(train_step, value)
+        save_s = time.perf_counter() - t0
+        del value
+        wf = {"first_run_s": run_s, "first_error": first_error[:200], "resume_s": resume_s,
+              "train_runs": train_runs, "bit_for_bit_with_dag": same,
+              "train_losses": resumed["train_losses"], "eval_loss": resumed["loss"],
+              "resumed_launches": resumed["launches"], "step_bytes": step_bytes,
+              "train_step_load_s": load_s, "train_step_save_s": save_s,
+              "launches": _sum_counts([resumed["train_launches"], resumed["launches"]])}
+        log("[procs] workflow " + json.dumps({"card": card, **wf}))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return dag, wf
+
+
+def _procs_trainer_loop(config):
+    """The trainer phase's loop in a worker process, its counters set to 0
+    just before and reported (to the _Tally actor) just after."""
+    import ray_tpu_torch
+
+    _own_counts(zero=True)
+    try:
+        _trainer_loop(config)
+    finally:
+        tally = ray_tpu_torch.get_actor(config["tally"])
+        ray_tpu_torch.get(tally.add.remote(os.getpid(), _own_counts()), timeout=60)
+
+
+def _procs_trainer(trainer: dict, data: dict, card: str, pids: set) -> dict:
+    """The trainer phase's GPT-2 125M loop through TorchTrainer on two
+    worker processes at half the card each: K2 and K3 12 a step in each,
+    K4-K7 none; step p50 beside the two thread workers of the data phase
+    and the trainer phase's one worker."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models.gpt import gpt2_125m
+    from ray_tpu_torch.train import ScalingConfig, TorchBackendConfig, TorchTrainer
+
+    layers = gpt2_125m().num_layers
+    tally = ray_tpu_torch.remote(_Tally).options(name=PROCS_TALLY, num_cpus=0).remote()
+    fit = TorchTrainer(
+        _procs_trainer_loop, train_loop_config={"steps": TRAIN_STEPS, "tally": PROCS_TALLY},
+        scaling_config=ScalingConfig(num_workers=DATA_WORKERS,
+                                     resources_per_worker={"GPU": PROCS_GPU}),
+        backend_config=TorchBackendConfig(device="cuda:0"))
+    t0 = time.perf_counter()
+    result = fit.fit()
+    wall = time.perf_counter() - t0
+    if result.error is not None:
+        fail(f"[procs] TorchTrainer.fit() failed: {result.error!r}")
+    parts = ray_tpu_torch.get(tally.read.remote(), timeout=PROCS_TIMEOUT_S)
+    ray_tpu_torch.kill(tally)
+    if len(parts) != DATA_WORKERS or os.getpid() in parts:
+        fail(f"[procs] trainer worker pids {sorted(parts)}")
+    pids.update(parts)
+    launches = _sum_counts(parts.values())
+    steps = layers * TRAIN_STEPS * DATA_WORKERS
+    _want_counts(launches, {"K2 flash_fwd": steps, "K3 flash_bwd_fused": steps})
+    history = result.metrics_history
+    losses = [m["loss"] for m in history]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"[procs] trainer losses {losses}")
+    times = [m["step_s"] for m in history]
+    out = {"workers": DATA_WORKERS, "gpu_per_worker": PROCS_GPU, "B": TRAIN_B, "S": TRAIN_S,
+           "steps": TRAIN_STEPS, "losses_rank0": losses, "step_s_rank0": times,
+           "step_p50_s": statistics.median(times[1:]),
+           "data_phase_two_thread_workers_step_p50_s": data["gpt2"]["step_p50_s"],
+           "trainer_phase_one_worker_step_p50_s": trainer["step_p50_s"],
+           "fit_wall_s": wall, "worker_pids": sorted(parts), "launches": launches,
+           "launches_by_pid": parts}
+    log("[procs] trainer " + json.dumps({"card": card, **out}))
+    return out
+
+
+def _procs_trainer_threads(card: str, procs: dict) -> dict:
+    """The loop of _procs_trainer (the trainer phase's, on one seeded batch
+    already on the card) on two thread workers at half the card each, under
+    a thread runtime started after the process runtime's teardown: threads
+    against processes on the same loop in the same call. The thread workers
+    share this process's counters: K2 and K3 12 a step in each worker."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models.gpt import gpt2_125m
+    from ray_tpu_torch.train import ScalingConfig, TorchBackendConfig, TorchTrainer
+
+    layers = gpt2_125m().num_layers
+    ray_tpu_torch.init(num_cpus=8, num_gpus=1)
+    try:
+        fit = TorchTrainer(
+            _trainer_loop, train_loop_config={"steps": TRAIN_STEPS},
+            scaling_config=ScalingConfig(num_workers=DATA_WORKERS,
+                                         resources_per_worker={"GPU": PROCS_GPU}),
+            backend_config=TorchBackendConfig(device="cuda:0"))
+        _own_counts(zero=True)
+        t0 = time.perf_counter()
+        result = fit.fit()
+        wall = time.perf_counter() - t0
+        launches = _own_counts()
+    finally:
+        ray_tpu_torch.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+    if result.error is not None:
+        fail(f"[procs] thread TorchTrainer.fit() failed: {result.error!r}")
+    steps = layers * TRAIN_STEPS * DATA_WORKERS
+    _want_counts(launches, {"K2 flash_fwd": steps, "K3 flash_bwd_fused": steps})
+    history = result.metrics_history
+    losses = [m["loss"] for m in history]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"[procs] thread trainer losses {losses}")
+    times = [m["step_s"] for m in history]
+    p50 = statistics.median(times[1:])
+    out = {"workers": DATA_WORKERS, "gpu_per_worker": PROCS_GPU, "steps": TRAIN_STEPS,
+           "losses_rank0": losses, "step_s_rank0": times, "step_p50_s": p50,
+           "process_workers_step_p50_s": procs["step_p50_s"],
+           "process_over_thread": procs["step_p50_s"] / p50,
+           "losses_equal_process_rank0": losses == procs["losses_rank0"],
+           "fit_wall_s": wall, "launches": launches}
+    log("[procs] trainer_threads " + json.dumps({"card": card, **out}))
+    return out
+
+
+def phase_procs(device_info: dict, server: dict, trainer: dict, data: dict) -> dict:
+    """GPU actors and tasks in worker processes of their own (phase 18):
+    the ActorPool, the OOM kill and restart, the DAG and the workflow, the
+    trainer; then no worker alive after shutdown() and the card's used
+    memory within LEFT_LIMIT_MIB of its figure at the phase's start; then
+    the trainer's loop once more on thread workers, for comparison."""
+    import ray_tpu_torch
+
+    t_phase = time.perf_counter()
+    card = device_info["smi"]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    used0 = _device_used()
+    runtime = ray_tpu_torch.init(num_cpus=8, num_gpus=1, _system_config={
+        "isolation": "process", "memory_monitor_refresh_s": 0.1})
+    fraction = _Fraction(0.5)
+    runtime.memory_monitor._memory_fraction = fraction
+    pids: set = set()
+    summary = {}
+    try:
+        summary["actor_pool"], summary["oom"] = _procs_pool(
+            runtime, fraction, server, card, pids)
+        summary["dag"], summary["workflow"] = _procs_workflow(runtime, card, pids)
+        summary["trainer"] = _procs_trainer(trainer, data, card, pids)
+        for engine in list(runtime.engines.values()):
+            pids.update(h.proc.pid for h in list(engine._workers))
+    finally:
+        ray_tpu_torch.shutdown()
+    alive = sorted(p for p in pids if _pid_alive(p))
+    if alive:
+        fail(f"[procs] worker processes alive after shutdown(): {alive}")
+    limit = LEFT_LIMIT_MIB * 2**20
+    settle_s = _until(lambda: _device_used() <= used0 + limit,
+                      f"the card's used memory back within {LEFT_LIMIT_MIB} MiB of "
+                      f"{used0 / 2**20:.0f} MiB", deadline_s=30.0)
+    summary["teardown"] = {"worker_pids": len(pids), "alive": alive,
+                           "device_used_start_mib": used0 / 2**20,
+                           "device_used_end_mib": _device_used() / 2**20,
+                           "settle_s": settle_s}
+    log("[procs] teardown " + json.dumps({"card": card, **summary["teardown"]}))
+    summary["trainer_threads"] = _procs_trainer_threads(card, summary["trainer"])
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[procs] phase wall {summary['wall_s']:.1f}s")
+    summary["paths"] = {
+        "procs actor_pool": summary["actor_pool"]["launches"],
+        "procs oom restart": summary["oom"]["launches"],
+        "procs dag": summary["dag"]["launches"],
+        "procs workflow": summary["workflow"]["launches"],
+        "procs trainer": summary["trainer"]["launches"],
+        "procs trainer threads": summary["trainer_threads"]["launches"],
+    }
+    return summary
+
+
 def _replace_attn():
     import dataclasses
 
@@ -5119,6 +5736,7 @@ def main() -> int:
     rllib = phase_rllib(device)
     algos = phase_rllib_algos(device)
     data = phase_data(device, trainer, resnet)
+    procs = phase_procs(device, server, trainer, data)
     launches.update(profile["launches"])
     paths = {"server": server["launches"]}
     for line in loadgen["cells"]:
@@ -5141,6 +5759,7 @@ def main() -> int:
         paths[f"rllib multi-agent {name}"] = algos["multi_agent"][name]["launches"]
     paths["data gpt2"] = data["gpt2"]["launches"]
     paths["data resnet"] = data["resnet"]["launches"]
+    paths.update(procs["paths"])
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches, paths)))
     print(json.dumps({"ok": True, "device": {

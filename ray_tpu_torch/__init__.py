@@ -1,8 +1,9 @@
 """ray_tpu_torch — the PyTorch / CUDA port of ray_tpu, for NVIDIA Hopper.
 
 A package beside ``ray_tpu`` (the JAX reference, which it never imports):
-the in-process task/actor/object runtime (``init``, ``remote``, ``get``, ...)
-and the Train library built on it (``ray_tpu_torch.train.TorchTrainer``),
+the task/actor/object runtime (``init``, ``remote``, ``get``, ...; workers
+are threads, or OS processes under ``isolation="process"``), DAGs and
+workflows over it, and the Train library built on it (``ray_tpu_torch.train.TorchTrainer``),
 the GPT model and its training step (``fused_adamw``), its hand-written
 CUDA attention kernels (``ops/csrc``, forward and backward), and the
 continuous-batching serving engine. Entry points take ``device=`` and

@@ -25,23 +25,22 @@ def _env_override(name: str, default):
     return raw
 
 
-# Flags of the reference runtime whose features the in-process port does
-# not construct: each is accepted at its default and refused otherwise,
-# naming the later slice that would port it.
+# Flags of the reference runtime whose features the port does not
+# construct: each is accepted at its default and refused otherwise, naming
+# the later slice that would port it where there is one.
 _UNPORTED = {
-    "isolation": ("thread",
-                  "worker processes (process_engine) are not "
-                  "ported: the port's runtime runs in-process only until a slice "
-                  "needs worker processes (ROADMAP.md §B10)"),
     "gcs_storage_path": ("", "GCS persistence (gcs_storage) is not ported "
                              "(ROADMAP.md §B10)"),
     "native_store_enabled": (False, "the native shared-memory store (native_store) "
                                     "is not ported (ROADMAP.md §B10)"),
     "object_spilling_enabled": (False, "object spilling (external_storage) is not "
                                        "ported (ROADMAP.md §B10)"),
-    "memory_usage_threshold": (0.0, "the memory monitor watches worker processes, "
-                                    "which are not ported (ROADMAP.md §B10)"),
     "include_dashboard": (False, "the dashboard is not ported (ROADMAP.md §B10)"),
+    # The reference declares this flag and no engine of it reads it: the
+    # process engine starts workers on demand, in both packages.
+    "prestart_workers": (True, "worker prestart is not ported: process "
+                               "workers start on demand (the reference's "
+                               "engines do not read this flag either)"),
 }
 
 
@@ -62,6 +61,40 @@ class Config:
     # copy (the reference's immutability contract). False = zero-copy sharing
     # between thread-workers (fast, but mutations alias).
     serialize_objects: bool = True
+    # Active worker-process health probing (ping/pong over the wire): a
+    # worker that fails to pong within period*threshold is declared hung and
+    # killed, driving the normal crash/restart path (reference:
+    # gcs_health_check_manager.h:39, flags ray_config_def.h:784-790).
+    # Default deadline = 3s * 10 = 30s of silence: generous enough that a
+    # long interpreter-lock-holding native call (giant pickle, an nvcc
+    # build's wait) is not misdiagnosed as a hang.
+    health_check_period_s: float = 3.0
+    health_check_failure_threshold: int = 10
+    # Host-memory monitor (reference: common/memory_monitor.h:52 + the
+    # retriable-FIFO worker-killing policy): above the usage threshold,
+    # dispatch is backpressured and one process-backed worker is killed per
+    # tick with an OOM error (its task retries). 0 disables. It runs only
+    # under isolation="process": threads cannot be killed.
+    memory_usage_threshold: float = 0.95
+    memory_monitor_refresh_s: float = 1.0
+    # Minimum gap between OOM kills: after sacrificing a worker the monitor
+    # waits this many refresh periods for the reclaimed memory to show up in
+    # /proc before picking another victim.
+    memory_monitor_kill_cooldown_ticks: int = 5
+    # Worker isolation: "thread" (in-process engine, fast) or "process"
+    # (real OS worker processes with serialization + fate-sharing — the
+    # reference's execution model; env override RAY_TPU_TORCH_ISOLATION).
+    isolation: str = "thread"
+    # CUDA devices of process-isolated workers: "" inherits the driver's
+    # (a CUDA device takes contexts from many processes, so a GPU actor owns
+    # its own); "cpu" hides them (CUDA_VISIBLE_DEVICES=""). The reference
+    # forces its workers onto the CPU instead, because its TPU chip admits
+    # one process (worker_jax_platform; ROADMAP.md §D22).
+    worker_device: str = ""
+    # Worker pool: an idle task worker is killed after this long
+    idle_worker_killing_time_s: float = 60.0
+    # Logging: worker stdout/stderr reprinted on the driver with a prefix
+    log_to_driver: bool = True
 
     def __post_init__(self):
         for f in fields(self):

@@ -43,6 +43,10 @@ class WorkerContext(threading.local):
 
 CONTEXT = WorkerContext()
 
+# Sentinel result value: the driver already sealed the bytes a worker
+# process returned (process_engine), so _seal_returns must skip it.
+SEALED_EXTERNALLY = object()
+
 # Cancel requests for RUNNING streaming tasks (ray.cancel on a live
 # generator). A thread can't be preempted, but the stream drivers below check
 # this registry between yields, so an abandoned generator stops producing at

@@ -141,6 +141,47 @@ class InProcessStore:
         for cb in callbacks:
             cb()
 
+    def seal_pickled(
+        self, object_id: ObjectID, data: bytes, nested_refs: list | None = None
+    ) -> None:
+        """Seal a value that is ALREADY serialized (bytes produced by a worker
+        process): stored as _Pickled directly, skipping the driver-side
+        re-serialization that seal() would perform."""
+        dropped: list = []
+        size = len(data)
+        with self._lock:
+            entry = self._entries.get(object_id)
+            if entry is None:
+                entry = _Entry()
+                self._entries[object_id] = entry
+            if entry.sealed:
+                return  # idempotent reseal on retry: keep the first copy
+            if self._budget is not None and self._used + size > self._budget:
+                self._evict_locked(self._used + size - self._budget, dropped)
+            entry.value = _Pickled(data)
+            entry.size = size
+            entry.sealed = True
+            entry.freed = False
+            entry.nested_refs = nested_refs
+            entry.last_access = time.monotonic()
+            self._used += size
+            entry.event.set()
+            callbacks, entry.callbacks = entry.callbacks, []
+        for cb in callbacks:
+            cb()
+
+    def get_serialized(self, object_id: ObjectID) -> bytes | None:
+        """The sealed value's serialized bytes, if held as _Pickled (None for
+        values stored live) — lets a worker's get be answered with the bytes
+        as they are, without a decode and re-encode."""
+        with self._lock:
+            entry = self._entries.get(object_id)
+            if entry is None or not entry.sealed or entry.freed:
+                return None
+            entry.last_access = time.monotonic()
+            value = entry.value
+            return value.data if isinstance(value, _Pickled) else None
+
     def invalidate(self, object_id: ObjectID) -> None:
         """Reset a lost object's entry to the unsealed state so the lineage
         re-execution's reseal can land and readers re-block on the event

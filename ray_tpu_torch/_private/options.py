@@ -41,8 +41,10 @@ class ActorOptions(CommonOptions):
     lifetime: Optional[str] = None  # None | "detached"
     get_if_exists: bool = False
     namespace: Optional[str] = None
-    # Per-actor isolation override: "process" (a dedicated OS worker
-    # process) is refused at creation: worker processes are not ported.
+    # Per-actor isolation override: "process" forces a dedicated OS worker
+    # process even when the runtime runs the threaded engine (a GPU actor
+    # that must own its CUDA context, and give its card memory back when
+    # its process dies).
     isolation: Optional[str] = None  # None | "process"
 
 

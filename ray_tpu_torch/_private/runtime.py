@@ -4,11 +4,12 @@ This is the re-design of the reference's CoreWorker (src/ray/core_worker/
 core_worker.h:284 — Put :558, Get :665, Wait :704, SubmitTask :829, CreateActor
 :850, SubmitActorTask :896) plus the owner-side TaskManager (task_manager.h:
 retries) for a single-control-plane cluster. Every public API call lands
-here. This is the in-process construction of the reference's runtime
-(the reference's `isolation="thread"`): worker processes, remote nodes, GCS
-persistence, the native store, spilling, the dashboard and the memory
-monitor are refused at init (config.py `_UNPORTED`); with no way to lose an
-object in-process, lineage re-execution is left out too.
+here. Workers are threads of this process (`isolation="thread"`) or OS
+processes (`isolation="process"`, process_engine.py, watched by the memory
+monitor); the object store stays in this process either way. Remote nodes,
+GCS persistence, the native store, spilling and the dashboard are refused
+at init (config.py `_UNPORTED`); with no way to lose an object, lineage
+re-execution is left out too.
 
 Key invariants preserved from the reference:
   * return ObjectIDs are computed at submission (ownership without coordination);
@@ -33,7 +34,7 @@ from typing import Any, Callable, Optional
 import cloudpickle
 
 from ray_tpu_torch._private import engine as engine_mod
-from ray_tpu_torch._private.config import _UNPORTED, Config
+from ray_tpu_torch._private.config import Config
 from ray_tpu_torch._private.controller import (
     ActorRecord,
     ActorState,
@@ -137,6 +138,10 @@ class Runtime:
     ):
         global _RUNTIME
         self.config = Config().apply_overrides(system_config)
+        if self.config.worker_device not in ("", "cpu"):
+            raise ValueError(
+                f"worker_device={self.config.worker_device!r}: '' (the driver's "
+                "CUDA devices) or 'cpu' (none)")
         self.shutting_down = False
         self.namespace = namespace
         self.controller = Controller()
@@ -171,9 +176,24 @@ class Runtime:
         self._actor_grants: dict[ActorID, tuple[NodeID, dict[str, float]]] = {}
         self._task_records: dict[TaskID, _TaskRecord] = {}
         self._streams: dict[TaskID, Any] = {}
+        # Per-node companion process engines (per-actor isolation overrides).
+        self._companions: dict[NodeID, Any] = {}
         from ray_tpu_torch._private.task_events import TaskEventBuffer
 
         self.task_events = TaskEventBuffer()
+        # Worker log plane: process workers' pipe tails feed this ring, and
+        # a sink reprints them on the driver (reference: log_monitor.py →
+        # pubsub → worker.py print_logs).
+        from ray_tpu_torch._private.log_aggregation import (
+            LogBuffer,
+            print_batch_to_driver,
+        )
+
+        self.logs = LogBuffer(
+            sink=print_batch_to_driver if self.config.log_to_driver else None
+        )
+        # User spans shipped home by workers (util/tracing.py traces()).
+        self.user_spans: deque = deque(maxlen=10_000)
         from ray_tpu_torch._private.runtime_env import RuntimeEnvManager
 
         self.runtime_env_manager = RuntimeEnvManager()
@@ -186,6 +206,23 @@ class Runtime:
         # Handles pinning detached actors' creation objects (their lifetime is
         # the cluster's, not any caller's).
         self._detached_creation_refs: list = []
+        # Host-memory monitor: only process-backed workers are killable.
+        self.memory_monitor = None
+        if (
+            self.config.memory_usage_threshold
+            and self.config.isolation == "process"
+        ):
+            from ray_tpu_torch._private.memory_monitor import MemoryMonitor
+
+            self.memory_monitor = MemoryMonitor(
+                self,
+                threshold=self.config.memory_usage_threshold,
+                period_s=self.config.memory_monitor_refresh_s,
+                kill_cooldown_ticks=self.config.memory_monitor_kill_cooldown_ticks,
+            )
+            self.scheduler.dispatch_gate = (
+                lambda: not self.memory_monitor.under_pressure
+            )
         _RUNTIME = self
         if resources is not None:
             self.add_node(resources, is_head=True)
@@ -204,7 +241,12 @@ class Runtime:
         is_head: bool = False,
     ) -> NodeID:
         node = NodeState(NodeID.from_random(), resources, labels)
-        engine = NodeEngine(node, on_task_done=self._on_task_done)
+        if self.config.isolation == "process":
+            from ray_tpu_torch._private.process_engine import ProcessNodeEngine
+
+            engine = ProcessNodeEngine(node, self, on_task_done=self._on_task_done)
+        else:
+            engine = NodeEngine(node, on_task_done=self._on_task_done)
         with self._lock:
             self.engines[node.node_id] = engine
         self.controller.register_node(node, is_head=is_head)
@@ -502,9 +544,6 @@ class Runtime:
         from ray_tpu_torch._private.runtime_env import validate_runtime_env
 
         runtime_env = validate_runtime_env(runtime_env)
-        if isolation == "process":
-            raise NotImplementedError(
-                f"isolation='process': {_UNPORTED['isolation'][1]}")
         actor_id = ActorID.of(self.job_id)
         spec = TaskSpec(
             task_id=TaskID.of(actor_id),
@@ -678,6 +717,26 @@ class Runtime:
         )
         self.scheduler.notify()
 
+    def on_actor_process_died(self, actor_id: ActorID, reason: str) -> None:
+        """An actor's worker process died out from under us (crash, os._exit,
+        OOM-kill). Release its slot and restart per max_restarts — the
+        process-isolation analog of GcsActorManager::OnWorkerDead
+        (gcs_actor_manager.cc:1036)."""
+        with self._lock:
+            executor = self.actor_executors.pop(actor_id, None)
+            node_grant = self._actor_grants.pop(actor_id, None)
+        if executor is not None:
+            if hasattr(executor, "mark_dead"):
+                executor.mark_dead(reason)
+            executor.node.remove_actor(actor_id)
+        if node_grant is not None:
+            node_id, grant = node_grant
+            node = self.controller.nodes.get(node_id)
+            if node is not None:
+                node.release(grant)
+        self._handle_actor_death(actor_id, reason, allow_restart=True)
+        self.scheduler.notify()
+
     def _handle_actor_death(
         self, actor_id: ActorID, reason: str, allow_restart: bool
     ) -> None:
@@ -767,9 +826,22 @@ class Runtime:
         with self._lock:
             record = self._task_records.get(task_id)
         if record is not None and record.spec.streaming:
+            with self._lock:
+                engines = list(self.engines.values()) + list(
+                    self._companions.values()
+                )
             from ray_tpu_torch._private import engine as _engine
 
-            _engine.request_stream_cancel(task_id)
+            _engine.request_stream_cancel(task_id)  # in-process drivers
+            for eng in engines:  # worker processes
+                forward = getattr(eng, "request_stream_cancel", None)
+                if forward is None:
+                    continue
+                try:
+                    if forward(task_id):
+                        break
+                except Exception:
+                    pass
             return True
         return False
 
@@ -789,6 +861,10 @@ class Runtime:
                 self._system_failure(record, ObjectLostError(reason="node died"))
             return
         if spec.kind == TaskKind.ACTOR_CREATION:
+            if spec.isolation == "process" and isinstance(engine, NodeEngine):
+                # Per-actor isolation override on a threaded node: host the
+                # actor in this node's companion process engine instead.
+                engine = self._process_companion(node)
             executor = engine.create_actor(spec, grant, self._resolve_args)
             actor_record = self.controller.get_actor_record(spec.actor_id)
             if actor_record is not None:
@@ -802,6 +878,20 @@ class Runtime:
                 executor.submit(queued)
         else:
             engine.execute_task(spec, grant, self._resolve_args)
+
+    def _process_companion(self, node: NodeState):
+        """Lazily-created ProcessNodeEngine sharing a threaded node's
+        NodeState, hosting actors that demanded isolation=\"process\"."""
+        from ray_tpu_torch._private.process_engine import ProcessNodeEngine
+
+        with self._lock:
+            companion = self._companions.get(node.node_id)
+            if companion is None:
+                companion = ProcessNodeEngine(
+                    node, self, on_task_done=self._on_task_done
+                )
+                self._companions[node.node_id] = companion
+        return companion
 
     def _resolve_args(self, spec: TaskSpec) -> tuple[tuple, dict]:
         """Replace top-level ObjectRef args with their values (the dependency
@@ -997,6 +1087,10 @@ class Runtime:
                 self._finish_stream(spec, result)
 
     def _seal_returns(self, spec: TaskSpec, value: Any) -> None:
+        from ray_tpu_torch._private.engine import SEALED_EXTERNALLY
+
+        if value is SEALED_EXTERNALLY:
+            return  # the worker's bytes are already sealed (process_engine)
         n = spec.num_returns
         if n == 0:
             return
@@ -1029,10 +1123,13 @@ class Runtime:
             self._metrics_sampler = None
         self.shutting_down = True
         self._reap_event.set()  # release the reaper thread
+        if self.memory_monitor is not None:
+            self.memory_monitor.stop()
         self.scheduler.shutdown()
         with self._lock:
-            engines = list(self.engines.values())
+            engines = list(self.engines.values()) + list(self._companions.values())
             self.engines.clear()
+            self._companions.clear()
         for engine in engines:
             engine.shutdown()
         self._background.shutdown(wait=False, cancel_futures=True)

@@ -162,6 +162,12 @@ class ActorClass:
             actor_id, self._cls.__name__, creation_ref, method_num_returns
         )
 
+    def bind(self, *args, **kwargs):
+        """Build a lazy actor-creation DAG node (reference: dag/class_node.py)."""
+        from ray_tpu_torch.dag.dag_node import ClassNode
+
+        return ClassNode(self, args, kwargs, {})
+
     def __call__(self, *args, **kwargs):
         raise TypeError(
             f"Actor class {self._cls.__name__!r} cannot be instantiated directly; "

@@ -33,11 +33,12 @@ def init(
     ignore_reinit_error: bool = False,
     _system_config: Optional[dict] = None,
 ) -> Runtime:
-    """Start the in-process runtime with one (head) node.
+    """Start the runtime with one (head) node.
 
-    The control plane and every worker live in this process (the reference's
-    ``Config.isolation="thread"``); ``GPU`` counts the visible CUDA devices
-    unless ``num_gpus`` says otherwise. Connecting to a remote head
+    The control plane lives in this process, and the workers too, as
+    threads, unless ``_system_config={"isolation": "process"}`` makes them
+    OS processes; ``GPU`` counts the visible CUDA devices unless
+    ``num_gpus`` says otherwise. Connecting to a remote head
     (``address=``) is not ported.
     """
     if address is not None:

@@ -255,6 +255,12 @@ class WorkerCrashedError(RayTpuError):
     consumes a retry regardless of retry_exceptions."""
 
 
+class OutOfMemoryError(WorkerCrashedError):
+    """A worker was killed by the memory monitor to relieve host memory
+    pressure (reference: ray.exceptions.OutOfMemoryError, produced by the
+    raylet's worker-killing policy, common/memory_monitor.h:52). A system
+    failure like any worker death: the task retries while retries remain."""
+
 
 class ObjectLostError(RayTpuError):
     def __init__(self, object_id=None, reason: str = "object lost"):

@@ -53,3 +53,10 @@ class RemoteFunction:
             f"Remote function {self._function.__qualname__!r} cannot be called "
             "directly. Use .remote() instead."
         )
+
+    def bind(self, *args, **kwargs):
+        """Build a lazy DAG node instead of submitting (reference:
+        dag/function_node.py)."""
+        from ray_tpu_torch.dag.dag_node import FunctionNode
+
+        return FunctionNode(self, args, kwargs, {})

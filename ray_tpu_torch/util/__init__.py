@@ -4,6 +4,7 @@ from ray_tpu_torch.util.placement_group import (
     placement_group,
     remove_placement_group,
 )
+from ray_tpu_torch.util.check_serialize import inspect_serializability
 from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.scheduling_strategies import (
     NodeAffinitySchedulingStrategy,
@@ -15,6 +16,7 @@ __all__ = [
     "PlacementGroup",
     "PlacementGroupSchedulingStrategy",
     "get_current_placement_group",
+    "inspect_serializability",
     "placement_group",
     "remove_placement_group",
     "tracing",

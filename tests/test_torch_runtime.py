@@ -141,30 +141,35 @@ def test_placement_groups(both):
 
 
 def test_refused_features_name_their_slice():
-    """What the in-process port does not construct is refused, never run
-    reduced: worker processes, remote drivers, GCS persistence, the native
-    store, spilling, the dashboard, the memory monitor."""
+    """What the port does not construct yet is refused, never run reduced:
+    remote drivers, GCS persistence, the native store, spilling, the
+    dashboard. Worker processes and the memory monitor are ported: an actor
+    asking for isolation="process" on this thread runtime runs in a process
+    of its own, and a memory_usage_threshold is accepted."""
+    import os
+
     for config, match in (
-        ({"isolation": "process"}, "process"),
         ({"gcs_storage_path": "/nonexistent"}, "GCS persistence"),
         ({"native_store_enabled": True}, "native"),
         ({"object_spilling_enabled": True}, "spilling"),
         ({"include_dashboard": True}, "dashboard"),
-        ({"memory_usage_threshold": 0.9}, "memory monitor"),
+        ({"prestart_workers": False}, "prestart"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             ray_tpu_torch.init(num_cpus=1, _system_config=config)
         assert not ray_tpu_torch.is_initialized()
     with pytest.raises(NotImplementedError, match="remote drivers"):
         ray_tpu_torch.init(address="127.0.0.1:1")
-    ray_tpu_torch.init(num_cpus=1, num_gpus=0)
+    ray_tpu_torch.init(num_cpus=1, num_gpus=0,
+                       _system_config={"memory_usage_threshold": 0.9})
     try:
         @ray_tpu_torch.remote
         class A:
-            pass
+            def pid(self):
+                return os.getpid()
 
-        with pytest.raises(NotImplementedError, match="isolation='process'"):
-            A.options(isolation="process").remote()
+        a = A.options(isolation="process").remote()
+        assert ray_tpu_torch.get(a.pid.remote(), timeout=60) != os.getpid()
     finally:
         ray_tpu_torch.shutdown()
 
