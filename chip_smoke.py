@@ -225,11 +225,42 @@ Phases, each fatal on failure:
      within LEFT_LIMIT_MIB of the phase's start; (f) the same trainer loop
      on two thread workers under a thread runtime, K2 = K3 = 120, its step
      p50 beside (d)'s. `[procs]` lines.
+ 19. store   — the native shared-memory store, spilling and lineage
+     recovery (ray_tpu_torch/_private/native_store.py, external_storage.py,
+     runtime.get_value): (0) /dev/shm's free bytes (fatal below what (c)
+     needs), the host's available RAM, the spill directory's free disk;
+     (a) under isolation="process" phase 18's train (num_gpus=1, K6 + K7)
+     returns GPT-2's f32 parameters as one flat 498 MB tensor, which must be
+     in shm (is_native) in the driver's store, and evaluate (num_gpus=1,
+     "auto", K2) reads it: losses and evaluation bit for bit phase 18's
+     straight DAG, the two crossings timed as phase 18 times them, beside
+     its frame figures from before the store; again with the vector
+     returned on cuda:0 (read back onto the card), and once with
+     native_store_enabled=False (the frame path's crossings of the same
+     vector, bit for bit the shm path's); the driver's first and second
+     read of the vector, and its host-to-device copies (out of the segment
+     and from a private copy); (b) a thread runtime with a 1.5 GiB store: five
+     f32 GPT-2 125M state dicts put (seeds 0-4) spill the oldest two (the
+     storage's stats()), each reads back bit for bit, the spilled seed-0
+     dict loaded into an LLMServer gives the server phase's tokens for its
+     8 prompts (K1, K2 counted), one spill's and one restore's seconds;
+     (c) a CPU worker returns the vector 10 times over (4.98 GB, past the
+     u32 frame): through shm to the driver and to a second worker, every
+     slice bit for bit, both crossings timed; with the store off the same
+     task fails with FrameTooLargeError; (d) in (b)'s runtime train's
+     returned state dict and a put dict spill under pressure and their
+     spill files are deleted: get re-runs train exactly once (K6/K7 counted
+     in that run), bit for bit; the put dict raises ObjectLostError and a
+     freed task result ObjectFreedError, re-running nothing; (e) after
+     shutdown() no /dev/shm/ray_tpu_torch_* segment, no spill directory and
+     no worker pid is left, and the card's memory is back within
+     LEFT_LIMIT_MIB of the phase's start. `[store]` lines.
 After each teardown (serve, every loadgen cell, loadgen, fabric, moe, each
-tune fit(), each rllib and rllib_algos part, each data fit()) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
+tune fit(), each rllib and rllib_algos part, each data fit(), store) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
 its figure before the run; beyond it the script prints what holds the
 memory (`_card_holders`) and fails.
-The last two lines are the kernels JSON (K1's, K2's, K3's, K6's and K7's
+Before the last two lines, a `[phases]` line gives each phase's wall
+seconds. The last two lines are the kernels JSON (K1's, K2's, K3's, K6's and K7's
 entries also carry their launches on every later path, `launches_by_path`, the
 rllib and data resnet paths' zeros among them, and the procs paths counted
 in the worker processes) and the
@@ -5103,11 +5134,11 @@ def _sum_counts(parts) -> dict:
     return out
 
 
-def _want_counts(counts: dict, launched: dict) -> None:
+def _want_counts(counts: dict, launched: dict, phase: str = "procs") -> None:
     """`counts` must be `launched` for those kernels and 0 for the rest."""
     want = {k: launched.get(k, 0) for k in counts}
     if counts != want:
-        fail(f"[procs] launches {counts}, not {want}")
+        fail(f"[{phase}] launches {counts}, not {want}")
 
 
 def _until(cond, what: str, deadline_s: float = 30.0) -> float:
@@ -5344,19 +5375,19 @@ def _procs_dag(device: str, count_path: str, marker):
                          device, marker)
 
 
-def _procs_run_checks(out: dict, tag: str, layers: int) -> None:
+def _procs_run_checks(out: dict, tag: str, layers: int, phase: str = "procs") -> None:
     """A DAG run's train took TRAIN_STEPS steps through K6 and K7 (whose
     wrapper launches K4's and K5's kernels on the packed strides, so their
     counters count as many), with finite losses that fell, and its
     evaluation is finite."""
     per = layers * TRAIN_STEPS
     _want_counts(out["train_launches"], {"K6 flash_fwd_packed": per, "K7 flash_bwd_packed": per,
-                                         "K4 flash_bwd_dq": per, "K5 flash_bwd_dkv": per})
+                                         "K4 flash_bwd_dq": per, "K5 flash_bwd_dkv": per}, phase)
     losses = out["train_losses"]
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"[procs] {tag} train losses {losses}")
+        fail(f"[{phase}] {tag} train losses {losses}")
     if not np.isfinite(out["loss"]):
-        fail(f"[procs] {tag} evaluation loss {out['loss']}")
+        fail(f"[{phase}] {tag} evaluation loss {out['loss']}")
 
 
 def _procs_crossing(runtime, out: dict) -> dict:
@@ -5621,6 +5652,511 @@ def phase_procs(device_info: dict, server: dict, trainer: dict, data: dict) -> d
     return summary
 
 
+# The store phase (19): the native shared-memory store, spilling and lineage
+# recovery under GPT-2 125M. The step result's frame crossings measured by
+# phase 18 before the port had a store (PERF.md §6; ~500 MB as a dict of
+# tensors, H100 80GB HBM3 at 700 W), printed beside this phase's.
+STORE_FRAMES_BEFORE_S = {"to_driver_s": 1.74, "to_worker_s": 1.89}
+STORE_SPILL_BUDGET = 3 * 2**29  # 1.5 GiB: three f32 GPT-2 125M state dicts
+STORE_SPILL_SEEDS = 5
+STORE_REPEAT = 10  # the flat vector 10 times: 4.98 GB, past the u32 frame
+STORE_TIMEOUT_S = 300.0
+
+
+def _mark(runtime, name: str, state: str) -> float:
+    """The driver's task-event mark `state` of the one task called `name`."""
+    (at,) = [e.state_times[state] for e in runtime.task_events.list_events()
+             if e.name == name and state in e.state_times]
+    return at
+
+
+def _store_train(tokens, cfg, steps: int, device: str, count_path: str,
+                 on_card: bool):
+    """Phase 18's train step, returning GPT's f32 parameters as ONE flat
+    tensor (parameters_to_vector, 498 MB: over the native store's
+    threshold, where a dict of tensors is not), on the host or on cuda:0.
+    The losses, launches and the host-clock stamp taken just before the
+    return go to `count_path`.json, as the return carries the vector
+    alone."""
+    out = _procs_train(tokens, cfg, steps, device, count_path)
+    vec = torch.nn.utils.parameters_to_vector(list(out.pop("params").values()))
+    if on_card:
+        vec = vec.to("cuda")
+        torch.cuda.synchronize()
+    out["returned_at"] = time.time()
+    with open(count_path + ".json", "w") as f:
+        json.dump(out, f)
+    return vec
+
+
+def _store_evaluate(vec, cfg, seed: int, shape, device: str) -> dict:
+    """Phase 18's evaluate on the flat vector: loaded into a GPT with
+    vector_to_parameters, the held-out loss. `entered_at` is stamped on the
+    host's clock on entry, once the vector has arrived."""
+    entered_at = time.time()
+    from ray_tpu_torch.models import cross_entropy_loss
+    from ray_tpu_torch.models.gpt import GPT
+
+    arrived = {"device": str(vec.device), "bytes": vec.numel() * vec.element_size()}
+    _own_counts(zero=True)
+    model = GPT(cfg, device=device, seed=0)
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        torch.nn.utils.vector_to_parameters(vec.to(dev), model.parameters())
+        x = torch.from_numpy(_procs_make_tokens(seed, *shape)).to(dev)
+        loss = cross_entropy_loss(model(x[:, :-1]), x[:, 1:]).item()
+    launches = _own_counts()
+    del model, x, vec
+    torch.cuda.empty_cache()
+    return {"loss": loss, "launches": launches, "pid": os.getpid(),
+            "entered_at": entered_at, "arrived": arrived}
+
+
+def _store_repeat(vec, times: int, stamp_path: str):
+    """A CPU task: the vector `times` over, one tensor past the u32 frame."""
+    big = vec.repeat(times)
+    with open(stamp_path, "w") as f:
+        json.dump({"returned_at": time.time(), "pid": os.getpid()}, f)
+    return big
+
+
+def _store_check_repeat(big, vec, times: int) -> dict:
+    """A CPU task: every slice of `big` bit for bit `vec`."""
+    entered_at = time.time()
+    n = vec.numel()
+    ok = big.numel() == n * times and all(
+        torch.equal(big[i * n:(i + 1) * n], vec) for i in range(times))
+    return {"ok": ok, "entered_at": entered_at, "pid": os.getpid(),
+            "bytes": big.numel() * big.element_size()}
+
+
+def _store_blob(count_path: str) -> dict:
+    """A CPU task whose result is freed in (d): its runs are counted."""
+    with open(count_path, "a") as f:
+        f.write("x")
+    return {"blob": torch.zeros(1 << 20)}
+
+
+def _store_machine(card: str) -> dict:
+    """(0) /dev/shm's free bytes, the host's available RAM, the spill
+    directory's free disk; (c) needs /dev/shm to hold its 4.98 GB value."""
+    import tempfile
+
+    from ray_tpu_torch._private.native_store import shm_free_bytes
+
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    st = os.statvfs(tempfile.gettempdir())
+    out = {"dev_shm_free_bytes": shm_free_bytes(), "mem_available_bytes": avail,
+           "spill_dir": tempfile.gettempdir(),
+           "spill_dir_free_bytes": st.f_bavail * st.f_frsize}
+    log("[store] machine " + json.dumps({"card": card, **out}))
+    if not out["dev_shm_free_bytes"] or out["dev_shm_free_bytes"] < 6 * 10**9:
+        fail(f"[store] /dev/shm holds {out['dev_shm_free_bytes']} bytes free: (c)'s "
+             "4.98 GB value does not fit (PERF.md §7)")
+    return out
+
+
+def _store_crossing(runtime, variant: str, base: str, on_card: bool) -> dict:
+    """(a) train -> evaluate under this runtime, the flat vector between
+    them: its two crossings timed as phase 18 times them (task-event marks
+    against stamps taken inside the tasks), whether the driver's store
+    holds it in shm, then the driver's read of it."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    names = (f"store_train_{variant}", f"store_evaluate_{variant}")
+    train = ray_tpu_torch.remote(_store_train).options(num_gpus=1, name=names[0])
+    evaluate = ray_tpu_torch.remote(_store_evaluate).options(num_gpus=1, name=names[1])
+    tokens = _procs_make_tokens(0, TRAIN_B, TRAIN_S + 1)
+    count = os.path.join(base, f"{variant}.count")
+    t0 = time.perf_counter()
+    ref = train.remote(tokens, gpt2_125m(), TRAIN_STEPS, "cuda", count, on_card)
+    ev = ray_tpu_torch.get(evaluate.remote(ref, gpt2_125m(attention_impl="auto"),
+                                           PROCS_EVAL_SEED, tokens.shape, "cuda"),
+                           timeout=STORE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    with open(count + ".json") as f:
+        trained = json.load(f)
+    native = runtime._native_store is not None and runtime.store.is_native(ref.id)
+    # The driver's read, twice: the first maps the value's pages into this
+    # process, the second finds them mapped.
+    reads = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vec = ray_tpu_torch.get(ref, timeout=STORE_TIMEOUT_S)
+        torch.cuda.synchronize()
+        reads.append(time.perf_counter() - t0)
+        if len(reads) == 1:
+            first = vec
+    if not torch.equal(first, vec):
+        fail(f"[store] (a) {variant}: two reads of the vector differ")
+    del first
+    return {"variant": variant, "ref": ref, "vec": vec, "native": native, "wall_s": wall,
+            "train_losses": trained["losses"], "train_launches": trained["launches"],
+            "loss": ev["loss"], "launches": ev["launches"], "arrived": ev["arrived"],
+            "pids": [trained["pid"], ev["pid"]],
+            "crossing": {"to_driver_s": _mark(runtime, names[0], "FINISHED")
+                         - trained["returned_at"],
+                         "to_worker_s": ev["entered_at"] - _mark(runtime, names[1], "RUNNING"),
+                         "driver_read_s": reads[0], "driver_read_again_s": reads[1]}}
+
+
+def _store_check_crossing(run: dict, procs: dict, card: str, layers: int) -> dict:
+    """Phase 18's checks of a DAG run, its losses and evaluation bit for bit
+    phase 18's straight DAG, the vector where it should be; the logged line."""
+    tag = f"(a) {run['variant']}"
+    _procs_run_checks(run, tag, layers, phase="store")
+    _want_counts(run["launches"], {"K2 flash_fwd": layers}, "store")
+    dag = procs["dag"]
+    same = run["train_losses"] == dag["train_losses"] and run["loss"] == dag["eval_loss"]
+    if not same:
+        fail(f"[store] {tag}: losses {run['train_losses']} / {run['loss']} are not phase "
+             f"18's {dag['train_losses']} / {dag['eval_loss']}")
+    want_device = "cuda:0" if run["variant"].endswith("card") else "cpu"
+    if str(run["vec"].device) != want_device or run["arrived"]["device"] != want_device:
+        fail(f"[store] {tag}: the vector is on {run['vec'].device} in the driver and "
+             f"{run['arrived']['device']} in evaluate, not {want_device}")
+    line = {k: run[k] for k in ("native", "wall_s", "crossing", "pids", "train_losses",
+                                "loss")}
+    line.update(bytes=run["arrived"]["bytes"], bit_for_bit_with_procs_dag=same,
+                frames_before_store_s=STORE_FRAMES_BEFORE_S,
+                train_launches=run["train_launches"], evaluate_launches=run["launches"])
+    log(f"[store] {tag} " + json.dumps({"card": card, **line}))
+    return line
+
+
+def _store_big(runtime, host_ref, vec, base: str, card: str) -> dict:
+    """(c) A CPU worker returns the vector STORE_REPEAT times (4.98 GB); the
+    driver gets it and a second worker takes it as an argument, each
+    checking every slice bit for bit."""
+    import ray_tpu_torch
+
+    names = ("store_repeat", "store_check_repeat")
+    repeat = ray_tpu_torch.remote(_store_repeat).options(num_gpus=0, name=names[0],
+                                                         max_retries=0)
+    check = ray_tpu_torch.remote(_store_check_repeat).options(num_gpus=0, name=names[1],
+                                                              max_retries=0)
+    stamp = os.path.join(base, "repeat.json")
+    t0 = time.perf_counter()
+    big_ref = repeat.remote(host_ref, STORE_REPEAT, stamp)
+    ray_tpu_torch.wait([big_ref], timeout=STORE_TIMEOUT_S)
+    produced_s = time.perf_counter() - t0
+    native = runtime.store.is_native(big_ref.id)
+    t0 = time.perf_counter()
+    big = ray_tpu_torch.get(big_ref, timeout=STORE_TIMEOUT_S)
+    read_s = time.perf_counter() - t0
+    n = vec.numel()
+    driver_ok = big.numel() == n * STORE_REPEAT and all(
+        torch.equal(big[i * n:(i + 1) * n], vec) for i in range(STORE_REPEAT))
+    nbytes = big.numel() * big.element_size()
+    del big
+    checked = ray_tpu_torch.get(check.remote(big_ref, host_ref, STORE_REPEAT),
+                                timeout=STORE_TIMEOUT_S)
+    with open(stamp) as f:
+        returned_at = json.load(f)["returned_at"]
+    out = {"bytes": nbytes, "native": native, "produced_s": produced_s,
+           "driver_ok": driver_ok, "worker_ok": checked["ok"],
+           "crossing": {"to_driver_s": _mark(runtime, names[0], "FINISHED") - returned_at,
+                        "driver_read_s": read_s,
+                        "to_worker_s": checked["entered_at"]
+                        - _mark(runtime, names[1], "RUNNING")}}
+    del big_ref
+    log("[store] (c) " + json.dumps({"card": card, **out}))
+    if nbytes < 1 << 32 or not (native and driver_ok and checked["ok"]):
+        fail(f"[store] (c) the {nbytes}-byte value: in shm {native}, intact in the "
+             f"driver {driver_ok}, in the worker {checked['ok']}")
+    return out
+
+
+def _store_frames_refuse_big(host_ref) -> str:
+    """(c) with the store off: the same task fails with FrameTooLargeError."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private import wire
+
+    repeat = ray_tpu_torch.remote(_store_repeat).options(num_gpus=0, max_retries=0)
+    try:
+        ray_tpu_torch.get(repeat.remote(host_ref, STORE_REPEAT, os.devnull),
+                          timeout=STORE_TIMEOUT_S)
+    except wire.FrameTooLargeError as exc:
+        return str(exc)[:200]
+    except Exception as exc:  # noqa: BLE001 - reported as the wrong failure
+        fail(f"[store] (c) with the store off the value failed with {exc!r}, not "
+             "FrameTooLargeError")
+    fail("[store] (c) with the store off a value past the u32 frame crossed")
+
+
+def _store_processes(procs: dict, card: str, pids: set) -> dict:
+    """(a) and (c): a process runtime with the store on (host and card
+    vectors, the 4.98 GB value), then one with it off (the frame path's
+    crossings of the same vector, and the 4.98 GB value refused)."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    layers = gpt2_125m().num_layers
+    base = tempfile.mkdtemp(prefix="store-phase-")
+    out = {}
+    try:
+        runtime = ray_tpu_torch.init(num_cpus=8, num_gpus=1,
+                                     _system_config={"isolation": "process"})
+        try:
+            host = _store_crossing(runtime, "shm_host", base, on_card=False)
+            out["shm_host"] = _store_check_crossing(host, procs, card, layers)
+            if not host["native"]:
+                fail("[store] (a) the 498 MB vector is not in shm (is_native false)")
+            on_card = _store_crossing(runtime, "shm_card", base, on_card=True)
+            out["shm_card"] = _store_check_crossing(on_card, procs, card, layers)
+            if not on_card["native"]:
+                fail("[store] (a) the 498 MB cuda:0 vector is not in shm")
+            if not torch.equal(on_card["vec"].cpu(), host["vec"]):
+                fail("[store] (a) the card's vector differs from the host's")
+            # The vector onto the card: read out of the segment straight to
+            # cuda:0 (get of the card variant above: one host-to-device copy
+            # from the pageable segment) and from the driver's private copy.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dev = host["vec"].to("cuda")
+            torch.cuda.synchronize()
+            out["h2d"] = {"segment_to_card_s": on_card["crossing"]["driver_read_s"],
+                          "private_to_card_s": time.perf_counter() - t0,
+                          "segment_to_host_s": host["crossing"]["driver_read_s"],
+                          "bytes": dev.numel() * dev.element_size()}
+            del dev, on_card["vec"]
+            log("[store] (a) host-to-device " + json.dumps({"card": card, **out["h2d"]}))
+            out["big"] = _store_big(runtime, host["ref"], host["vec"], base, card)
+            out["shm_vec"] = host.pop("vec")
+            del host, on_card
+            for engine in list(runtime.engines.values()):
+                pids.update(h.proc.pid for h in list(engine._workers))
+        finally:
+            ray_tpu_torch.shutdown()
+        runtime = ray_tpu_torch.init(num_cpus=8, num_gpus=1, _system_config={
+            "isolation": "process", "native_store_enabled": False})
+        try:
+            frames = _store_crossing(runtime, "frames_host", base, on_card=False)
+            out["frames_host"] = _store_check_crossing(frames, procs, card, layers)
+            if frames["native"]:
+                fail("[store] (a) a vector is in shm with the store off")
+            if not torch.equal(frames["vec"], out["shm_vec"]):
+                fail("[store] (a) the frame path's vector differs from the shm path's")
+            out["frames_refuse_big"] = _store_frames_refuse_big(frames["ref"])
+            log("[store] (c) store off: " + out["frames_refuse_big"])
+            del frames
+            for engine in list(runtime.engines.values()):
+                pids.update(h.proc.pid for h in list(engine._workers))
+        finally:
+            ray_tpu_torch.shutdown()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    out.pop("shm_vec")
+    return out
+
+
+def _store_timed(obj, name: str, sink: list) -> None:
+    """Wrap obj.name (an instance attribute) to append each call's seconds."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            sink.append(time.perf_counter() - t0)
+
+    setattr(obj, name, timed)
+
+
+def _store_spill(runtime, server: dict, card: str) -> tuple:
+    """(b) five f32 GPT-2 125M state dicts under a 1.5 GiB store: the oldest
+    spill, each reads back bit for bit, and the spilled seed-0 dict serves
+    the server phase's prompts token for token (K1 and K2 counted)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.models.gpt import GPT, gpt2_125m
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+
+    storage = runtime._spill_storage
+    spills, restores = [], []
+    _store_timed(storage, "spill", spills)
+    _store_timed(storage, "restore", restores)
+    dicts = [GPT(gpt2_125m(), device="cpu", seed=s).state_dict()
+             for s in range(STORE_SPILL_SEEDS)]
+    refs, put_s = [], []
+    for sd in dicts:
+        t0 = time.perf_counter()
+        refs.append(ray_tpu_torch.put(sd))
+        put_s.append(time.perf_counter() - t0)
+    spilled = [i for i, r in enumerate(refs)
+               if runtime.store._entries[r.id].spilled_uri is not None]
+    stats = storage.stats()
+    dict_bytes = sum(t.numel() * t.element_size() for t in dicts[0].values())
+    if spilled[:2] != [0, 1] or stats["num_spilled"] < 2 \
+            or stats["spilled_bytes"] < 2 * dict_bytes:
+        fail(f"[store] (b) spilled {spilled}, stats {stats}: the oldest two must spill")
+    same = []
+    read_s = []
+    for sd, ref in zip(dicts, refs):
+        t0 = time.perf_counter()
+        got = ray_tpu_torch.get(ref, timeout=STORE_TIMEOUT_S)
+        read_s.append(time.perf_counter() - t0)
+        same.append(list(got) == list(sd) and all(torch.equal(got[k], sd[k]) for k in sd))
+    if not all(same):
+        fail(f"[store] (b) dicts read back bit for bit: {same}")
+    got0 = ray_tpu_torch.get(refs[0], timeout=STORE_TIMEOUT_S)  # from its spill file
+    serving = LLMServer(gpt2_125m(), _engine_config(), params=got0)
+    del got0
+    serving.reset_prefix_cache()
+    prompts = _prompts(np.random.RandomState(0))
+    paged_flash_attention.launches = 0
+    flash_attention_fwd.launches = 0
+    tokens = _sequential(serving, prompts, 32)
+    launches = {"K1 paged_attention": paged_flash_attention.launches,
+                "K2 flash_fwd": flash_attention_fwd.launches}
+    _free(serving)
+    identical = tokens == server["bf16_sequential_tokens"]
+    out = {"put_s": put_s, "read_s": read_s, "spilled_seeds": spilled, "stats": storage.stats(),
+           "spill_s": spills, "restore_s": restores, "dict_bytes": dict_bytes,
+           "bit_for_bit": all(same), "served_token_identical": identical,
+           "launches": launches}
+    log("[store] (b) " + json.dumps({"card": card, **out}))
+    if not identical:
+        fail("[store] (b) the spilled checkpoint's tokens differ from the server phase's")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"[store] (b) {name} was not launched serving the spilled checkpoint")
+    return out, refs, dicts
+
+
+def _store_recovery(runtime, refs: list, dicts: list, card: str) -> dict:
+    """(d) train (num_gpus=1, K6 + K7) returns its state dict; pressure
+    spills it and a put dict; both spill files are deleted. `get` re-runs
+    train exactly once, bit for bit, K6/K7 counted in that run; the put
+    object raises ObjectLostError and a freed task result ObjectFreedError,
+    re-running nothing."""
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.exceptions import ObjectFreedError, ObjectLostError
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    store = runtime.store
+    store.free([r.id for r in refs])  # (b)'s dicts: their spill files go too
+    base = tempfile.mkdtemp(prefix="store-recovery-")
+    count, blob_count = os.path.join(base, "train.count"), os.path.join(base, "blob.count")
+    train = ray_tpu_torch.remote(_procs_train).options(num_gpus=1, name="store_recovery_train")
+    blob = ray_tpu_torch.remote(_store_blob).options(num_gpus=0)
+    tokens = _procs_make_tokens(0, TRAIN_B, TRAIN_S + 1)
+    t_ref = train.remote(tokens, gpt2_125m(), TRAIN_STEPS, "cuda", count)
+    first = ray_tpu_torch.get(t_ref, timeout=STORE_TIMEOUT_S)
+    p_ref = ray_tpu_torch.put(dicts[0])
+    f_ref = blob.remote(blob_count)
+    ray_tpu_torch.get(f_ref, timeout=STORE_TIMEOUT_S)
+    ballast = [ray_tpu_torch.put(d) for d in dicts[1:4]]
+    uris = {name: store._entries[r.id].spilled_uri for name, r in
+            (("train", t_ref), ("put", p_ref))}
+    if None in uris.values():
+        fail(f"[store] (d) pressure did not spill train's result and the put dict: {uris}")
+    for uri in uris.values():
+        os.remove(uri)
+    store.free([f_ref.id])
+    _own_counts(zero=True)
+    t0 = time.perf_counter()
+    again = ray_tpu_torch.get(t_ref, timeout=STORE_TIMEOUT_S)
+    recover_s = time.perf_counter() - t0
+    launches = _own_counts()
+    runs = len(open(count).read())
+    same = (again["losses"] == first["losses"] and list(again["params"]) == list(first["params"])
+            and all(torch.equal(again["params"][k], v) for k, v in first["params"].items()))
+    errors = {}
+    for name, ref, want in (("put", p_ref, ObjectLostError), ("freed", f_ref, ObjectFreedError)):
+        try:
+            ray_tpu_torch.get(ref, timeout=STORE_TIMEOUT_S)
+            errors[name] = "no error"
+        except want as exc:
+            errors[name] = type(exc).__name__
+        except Exception as exc:  # noqa: BLE001 - reported as the wrong error
+            errors[name] = f"{type(exc).__name__} (want {want.__name__})"
+    blob_runs = len(open(blob_count).read())
+    runs_after = len(open(count).read())
+    del ballast, again, first
+    out = {"train_runs": runs, "train_runs_after_errors": runs_after, "blob_runs": blob_runs,
+           "recover_s": recover_s, "bit_for_bit": same, "errors": errors,
+           "launches": launches, "stats": runtime._spill_storage.stats()}
+    log("[store] (d) " + json.dumps({"card": card, **out}))
+    layers = gpt2_125m().num_layers
+    per = layers * TRAIN_STEPS
+    _want_counts(launches, {"K6 flash_fwd_packed": per, "K7 flash_bwd_packed": per,
+                            "K4 flash_bwd_dq": per, "K5 flash_bwd_dkv": per}, "store")
+    if runs != 2 or runs_after != 2 or blob_runs != 1 or not same \
+            or errors != {"put": "ObjectLostError", "freed": "ObjectFreedError"}:
+        fail(f"[store] (d) train ran {runs} then {runs_after} times, the blob {blob_runs}; "
+             f"bit for bit {same}; errors {errors}")
+    import shutil
+
+    shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def phase_store(device_info: dict, server: dict, procs: dict) -> dict:
+    """The native shared-memory store, spilling and lineage recovery
+    (phase 19): (0) the machine; (a) and (c) under worker processes; (b)
+    and (d) under a thread runtime with a 1.5 GiB store; (e) no segment,
+    spill directory or worker left, and the card's memory back."""
+    import glob
+
+    import ray_tpu_torch
+
+    t_phase = time.perf_counter()
+    card = device_info["smi"]
+    summary = {"machine": _store_machine(card)}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    used0, mem0 = _device_used(), torch.cuda.memory_allocated()
+    pids: set = set()
+    summary.update(_store_processes(procs, card, pids))
+    runtime = ray_tpu_torch.init(num_cpus=8, num_gpus=1, _system_config={
+        "object_store_memory": STORE_SPILL_BUDGET})
+    spill_dir = runtime._spill_storage.directory
+    segment = "/dev/shm" + runtime._native_store.name.decode()
+    try:
+        summary["spill"], refs, dicts = _store_spill(runtime, server, card)
+        summary["recovery"] = _store_recovery(runtime, refs, dicts, card)
+        del refs, dicts
+    finally:
+        ray_tpu_torch.shutdown()
+    alive = sorted(p for p in pids if _pid_alive(p))
+    left = {"segments": sorted(glob.glob("/dev/shm/ray_tpu_torch_*")),
+            "spill_dir_exists": os.path.exists(spill_dir), "segment": segment,
+            "worker_pids": len(pids), "alive": alive}
+    if left["segments"] or left["spill_dir_exists"] or alive:
+        fail(f"[store] after shutdown(): {left}")
+    left["left_allocated_mib"] = _settle(mem0, "store")
+    limit = LEFT_LIMIT_MIB * 2**20
+    left["settle_s"] = _until(lambda: _device_used() <= used0 + limit,
+                              f"the card's used memory back within {LEFT_LIMIT_MIB} MiB of "
+                              f"{used0 / 2**20:.0f} MiB", deadline_s=30.0)
+    left.update(device_used_start_mib=used0 / 2**20, device_used_end_mib=_device_used() / 2**20)
+    summary["teardown"] = left
+    log("[store] (e) teardown " + json.dumps({"card": card, **left}))
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[store] phase wall {summary['wall_s']:.1f}s")
+    shm = ("shm_host", "shm_card")
+    summary["paths"] = {
+        "store train": _sum_counts([summary[v]["train_launches"] for v in shm]),
+        "store evaluate": _sum_counts([summary[v]["evaluate_launches"] for v in shm]),
+        "store spilled serve": summary["spill"]["launches"],
+        "store recovery": summary["recovery"]["launches"],
+    }
+    return summary
+
+
 def _replace_attn():
     import dataclasses
 
@@ -5710,6 +6246,14 @@ def kernels_line(rows: list, launches: dict, paths: dict) -> dict:
     return {"kernels": out}
 
 
+def _timed(walls: dict, fn, *args):
+    """fn(*args), its wall seconds kept in `walls` under the phase's name."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    walls[fn.__name__.removeprefix("phase_")] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5717,26 +6261,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    device = phase_device()
-    phase_build()
-    rows = phase_kernels()
-    profile = phase_profile(rows)
-    launches = dict(phase_train()["launches_main"])
-    trainer = phase_trainer()
+    walls: dict = {}
+    device = _timed(walls, phase_device)
+    _timed(walls, phase_build)
+    rows = _timed(walls, phase_kernels)
+    profile = _timed(walls, phase_profile, rows)
+    launches = dict(_timed(walls, phase_train)["launches_main"])
+    trainer = _timed(walls, phase_trainer)
     launches["K3 flash_bwd_fused"] = trainer["launches"]["K3 flash_bwd_fused"]
-    server = phase_server()
+    server = _timed(walls, phase_server)
     launches.update(server["launches"])
-    phase_serving_modes()
-    phase_serve(server)
-    loadgen = phase_loadgen()
-    fabric = phase_fabric()
-    resnet = phase_resnet(device)
-    moe = phase_moe(server)
-    tuned = phase_tune()
-    rllib = phase_rllib(device)
-    algos = phase_rllib_algos(device)
-    data = phase_data(device, trainer, resnet)
-    procs = phase_procs(device, server, trainer, data)
+    _timed(walls, phase_serving_modes)
+    _timed(walls, phase_serve, server)
+    loadgen = _timed(walls, phase_loadgen)
+    fabric = _timed(walls, phase_fabric)
+    resnet = _timed(walls, phase_resnet, device)
+    moe = _timed(walls, phase_moe, server)
+    tuned = _timed(walls, phase_tune)
+    rllib = _timed(walls, phase_rllib, device)
+    algos = _timed(walls, phase_rllib_algos, device)
+    data = _timed(walls, phase_data, device, trainer, resnet)
+    procs = _timed(walls, phase_procs, device, server, trainer, data)
+    stored = _timed(walls, phase_store, device, server, procs)
     launches.update(profile["launches"])
     paths = {"server": server["launches"]}
     for line in loadgen["cells"]:
@@ -5760,6 +6306,8 @@ def main() -> int:
     paths["data gpt2"] = data["gpt2"]["launches"]
     paths["data resnet"] = data["resnet"]["launches"]
     paths.update(procs["paths"])
+    paths.update(stored["paths"])
+    log("[phases] " + json.dumps(walls))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches, paths)))
     print(json.dumps({"ok": True, "device": {

@@ -31,10 +31,6 @@ def _env_override(name: str, default):
 _UNPORTED = {
     "gcs_storage_path": ("", "GCS persistence (gcs_storage) is not ported "
                              "(ROADMAP.md §B10)"),
-    "native_store_enabled": (False, "the native shared-memory store (native_store) "
-                                    "is not ported (ROADMAP.md §B10)"),
-    "object_spilling_enabled": (False, "object spilling (external_storage) is not "
-                                       "ported (ROADMAP.md §B10)"),
     "include_dashboard": (False, "the dashboard is not ported (ROADMAP.md §B10)"),
     # The reference declares this flag and no engine of it reads it: the
     # process engine starts workers on demand, in both packages.
@@ -61,6 +57,18 @@ class Config:
     # copy (the reference's immutability contract). False = zero-copy sharing
     # between thread-workers (fast, but mutations alias).
     serialize_objects: bool = True
+    # Native shared-memory store (csrc/store.cc, the reference's plasma
+    # equivalent): values of at least the threshold are written into one shm
+    # segment that every worker process maps, instead of crossing the socket
+    # (reference: ray_config_def.h max_direct_call_object_size). It builds
+    # with g++ at first use, and init() raises if it cannot.
+    native_store_enabled: bool = True
+    native_store_threshold: int = 512 * 1024
+    # Spill primary copies to disk under memory pressure
+    # (local_object_manager.h); "" = $TMPDIR/ray_tpu_torch_spill_<pid>,
+    # removed at shutdown (a directory given here is left in place).
+    object_spilling_enabled: bool = True
+    object_spill_directory: str = ""
     # Active worker-process health probing (ping/pong over the wire): a
     # worker that fails to pong within period*threshold is declared hung and
     # killed, driving the normal crash/restart path (reference:

@@ -4,8 +4,8 @@ The analog of the reference's worker pool + direct task transport
 (raylet/worker_pool.h:156 PopWorker/prestart, transport/direct_task_transport.h):
 each logical node runs real OS worker processes (worker_main.py), one task at a
 time per worker, one dedicated process per actor. Task specs, argument values
-and results cross a real serialization boundary (wire.py); with no native
-store (ROADMAP.md §B10), every value crosses the socket.
+and results cross a real serialization boundary (wire.py); large values ride
+the shared-memory native store instead of the socket.
 
 Failure semantics this buys over the threaded engine:
   * a crashing worker (segfault, os._exit) kills only itself — the driver maps
@@ -115,9 +115,14 @@ class ProcessWorkerHandle:
         for tailer in self._tailers:
             tailer.start()
         self.conn = wire.Connection(parent_sock)
+        native = self.runtime._native_store
         self.conn.send(
             "hello",
             {
+                "store_name": native.name.decode() if native is not None else None,
+                "native_threshold": self.runtime.config.native_store_threshold
+                if native is not None
+                else 0,
                 "node_id": engine.node.node_id,
                 "job_id": self.runtime.job_id.binary(),
                 "driver_task_id": self.runtime.driver_task_id.binary(),
@@ -209,14 +214,18 @@ class ProcessWorkerHandle:
             reply = {"id": msg_id, "ok": False, "exc_pickled": exc_bytes}
         try:
             self.conn.send("rpc_reply", reply)
-        except Exception:
+        except Exception as exc:
+            # A reply over the frame limit says so (a value read with the
+            # native store off); anything else could not be pickled.
+            if not isinstance(exc, wire.FrameTooLargeError):
+                exc = RuntimeError("unserializable RPC reply")
             try:
                 self.conn.send(
                     "rpc_reply",
                     {
                         "id": msg_id,
                         "ok": False,
-                        "exc": RuntimeError("unserializable RPC reply"),
+                        "exc": exc,
                     },
                 )
             except Exception:
@@ -230,23 +239,34 @@ class ProcessWorkerHandle:
         if method == "get_by_id":
             oid = ObjectID(payload["oid"])
             timeout = payload.get("timeout")
-            ready, _ = runtime.store.wait([oid], 1, timeout)
-            if not ready:
-                from ray_tpu_torch.exceptions import GetTimeoutError
+            if not payload.get("force_value"):
+                # Wait for seal WITHOUT materializing: shm-resident objects
+                # are read by the worker from the segment, so decoding a copy
+                # here just to throw it away would waste the whole benefit.
+                ready, _ = runtime.store.wait([oid], 1, timeout)
+                if not ready:
+                    from ray_tpu_torch.exceptions import GetTimeoutError
 
-                raise GetTimeoutError(
-                    f"Get timed out after {timeout}s waiting for {oid}"
-                )
-            # Forward the store's serialized bytes untouched (no driver-side
-            # decode + re-encode); the worker deserializes and raises
-            # ErrorObjects itself. Values stored live are pickled here, as
-            # bytes: rpc_reply frames must stay envelope-safe (a raw user
-            # value in the frame would make a worker-side unpickle failure
-            # look like wire corruption).
-            data = runtime.store.get_serialized(oid)
-            if data is None:
-                data = cloudpickle.dumps(runtime.store.get(oid, timeout), protocol=5)
-            return {"value_pickled": data}
+                    raise GetTimeoutError(
+                        f"Get timed out after {timeout}s waiting for {oid}"
+                    )
+                if runtime.store.is_native(oid):
+                    return {"in_native": True}
+                # Forward the store's serialized bytes untouched (no driver-
+                # side decode + re-encode); the worker deserializes and
+                # raises ErrorObjects itself.
+                data = runtime.store.get_serialized(oid)
+                if data is not None:
+                    return {"value_pickled": data}
+            value = runtime.get_value(oid, timeout)
+            from ray_tpu_torch._private.runtime import ErrorObject
+
+            if isinstance(value, ErrorObject):
+                value.raise_()
+            # Pre-pickled: rpc_reply frames must stay envelope-safe (a raw
+            # user value in the frame would make a worker-side unpickle
+            # failure look like wire corruption).
+            return {"value_pickled": cloudpickle.dumps(value, protocol=5)}
         if method == "wait_ids":
             oids = [ObjectID(raw) for raw in payload["oids"]]
             ready, remaining = runtime.store.wait(
@@ -342,7 +362,8 @@ class ProcessWorkerHandle:
     def _wire_body(self, spec: TaskSpec, grant: dict) -> dict:
         def wrap(value):
             if isinstance(value, ObjectRef):
-                return wire.WireRef(value.id.binary())
+                return wire.WireRef(value.id.binary(),
+                                    self.runtime.store.is_native(value.id))
             return value
 
         body = {
@@ -541,6 +562,8 @@ class ProcessWorkerHandle:
             result = TaskResult(
                 exc=self._decode_exc(body, spec), traceback_str=body.get("tb", "")
             )
+        elif body.get("in_native"):
+            result = self._seal_native_return(spec, body)
         elif "value_pickled" in body:
             # Worker pre-serialized the single return: seal the bytes as-is.
             nested = [ObjectRef(ObjectID(raw)) for raw in body.get("nested", ())]
@@ -597,6 +620,19 @@ class ProcessWorkerHandle:
         except Exception:
             pass
         self.reap()
+
+    def _seal_native_return(self, spec: TaskSpec, body: dict) -> TaskResult:
+        """Adopt a return the worker wrote and sealed into the shm store.
+        Nested refs serialized into the shm bytes become borrows held by the
+        sealed entry (same protocol as driver-side seal)."""
+        nested = [ObjectRef(ObjectID(raw)) for raw in body.get("nested", ())]
+        sealed = self.runtime.store.seal_native(
+            spec.return_ids[0], body["in_native"], nested_refs=nested or None
+        )
+        if sealed:
+            return TaskResult(value=SEALED_EXTERNALLY)
+        # shm raced an eviction; extremely unlikely — treat as lost
+        return TaskResult(exc=WorkerCrashedError("shm-resident return value lost"))
 
     def death_reason_for(self, expected: bool) -> str:
         return "actor killed" if expected else "actor process died"

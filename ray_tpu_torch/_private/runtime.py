@@ -6,10 +6,12 @@ core_worker.h:284 — Put :558, Get :665, Wait :704, SubmitTask :829, CreateActo
 retries) for a single-control-plane cluster. Every public API call lands
 here. Workers are threads of this process (`isolation="thread"`) or OS
 processes (`isolation="process"`, process_engine.py, watched by the memory
-monitor); the object store stays in this process either way. Remote nodes,
-GCS persistence, the native store, spilling and the dashboard are refused
-at init (config.py `_UNPORTED`); with no way to lose an object, lineage
-re-execution is left out too.
+monitor); the object table stays in this process either way, with large
+values in the native shared-memory store that worker processes map, and
+spill files under memory pressure. A lost value (a missing spill file, shm
+eviction) is rebuilt by re-executing its producing task (lineage). Remote
+nodes, GCS persistence and the dashboard are refused at init (config.py
+`_UNPORTED`).
 
 Key invariants preserved from the reference:
   * return ObjectIDs are computed at submission (ownership without coordination);
@@ -25,6 +27,7 @@ Key invariants preserved from the reference:
 
 from __future__ import annotations
 
+import os
 import threading
 import traceback
 from collections import deque
@@ -146,8 +149,28 @@ class Runtime:
         self.namespace = namespace
         self.controller = Controller()
         budget = self.config.object_store_memory or _default_store_budget(self.config)
+        # The native store raises here when its library cannot be built or
+        # loaded: no runtime starts without the store it was asked for.
+        self._native_store = None
+        if self.config.native_store_enabled and self.config.native_store_threshold:
+            from ray_tpu_torch._private.native_store import NativeStore
+
+            self._native_store = NativeStore(
+                f"/ray_tpu_torch_{os.getpid()}", capacity=budget or (1 << 30)
+            )
+        self._spill_storage = None
+        if self.config.object_spilling_enabled:
+            from ray_tpu_torch._private.external_storage import FileSystemStorage
+
+            self._spill_storage = FileSystemStorage(
+                self.config.object_spill_directory or None
+            )
         self.store = InProcessStore(
-            memory_budget=budget, serialize=self.config.serialize_objects
+            memory_budget=budget,
+            native=self._native_store,
+            native_threshold=self.config.native_store_threshold,
+            spill_storage=self._spill_storage,
+            serialize=self.config.serialize_objects,
         )
         # Deferred-deletion reaper (see _on_object_out_of_scope for why the
         # callback itself must never touch the store).
@@ -157,12 +180,17 @@ class Runtime:
             target=self._reaper_loop, name="object-reaper", daemon=True
         )
         self._reaper_thread.start()
-        # No lineage pinning: in-process objects are never lost (no spill
-        # files, shared memory or remote nodes), so nothing re-executes.
         self.refcount = ReferenceCounter(
             on_object_out_of_scope=self._on_object_out_of_scope,
-            lineage_pinning_enabled=False,
+            on_lineage_released=self._release_lineage,
         )
+        # Lineage table: producing spec kept while any output is referenced,
+        # enabling re-execution of lost objects (reference: lineage pinning,
+        # reference_count.h:75 + object_recovery_manager.h:42). The retained
+        # spec's arg ObjectRefs transitively pin upstream lineage via ordinary
+        # handle liveness.
+        self._lineage: dict[TaskID, tuple[TaskSpec, dict]] = {}
+        self._recovering: dict[TaskID, threading.Event] = {}
         self.store.set_pinned_check(self.refcount.pinned)
         self.job_id = JobID.from_int(self.controller.next_job_id())
         self.driver_task_id = TaskID.for_job(self.job_id)
@@ -328,11 +356,91 @@ class Runtime:
             remaining = None
             if deadline is not None:
                 remaining = max(0.0, deadline - _time.monotonic())
-            value = self.store.get(ref.id, remaining)
+            value = self.get_value(ref.id, remaining)
             if isinstance(value, ErrorObject):
                 value.raise_()
             values.append(value)
         return values
+
+    def get_value(self, oid: ObjectID, timeout: Optional[float]) -> Any:
+        """store.get with lineage recovery: a LOST value (missing spill file,
+        shm eviction) re-executes its producing task instead of raising
+        (reference: ObjectRecoveryManager, object_recovery_manager.h:42).
+        Explicitly freed objects (ObjectFreedError) are never recovered."""
+        from ray_tpu_torch.exceptions import ObjectFreedError
+
+        for _attempt in range(3):
+            try:
+                return self.store.get(oid, timeout)
+            except ObjectFreedError:
+                raise
+            except ObjectLostError:
+                if not self._try_recover(oid):
+                    raise
+        return self.store.get(oid, timeout)
+
+    # ------------------------------------------------------------ recovery
+
+    def _release_lineage(self, task_id: TaskID) -> None:
+        with self._lock:
+            self._lineage.pop(task_id, None)
+
+    def _try_recover(self, oid: ObjectID) -> bool:
+        """Re-execute the producing task of a lost object. Returns False if
+        no lineage is retained (put objects, streaming items, actor tasks)."""
+        task_id = oid.task_id
+        with self._lock:
+            entry = self._lineage.get(task_id)
+        if entry is None:
+            return False
+        spec, request = entry
+        with self._lock:
+            event = self._recovering.get(task_id)
+            leader = event is None
+            if leader:
+                event = threading.Event()
+                self._recovering[task_id] = event
+        if not leader:
+            # Another thread is already reconstructing this task's outputs.
+            event.wait(timeout=300)
+            return True
+        try:
+            # Recursively ensure the args exist (their own recovery may
+            # re-execute upstream producers). Probe availability WITHOUT
+            # materializing values — dispatch-time arg resolution will do
+            # the one real deserialization.
+            for dep in self._dep_ids(spec):
+                if self.store.is_available(dep):
+                    continue
+                if self.store.was_freed(dep):
+                    return False  # explicitly freed: never resurrected
+                if not self._try_recover(dep):
+                    return False  # upstream unrecoverable
+                ready, _ = self.store.wait([dep], 1, timeout=300)
+                if not ready:
+                    return False
+            for ret in spec.return_ids:
+                self.store.invalidate(ret)
+            with self._lock:
+                self._task_records[spec.task_id] = _TaskRecord(spec, request)
+            from ray_tpu_torch.util import tracing as _tracing
+
+            trace_ctx = spec.trace_ctx
+            self.task_events.record(
+                spec.task_id, "PENDING_ARGS_AVAIL", name=spec.name,
+                kind="RECOVERY", job_id=spec.job_id,
+                trace_id=(
+                    trace_ctx[0] if trace_ctx
+                    else _tracing.task_span_id(spec.task_id)
+                ),
+                parent_span_id=trace_ctx[1] if trace_ctx else None,
+            )
+            self._submit_when_ready(spec, request)
+            return True
+        finally:
+            with self._lock:
+                self._recovering.pop(task_id, None)
+            event.set()
 
     # ------------------------------------------------------------------ wait
 
@@ -396,6 +504,11 @@ class Runtime:
             refs.append(ObjectRef(oid))
         with self._lock:
             self._task_records[spec.task_id] = _TaskRecord(spec, resources)
+            if not streaming and spec.return_ids:
+                # Streaming outputs can't be deterministically re-yielded, and
+                # num_returns=0 tasks have nothing to recover (their lineage
+                # release would also never fire — no tracked outputs).
+                self._lineage[spec.task_id] = (spec, dict(resources))
         if streaming:
             gen = self._register_stream(spec, completion_ref=refs[0])
             self._submit_when_ready(spec, resources)
@@ -900,7 +1013,7 @@ class Runtime:
 
         def resolve(value):
             if isinstance(value, ObjectRef):
-                stored = self.store.get(value.id, timeout=30.0)
+                stored = self.get_value(value.id, timeout=30.0)
                 if isinstance(stored, ErrorObject):
                     stored.raise_()
                 return stored
@@ -1133,10 +1246,21 @@ class Runtime:
         for engine in engines:
             engine.shutdown()
         self._background.shutdown(wait=False, cancel_futures=True)
+        if self._native_store is not None:
+            try:
+                self._native_store.destroy()
+            except Exception:
+                pass
+            self._native_store = None
         try:
             self.runtime_env_manager.cleanup()
         except Exception:
             pass
+        if self._spill_storage is not None:
+            try:
+                self._spill_storage.destroy()
+            except Exception:
+                pass
         _RUNTIME = None
 
 

@@ -10,8 +10,11 @@ socket (ordering is load-bearing: incref frames must land before the task's
 
 Frame = [u32 little-endian length][u8 kind_len][kind utf-8][pickled body].
 
-With no native store (ROADMAP.md §B10) every value crosses as frame bytes,
-so a frame's u32 length caps a value at 4 GiB (`FrameTooLargeError`).
+Values of at least `native_store_threshold` returned by a task, and
+arguments passed by reference to such values, cross through the native
+shared-memory store (native_store.py); everything else crosses as frame
+bytes, so a frame's u32 length caps such a value at 4 GiB
+(`FrameTooLargeError`).
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ MAX_FRAME_BYTES = (1 << 32) - 1
 
 
 class FrameTooLargeError(ValueError):
-    """A value too large for one frame. Values of 4 GiB and more need the
-    native shared-memory store, which the port does not have yet."""
+    """A value too large for one frame. Values of 4 GiB and more cross
+    between processes only through the native shared-memory store."""
 
 
 def encode_frame(kind: str, body: dict) -> bytes:
@@ -52,7 +55,10 @@ def encode_frame_from_bytes(kind: str, body_bytes: bytes) -> bytes:
             f"a {kind!r} frame of {size} bytes exceeds the wire's "
             f"{MAX_FRAME_BYTES}-byte frame: values this large cross between "
             "processes only through the native shared-memory store, which is "
-            "not ported (ROADMAP.md §B10)"
+            "off (native_store_enabled=False) or was not used for this value: "
+            "it carries task returns of at least native_store_threshold bytes "
+            "and ObjectRef arguments (ray_tpu_torch.put), not values passed "
+            "inline (ROADMAP.md §B10)"
         )
     return _KLEN.pack(len(kind_b)) + kind_b + body_bytes
 
@@ -160,13 +166,15 @@ class WireRef:
     """Placeholder for a resolved top-level ObjectRef argument.
 
     The driver's dependency resolver guarantees the object is sealed before
-    dispatch; the worker materializes it with a get_by_id RPC to the owner.
+    dispatch; the worker materializes it either from the shared shm store
+    (in_native) or via a get_by_id RPC to the owner.
     """
 
-    __slots__ = ("oid_bytes",)
+    __slots__ = ("oid_bytes", "in_native")
 
-    def __init__(self, oid_bytes: bytes):
+    def __init__(self, oid_bytes: bytes, in_native: bool):
         self.oid_bytes = oid_bytes
+        self.in_native = in_native
 
 
 def send_with_fallback(

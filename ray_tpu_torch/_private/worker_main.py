@@ -13,8 +13,10 @@ driver fails the worker's in-flight tasks.
 Inside tasks the full `ray_tpu_torch` public API works: a
 `WorkerProxyRuntime` is installed as the process-global runtime, forwarding
 put/get/wait/submit/actor calls to the owning driver as RPC frames (the
-worker->owner leg of the reference's CoreWorkerService). With no native
-store, every value crosses the socket.
+worker->owner leg of the reference's CoreWorkerService). Values in the
+native shared-memory store are read from the segment, which the worker maps
+at hello, and returns of at least the threshold are written into it;
+everything else crosses the socket.
 
 Start-up imports neither torch nor numpy: a task pays for torch when it uses
 it, so a worker that runs plain Python starts in a fraction of a second.
@@ -39,6 +41,26 @@ import cloudpickle
 from ray_tpu_torch._private import wire
 from ray_tpu_torch._private.ids import ActorID, JobID, ObjectID, TaskID
 from ray_tpu_torch._private.task_spec import TaskKind, TaskSpec
+
+_SIZE_PROBE_LIMIT = 64  # list/tuple/dict items sampled when sizing values
+
+
+def _approx_size(value: Any) -> int:
+    """Cheap size probe deciding socket-vs-shm for return values (a dict
+    counts as the dict alone, as in the reference)."""
+    np = sys.modules.get("numpy")
+    if np is not None and isinstance(value, np.ndarray):
+        return value.nbytes
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(value, torch.Tensor):
+        return value.numel() * value.element_size()
+    if isinstance(value, (bytes, bytearray, memoryview)):
+        return len(value)
+    if isinstance(value, (list, tuple)) and value:
+        sample = value[:_SIZE_PROBE_LIMIT]
+        return len(value) * max(1, sum(_approx_size(v) for v in sample) // len(sample))
+    return sys.getsizeof(value)
+
 
 class _BorrowCounter:
     """Worker-local reference counts; edge transitions notify the owner.
@@ -146,7 +168,8 @@ def _trace_ctx():
 
 class WorkerProxyRuntime:
     """Runtime facade inside a worker process: every ownership-bearing
-    operation is an RPC to the driver (the owner), reads included."""
+    operation is an RPC to the driver (the owner); reads of shm-resident
+    objects go through the shared native store."""
 
     def __init__(self, worker: "Worker"):
         self._worker = worker
@@ -245,9 +268,23 @@ class WorkerProxyRuntime:
         return [self._get_one(ref.id, timeout) for ref in refs]
 
     def _get_one(self, oid: ObjectID, timeout: Optional[float]) -> Any:
-        """Ask the owner for the value's bytes (the reference's force_value
-        path: no shm attach to read from)."""
-        reply = self.rpc("get_by_id", {"oid": oid.binary(), "timeout": timeout})
+        native = self._worker.native
+        if native is not None:
+            found, value = native.get_object(oid)
+            if found:
+                return self._raise_if_error(value)
+        # Without a local shm attach, ask the owner for the bytes outright.
+        reply = self.rpc(
+            "get_by_id",
+            {"oid": oid.binary(), "timeout": timeout, "force_value": native is None},
+        )
+        if reply.get("in_native"):
+            found, value = native.get_object(oid)
+            if found:
+                return self._raise_if_error(value)
+            reply = self.rpc(
+                "get_by_id", {"oid": oid.binary(), "timeout": timeout, "force_value": True}
+            )
         return self._raise_if_error(wire.loads_value(reply["value_pickled"]))
 
     @staticmethod
@@ -390,6 +427,14 @@ class Worker:
         for path in reversed(hello.get("sys_path", [])):
             if path and path not in sys.path:
                 sys.path.insert(0, path)
+        # The driver's shm segment; the driver built and opened it, so an
+        # open that fails here is a fault to see, not to work around.
+        self.native_threshold = hello.get("native_threshold", 0)
+        self.native = None
+        if hello.get("store_name"):
+            from ray_tpu_torch._private.native_store import NativeStore
+
+            self.native = NativeStore(hello["store_name"])
         self._rpc_counter = 0
         self._rpc_lock = threading.Lock()
         self._rpc_waiters: dict[int, tuple[threading.Event, dict]] = {}
@@ -586,6 +631,35 @@ class Worker:
             )
             return
         value = result.value
+        # Large single returns go through shm: the driver seals the existing
+        # allocation instead of copying bytes over the socket. ObjectRefs
+        # serialized into the shm bytes are reported so the driver can pin
+        # them as borrows of the sealed entry (the nested-ref protocol).
+        if (
+            self.native is not None
+            and self.native_threshold
+            and not spec.streaming
+            and spec.num_returns == 1
+            and _approx_size(value) >= self.native_threshold
+        ):
+            try:
+                from ray_tpu_torch._private.object_ref import capture_serialized_refs
+
+                nested: list = []
+                with capture_serialized_refs(nested):
+                    size = self.native.put_object(spec.return_ids[0], value)
+                self.conn.send(
+                    "done",
+                    {
+                        **body,
+                        "ok": True,
+                        "in_native": size,
+                        "nested": [r.id.binary() for r in nested],
+                    },
+                )
+                return
+            except Exception:
+                pass  # shm full or unpicklable: fall through to socket bytes
         # Single returns ship pre-serialized so the driver can seal the bytes
         # directly (its store holds values serialized anyway) — one pickle
         # pass end-to-end instead of pickle/unpickle/pickle.

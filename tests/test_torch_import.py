@@ -6,7 +6,9 @@ those names (exact, or as a dotted prefix — `ray_tpu_torch` itself must
 pass), which sees what importing every module pulls in. And by a static
 scan of every source file's syntax tree, which also sees the imports that
 run only when a function is called (inside functions, methods and `try`
-blocks), as Serve's code does for the runtime.
+blocks), as Serve's code does for the runtime. The gated interpreter also
+loads the native store's library: the port's build from inside the
+package, never the reference's src/build/libtpustore.so.
 """
 
 import ast
@@ -73,6 +75,14 @@ _GATE = textwrap.dedent(
     for name in ("store", "affinity", "disagg"):
         assert f"ray_tpu_torch.llm.kvfabric.{name}" in names, name
     importlib.import_module("chip_smoke")
+    # The native store's library is the port's own build, from inside the
+    # package, and the reference's libtpustore is never mapped.
+    import os
+    from ray_tpu_torch._private import native_store
+    lib = native_store.load_library()
+    pkg = os.path.dirname(os.path.abspath(ray_tpu_torch.__file__))
+    assert os.path.commonpath([os.path.abspath(lib._name), pkg]) == pkg, lib._name
+    assert "libtpustore" not in open("/proc/self/maps").read()
     leaked = sorted(
         m for m in sys.modules
         if any(m == b or m.startswith(b + ".") for b in BLOCKED)
@@ -86,6 +96,7 @@ _GATE = textwrap.dedent(
 def test_port_imports_nothing_of_jax_or_ray_tpu():
     env = dict(os.environ, PYTHONPATH=REPO)
     env.pop("RAY_TPU_TORCH_FAULT_INJECTION", None)
+    env.pop("RAY_TPU_TORCH_STORE_LIB", None)
     proc = subprocess.run(
         [sys.executable, "-c", _GATE], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,

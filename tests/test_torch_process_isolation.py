@@ -2,9 +2,10 @@
 
 Every case of tests/test_process_isolation.py, on ray_tpu_torch: crashing
 workers don't kill the driver, fate-sharing, retries on worker death and
-serialization across the boundary. Then what the port adds or changes: with
-no native store an 8 MB array crosses by the socket, and a value too large
-for a frame is refused naming ROADMAP.md §B10; a worker's CUDA devices
+serialization across the boundary. Then what the port adds or changes: an
+8 MB array crosses through the native store, a value too large for a frame
+is refused naming ROADMAP.md §B10, and under a lowered frame limit a value
+crosses with the store on and fails with it off; a worker's CUDA devices
 (`worker_device`, §D22); the port's own environment variables; a worker
 imports no JAX, no `ray_tpu` and, until a task needs it, no torch; a CUDA
 tensor that reaches a worker which sees no card fails with a clear error;
@@ -197,9 +198,10 @@ def test_streaming_generator_across_process(proc_runtime):
 
 
 def test_large_object_crosses_the_socket(proc_runtime):
-    """The reference sends this ~4 MB array through shared memory; with no
-    native store (ROADMAP.md §B10) an 8 MB one crosses by the socket, both
-    ways, intact — and the native store is still refused."""
+    """An 8 MB array crosses both ways intact. It is over the native
+    store's threshold, so it goes through shared memory, as the reference
+    sends its ~4 MB one; the flag that turns the store on is accepted (the
+    socket path is held by the cases with the store off below)."""
 
     @ray_tpu_torch.remote
     def produce():
@@ -214,8 +216,8 @@ def test_large_object_crosses_the_socket(proc_runtime):
     assert ray_tpu_torch.get(consume.remote(ref), timeout=T) == (want, "<f8", (1_000_000,))
     np.testing.assert_array_equal(
         ray_tpu_torch.get(ref, timeout=T), np.arange(1_000_000, dtype=np.float64))
-    with pytest.raises(NotImplementedError, match="§B10"):
-        Config().apply_overrides({"native_store_enabled": True})
+    assert proc_runtime.store.is_native(ref.id)
+    assert Config().apply_overrides({"native_store_enabled": True}).native_store_enabled
 
 
 def test_named_actor_lookup_from_task(proc_runtime):
@@ -314,6 +316,104 @@ def test_value_over_a_frame_is_refused_naming_b10(proc_runtime, monkeypatch):
         ray_tpu_torch.get(size.remote(b"x" * (2 << 20)), timeout=T)
     monkeypatch.undo()
     assert ray_tpu_torch.get(size.remote(b"x" * (2 << 20)), timeout=T) == 2 << 20
+
+
+def test_large_return_is_sealed_native_and_read_by_another_worker(proc_runtime):
+    """A worker's return of at least the threshold (a 2 MB tensor) is
+    written into shm and adopted by the driver as is (`is_native`), and an
+    actor in another process reads it from the segment: its own copy, equal
+    to the producer's (§D24)."""
+    import torch
+
+    @ray_tpu_torch.remote
+    def produce():
+        return os.getpid(), torch.arange(1 << 19, dtype=torch.float32)
+
+    @ray_tpu_torch.remote
+    def tensor():
+        return torch.arange(1 << 19, dtype=torch.float32)
+
+    @ray_tpu_torch.remote
+    class Reader:
+        def read(self, t):
+            t.add_(1)  # a private copy: the stored value stays as it was
+            return os.getpid(), float(t.sum()), t.dtype
+
+    ref = tensor.remote()
+    got = ray_tpu_torch.get(ref, timeout=T)
+    assert proc_runtime.store.is_native(ref.id)
+    assert torch.equal(got, torch.arange(1 << 19, dtype=torch.float32))
+    producer_pid = ray_tpu_torch.get(produce.remote(), timeout=T)[0]
+    reader = Reader.remote()
+    pid, total, dtype = ray_tpu_torch.get(reader.read.remote(ref), timeout=T)
+    ray_tpu_torch.kill(reader)
+    assert pid not in (os.getpid(), producer_pid)
+    n = 1 << 19
+    assert (total, dtype) == (float(n * (n - 1) // 2 + n), torch.float32)
+    assert torch.equal(ray_tpu_torch.get(ref, timeout=T),
+                       torch.arange(1 << 19, dtype=torch.float32))
+
+
+def test_driver_put_reaches_the_worker_through_shm(proc_runtime):
+    """A driver put of at least the threshold lands in shm, and the worker
+    maps it: its argument is a read-only view of the segment, not an array
+    of its own unpickled from a frame."""
+
+    @ray_tpu_torch.remote
+    def inspect_arg(arr):
+        return (float(arr.sum()), bool(arr.flags["OWNDATA"]),
+                bool(arr.flags["WRITEABLE"]))
+
+    arr = np.arange(1 << 18, dtype=np.float64)  # 2 MB
+    ref = ray_tpu_torch.put(arr)
+    assert proc_runtime.store.is_native(ref.id)
+    assert ray_tpu_torch.get(inspect_arg.remote(ref), timeout=T) == (
+        float(arr.sum()), False, False)
+    # Below the threshold a put stays in the driver's table and crosses by
+    # the socket, as a writable array of the worker's own.
+    small = ray_tpu_torch.put(np.arange(16, dtype=np.float64))
+    assert not proc_runtime.store.is_native(small.id)
+    total, _, writeable = ray_tpu_torch.get(inspect_arg.remote(small), timeout=T)
+    assert (total, writeable) == (120.0, True)
+
+
+def test_value_over_a_lowered_frame_crosses_only_with_the_store(proc_runtime, monkeypatch):
+    """Under the lowered frame limit of the case above, a 2 MB ObjectRef
+    argument crosses with the native store on (the worker reads it from the
+    segment), and with the store off fails with FrameTooLargeError (its
+    bytes would have to ride one frame)."""
+
+    @ray_tpu_torch.remote(max_retries=0)
+    def size(x):
+        return x.nbytes
+
+    monkeypatch.setattr(wire, "MAX_FRAME_BYTES", 1 << 20)
+    ref = ray_tpu_torch.put(np.ones(2 << 20, dtype=np.uint8))
+    assert ray_tpu_torch.get(size.remote(ref), timeout=T) == 2 << 20
+    monkeypatch.undo()
+    out = _run_child("""
+        import numpy as np
+        import ray_tpu_torch
+        from ray_tpu_torch._private import wire
+        wire.MAX_FRAME_BYTES = 1 << 20
+        rt = ray_tpu_torch.init(num_cpus=2, num_gpus=0, _system_config={
+            "isolation": "process", "native_store_enabled": False})
+        assert rt._native_store is None
+
+        @ray_tpu_torch.remote(max_retries=0)
+        def size(x):
+            return x.nbytes
+
+        ref = ray_tpu_torch.put(np.ones(2 << 20, dtype=np.uint8))
+        try:
+            print("crossed", ray_tpu_torch.get(size.remote(ref), timeout=60))
+        except wire.FrameTooLargeError as exc:
+            print("FrameTooLargeError", "native_store_enabled=False" in str(exc))
+        print("small", ray_tpu_torch.get(size.remote(ray_tpu_torch.put(np.ones(8))),
+                                         timeout=60))
+        ray_tpu_torch.shutdown()
+    """)
+    assert out.split() == ["FrameTooLargeError", "True", "small", "64"], out
 
 
 def test_a_large_frame_crosses_whole():

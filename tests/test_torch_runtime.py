@@ -142,16 +142,15 @@ def test_placement_groups(both):
 
 def test_refused_features_name_their_slice():
     """What the port does not construct yet is refused, never run reduced:
-    remote drivers, GCS persistence, the native store, spilling, the
-    dashboard. Worker processes and the memory monitor are ported: an actor
+    remote drivers, GCS persistence, the dashboard. Worker processes, the
+    memory monitor, the native store and spilling are ported: an actor
     asking for isolation="process" on this thread runtime runs in a process
-    of its own, and a memory_usage_threshold is accepted."""
+    of its own, a memory_usage_threshold is accepted, and so are both store
+    flags (on by default) with their threshold and directory."""
     import os
 
     for config, match in (
         ({"gcs_storage_path": "/nonexistent"}, "GCS persistence"),
-        ({"native_store_enabled": True}, "native"),
-        ({"object_spilling_enabled": True}, "spilling"),
         ({"include_dashboard": True}, "dashboard"),
         ({"prestart_workers": False}, "prestart"),
     ):
@@ -160,6 +159,16 @@ def test_refused_features_name_their_slice():
         assert not ray_tpu_torch.is_initialized()
     with pytest.raises(NotImplementedError, match="remote drivers"):
         ray_tpu_torch.init(address="127.0.0.1:1")
+    for config in ({}, {"native_store_enabled": True, "object_spilling_enabled": True,
+                        "native_store_threshold": 1 << 20, "object_spill_directory": ""},
+                   {"native_store_enabled": False, "object_spilling_enabled": False}):
+        rt = ray_tpu_torch.init(num_cpus=1, num_gpus=0, _system_config=config)
+        try:
+            on = config.get("native_store_enabled", True)
+            assert (rt._native_store is not None) == on
+            assert (rt._spill_storage is not None) == on
+        finally:
+            ray_tpu_torch.shutdown()
     ray_tpu_torch.init(num_cpus=1, num_gpus=0,
                        _system_config={"memory_usage_threshold": 0.9})
     try:
