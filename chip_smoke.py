@@ -161,14 +161,14 @@ Phases, each fatal on failure:
      on cuda:0, envs, replay and offline files on the host: (a) DQN on
      CartPole-v1 at DQNConfig's defaults ((256, 256), batch 32, fragment 4,
      1,000 steps before learning, target sync every 500, double-Q), uniform
-     replay and n_step=3 prioritized, 5,000 env steps each (parameters,
+     replay and n_step=3 prioritized, 3,000 env steps each (parameters,
      Adam state and target on cuda:0, finite losses, priorities moved by
      the TD errors, update p50, env-steps/s, kernel launches an update, the
      card's busy share of one profiled iteration); (b) Ape-X, 2 replay
      shards and 2 runners (shards fill, priorities return, stop() leaves no
      shard actor); (c) SAC and TD3 on Pendulum-v1 at their defaults
      ((256, 256), batch 256, fragment 1, tau 0.005, TD3's policy_delay 2),
-     1,000 updates each (alpha moved; TD3's actor bit for bit unchanged
+     500 updates each (alpha moved; TD3's actor bit for bit unchanged
      across an off tick); (d) APPO at bench_impala's shape and A2C at
      bench_ppo's, 1 + 3 iterations; (e) PPO tees its rollouts to disk and
      BC clones them (its NLL falls), CQL trains from SAC's teed rollouts,
@@ -255,15 +255,52 @@ Phases, each fatal on failure:
      shutdown() no /dev/shm/ray_tpu_torch_* segment, no spill directory and
      no worker pid is left, and the card's memory is back within
      LEFT_LIMIT_MIB of the phase's start. `[store]` lines.
+ 20. nodes   — GCS persistence and remote nodes (_private/head_server.py,
+     remote_node.py, node_daemon.py, object_plane.py, client.py,
+     gcs_storage.py): a head in this process with isolation="process", no
+     GPU of its own and serve_clients(port=0); two daemons (`python -m
+     ray_tpu_torch._private.node_daemon`, nodeA and nodeB, --num-gpus 1,
+     2 GiB stores), their start and registration seconds; (a) a GPT-2
+     125M server actor at 0.5 GPU on nodeA serves the 8 prompts, each
+     alone from an empty prefix cache, token-identical to the server
+     phase's (K1, K2 counted in the daemon's worker); a task that imports
+     torch leaves a worker in nodeA's pool (its start seconds), so the
+     crossings below exclude a worker's start; phase 19's train
+     (0.5 GPU on nodeB, K6 + K7) returns the 498 MB vector, on the host
+     and then on cuda:0, evaluate (0.5 GPU on nodeA) takes its ref, so
+     nodeA's daemon pulls it from nodeB's object server over loopback TCP,
+     and the driver's get pulls it to the head: losses bit for bit phase
+     18's, the vector phase 19's, each crossing's seconds beside phase
+     19's same-node shm figures; (b) a child process with
+     init(address=...) finds the server by name, gets the same tokens,
+     reads the vector (sha256 equal), sees a daemon worker's line pushed
+     by the head; after it exits the head holds none of its borrows; (c)
+     train again on nodeB, nodeB's daemon SIGKILLed before anything pulls
+     its result: the driver's get re-runs train once on nodeA (K6 = K7
+     counted in the re-run), bit for bit; nodeB's workers gone and the
+     card's used memory down; (d) head 1 in a process of its own with
+     gcs_storage_path, a fixed port and token, a daemon with a 90 s
+     reconnect window, a detached server `gpt2` (built from seed 0 in its
+     actor) serving the prompts (K1, K2), the snapshot saved (bytes, flush
+     seconds); head 1 SIGKILLed: the daemon kills and reaps its workers,
+     the card's used memory back within LEFT_LIMIT_MIB of its figure
+     before the actor; head 2 on the same port, token and snapshot: the
+     daemon rejoins (seconds), get_actor("gpt2") gives a fresh actor under
+     the same daemon pid with identical tokens (K1, K2; head 2's init to
+     its first token), the KV entry and the job counter kept; (e) no
+     daemon, worker or /dev/shm/ray_tpu_torch_* segment left (the
+     SIGKILLed processes' own segments listed and removed), and the card's
+     memory back within LEFT_LIMIT_MIB of the phase's start. `[nodes]`
+     lines.
 After each teardown (serve, every loadgen cell, loadgen, fabric, moe, each
-tune fit(), each rllib and rllib_algos part, each data fit(), store) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
+tune fit(), each rllib and rllib_algos part, each data fit(), store, nodes) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
 its figure before the run; beyond it the script prints what holds the
 memory (`_card_holders`) and fails.
 Before the last two lines, a `[phases]` line gives each phase's wall
 seconds. The last two lines are the kernels JSON (K1's, K2's, K3's, K6's and K7's
 entries also carry their launches on every later path, `launches_by_path`, the
-rllib and data resnet paths' zeros among them, and the procs paths counted
-in the worker processes) and the
+rllib and data resnet paths' zeros among them, and the procs and nodes paths
+counted in the worker processes) and the
 {"ok": true, ...} contract.
 """
 
@@ -4181,8 +4218,8 @@ def phase_rllib(device_info: dict) -> dict:
 # cuda:0 and the envs, replay and offline files on the host. DQN, SAC and
 # TD3 at their configs' defaults; APPO at bench_impala's shape and A2C at
 # bench_ppo's (envs, fragment, batch).
-ALGOS_DQN_STEPS = 5000  # env steps a DQN run (1,000 before learning)
-ALGOS_SAC_UPDATES = 1000  # updates a SAC / TD3 run (after 1,000 env steps)
+ALGOS_DQN_STEPS = 3000  # env steps a DQN run (1,000 before learning)
+ALGOS_SAC_UPDATES = 500  # updates a SAC / TD3 run (after 1,000 env steps)
 ALGOS_APEX_ITERS = 40
 ALGOS_ON_POLICY_ITERS = 3  # timed after 1 warm-up (APPO: pipeline fill)
 ALGOS_BC_ITERS = 40
@@ -5141,12 +5178,12 @@ def _want_counts(counts: dict, launched: dict, phase: str = "procs") -> None:
         fail(f"[{phase}] launches {counts}, not {want}")
 
 
-def _until(cond, what: str, deadline_s: float = 30.0) -> float:
+def _until(cond, what: str, deadline_s: float = 30.0, phase: str = "procs") -> float:
     """Seconds until cond() holds; fails after `deadline_s`."""
     t0 = time.perf_counter()
     while not cond():
         if time.perf_counter() - t0 > deadline_s:
-            fail(f"[procs] {what}: not within {deadline_s:.0f}s")
+            fail(f"[{phase}] {what}: not within {deadline_s:.0f}s")
         time.sleep(0.05)
     return time.perf_counter() - t0
 
@@ -5160,7 +5197,8 @@ class _GPTServerActor:
         self.server = LLMServer(cfg, ecfg, seed=0, device=device)
 
     def info(self) -> dict:
-        return {"pid": os.getpid(), "device": torch.cuda.current_device(),
+        return {"pid": os.getpid(), "ppid": os.getppid(),
+                "device": torch.cuda.current_device(),
                 "reserved": torch.cuda.memory_reserved()}
 
     def zero(self) -> None:
@@ -5953,7 +5991,6 @@ def _store_processes(procs: dict, card: str, pids: set) -> dict:
             ray_tpu_torch.shutdown()
     finally:
         shutil.rmtree(base, ignore_errors=True)
-    out.pop("shm_vec")
     return out
 
 
@@ -6147,12 +6184,736 @@ def phase_store(device_info: dict, server: dict, procs: dict) -> dict:
     log("[store] (e) teardown " + json.dumps({"card": card, **left}))
     summary["wall_s"] = time.perf_counter() - t_phase
     log(f"[store] phase wall {summary['wall_s']:.1f}s")
+    # (a)'s host vector, which phase 20's crossings must give bit for bit.
+    summary["vec"] = summary.pop("shm_vec")
     shm = ("shm_host", "shm_card")
     summary["paths"] = {
         "store train": _sum_counts([summary[v]["train_launches"] for v in shm]),
         "store evaluate": _sum_counts([summary[v]["evaluate_launches"] for v in shm]),
         "store spilled serve": summary["spill"]["launches"],
         "store recovery": summary["recovery"]["launches"],
+    }
+    return summary
+
+
+# The nodes phase (20): GCS persistence and remote nodes. A head with no GPU
+# of its own, node daemons that joined it over TCP with the card as their
+# GPU, GPT-2 125M served and trained under them, its 498 MB parameter vector
+# pulled across the object plane, a remote driver, a node's death, and a
+# head SIGKILLed and restarted from its snapshot.
+NODES_GPU = 0.5
+NODES_STORE_BYTES = 2 << 30  # each daemon's store, given explicitly (§D25, §D27)
+NODES_TIMEOUT_S = 300.0
+NODES_RECONNECT_S = 90
+NODES_TOKEN = "nodes-restart"
+NODES_KV = (b"nodes-kv", b"\x00gpt2-125m\xff" * 4)
+NODES_N_NEW = 32
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+class _Lines:
+    """A child's merged stdout/stderr, read on a thread: every line with
+    its arrival time on this host's clock (perf_counter), echoed with the
+    child's tag."""
+
+    def __init__(self, proc, tag: str):
+        self.proc, self.tag = proc, tag
+        self.lines: list = []
+        self._cond = threading.Condition()
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self) -> None:
+        for line in self.proc.stdout:
+            line = line.rstrip("\n")
+            log(f"[nodes] ({self.tag}) {line}")
+            with self._cond:
+                self.lines.append((line, time.perf_counter()))
+                self._cond.notify_all()
+
+    def wait(self, prefix: str, timeout: float = NODES_TIMEOUT_S, after: int = 0) -> tuple:
+        """(line, arrival time) of the first line from index `after` on that
+        starts with `prefix`; fails after `timeout` or when the child exits
+        without printing it."""
+        deadline = time.perf_counter() + timeout
+        with self._cond:
+            while True:
+                for line, at in self.lines[after:]:
+                    if line.startswith(prefix):
+                        return line, at
+                left = deadline - time.perf_counter()
+                if left <= 0 or (self.proc.poll() is not None and left < timeout - 2):
+                    fail(f"[nodes] ({self.tag}) no {prefix!r} line (exit code "
+                         f"{self.proc.poll()})")
+                self._cond.wait(timeout=min(left, 0.5))
+
+    def event(self, kind: str, timeout: float = NODES_TIMEOUT_S) -> dict:
+        """The JSON of a `NODES <kind> {...}` line of a head process."""
+        line, at = self.wait(f"NODES {kind} ", timeout)
+        return {**json.loads(line.split(" ", 2)[2]), "at": at}
+
+
+def _nodes_env() -> dict:
+    """Children start from the checkout: the package and this script import
+    from its root."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (_ROOT, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def _nodes_daemon(address: str, tag: str, extra=()) -> dict:
+    """`python -m ray_tpu_torch._private.node_daemon` with the card as one
+    GPU, a custom resource `tag` and an explicit store size."""
+    cmd = [sys.executable, "-m", "ray_tpu_torch._private.node_daemon",
+           "--address", address, "--num-cpus", "4", "--num-gpus", "1",
+           "--resources", json.dumps({tag: 1}),
+           "--object-store-memory", str(NODES_STORE_BYTES), *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=_ROOT, env=_nodes_env(), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return {"tag": tag, "proc": proc, "lines": _Lines(proc, tag), "t0": t0}
+
+
+def _nodes_child(tag: str, entry: str, args=()) -> dict:
+    """`python3 -c 'import chip_smoke; chip_smoke.<entry>(...)'` from the
+    repository root, started at the phase's start: it imports torch and
+    the package while the phase goes on, then waits for its arguments on a
+    line of its stdin (`_nodes_go`)."""
+    code = ("import sys, chip_smoke; args = sys.argv[1:] + sys.stdin.readline().split(); "
+            f"sys.exit(chip_smoke.{entry}(args))")
+    proc = subprocess.Popen([sys.executable, "-c", code, *args], cwd=_ROOT,
+                            env=_nodes_env(), text=True, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return {"proc": proc, "lines": _Lines(proc, tag), "t0": time.perf_counter()}
+
+
+def _nodes_go(child: dict, *args) -> None:
+    child["proc"].stdin.write(" ".join(map(str, args)) + "\n")
+    child["proc"].stdin.flush()
+    child["t0"] = time.perf_counter()
+
+
+def _nodes_fixed_port() -> int:
+    """A free TCP port below the kernel's ephemeral range (32768 and up by
+    default), for (d)'s fixed port: no port-0 bind meanwhile can take it
+    before head 1 binds it."""
+    import random
+    import socket
+
+    for port in random.Random(os.getpid()).sample(range(20000, 32000), 200):
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    fail("[nodes] no free port in 20000-32000")
+
+
+def _ppid(pid: int) -> int:
+    with open(f"/proc/{pid}/stat") as f:
+        return int(f.read().rsplit(")", 1)[1].split()[1])
+
+
+def _sha256(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(memoryview(t.detach().cpu().contiguous().numpy())).hexdigest()
+
+
+def _serve_prompts(actor, prompts, n_new) -> tuple:
+    """The prompts through one server actor, each alone from an empty prefix
+    cache, its counters set to 0 just before and read just after: (tokens,
+    launches, wall seconds)."""
+    import ray_tpu_torch
+
+    ray_tpu_torch.get(actor.zero.remote(), timeout=NODES_TIMEOUT_S)
+    t0 = time.perf_counter()
+    tokens = [ray_tpu_torch.get(actor.generate.remote(i, p, n_new),
+                                timeout=NODES_TIMEOUT_S)[1]
+              for i, p in enumerate(prompts)]
+    wall = time.perf_counter() - t0
+    return tokens, ray_tpu_torch.get(actor.counts.remote(), timeout=NODES_TIMEOUT_S), wall
+
+
+def _nodes_tokens_ok(tokens, want, launches, tag: str) -> None:
+    if tokens != want:
+        bad = [i for i, (g, w) in enumerate(zip(tokens, want)) if g != w]
+        fail(f"[nodes] {tag}: prompts {bad} differ from the server phase's tokens")
+    for name in ("K1 paged_attention", "K2 flash_fwd"):
+        if launches[name] <= 0:
+            fail(f"[nodes] {tag}: {name} was not launched in the actor: {launches}")
+
+
+def _nodes_head(argv) -> int:
+    """(d)'s head, run as `python3 -c 'import chip_smoke; ...' first|second
+    PORT TOKEN GCS_PATH` from the repository root (`_nodes_child`; head 1
+    gets its arguments at the phase's start and waits for its daemon
+    through (a)-(c), head 2 when head 1 is gone). `first`: a head with no
+    GPU and GCS persistence on, a KV entry, a detached GPT-2 125M server
+    (`gpt2`, built from seed 0 in its actor) on the daemon that joins, the
+    8 prompts served, the snapshot saved; then it waits to be SIGKILLed.
+    `second`: the same port, token and snapshot; the daemon rejoins, the
+    restored actor serves the prompts; then shutdown(). Each step prints a
+    `NODES <event> {json}` line."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private.gcs_storage import build_snapshot
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    which, port, token, gcs = argv[0], int(argv[1]), argv[2], argv[3]
+
+    def emit(kind: str, **body) -> None:
+        print(f"NODES {kind} " + json.dumps(body), flush=True)
+
+    t0 = time.perf_counter()
+    runtime = ray_tpu_torch.init(num_cpus=1, num_gpus=0, _system_config={
+        "isolation": "process", "gcs_storage_path": gcs})
+    runtime.serve_clients(port=port, token=token)
+    kv = runtime.controller.kv_get(NODES_KV[0])
+    emit("listening", init_s=time.perf_counter() - t0, pid=os.getpid(),
+         job=runtime.job_id.to_int(), kv=kv.hex() if kv is not None else None)
+    while len(runtime.controller.alive_nodes()) < 2:
+        if time.perf_counter() - t0 > 2 * NODES_TIMEOUT_S:
+            emit("failed", what="no daemon joined")
+            return 1
+        time.sleep(0.02)
+    emit("joined", since_init_s=time.perf_counter() - t0)
+    prompts = _prompts(np.random.RandomState(0))
+    if which == "first":
+        runtime.controller.kv_put(*NODES_KV)
+        ray_tpu_torch.remote(_GPTServerActor).options(
+            name="gpt2", lifetime="detached", num_gpus=NODES_GPU,
+            resources={"nodeR": 0.1}).remote(gpt2_125m(), _engine_config(), "cuda")
+    actor = ray_tpu_torch.get_actor("gpt2")  # restored at init() in `second`
+    info = ray_tpu_torch.get(actor.info.remote(), timeout=NODES_TIMEOUT_S)
+    first_token_s = None
+    if which == "second":
+        ray_tpu_torch.get(actor.generate.remote(0, prompts[0], 1), timeout=NODES_TIMEOUT_S)
+        first_token_s = time.perf_counter() - t0
+    tokens, launches, wall = _serve_prompts(actor, prompts, NODES_N_NEW)
+    emit("served", info=info, tokens=tokens, launches=launches, wall_s=wall,
+         init_to_first_token_s=first_token_s)
+    if which == "first":
+        t1 = time.perf_counter()
+        snapshot = build_snapshot(runtime)
+        t2 = time.perf_counter()
+        runtime._gcs_storage.save(snapshot)
+        t3 = time.perf_counter()
+        emit("saved", bytes=os.path.getsize(gcs), build_s=t2 - t1, save_s=t3 - t2,
+             detached=len(snapshot["detached_actors"]))
+        time.sleep(3600)  # SIGKILLed here
+        return 1
+    ray_tpu_torch.shutdown()
+    emit("down")
+    return 0
+
+
+def _nodes_warm() -> dict:
+    """A task that imports torch, leaving a worker in its node's pool."""
+    t0 = time.perf_counter()
+    import torch as _torch  # noqa: F401
+
+    return {"pid": os.getpid(), "torch_import_s": time.perf_counter() - t0}
+
+
+def _nodes_shout(marker: str) -> int:
+    """A line on a daemon worker's stdout, for the remote driver to see."""
+    print(marker, flush=True)
+    return os.getpid()
+
+
+def _nodes_client(argv) -> int:
+    """(b)'s remote driver, run as `python3 -c 'import chip_smoke; ...'`
+    with ADDRESS OID_HEX PROMPTS_JSON on its stdin (`_nodes_child`):
+    ray_tpu_torch.init(address=...) and no
+    runtime of its own; the server actor found by name serves the prompts;
+    a task on nodeA prints a marker whose line the head pushes here; the
+    vector read by its id. Prints `NODES client {json}`."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private import log_aggregation
+    from ray_tpu_torch._private.ids import ObjectID
+    from ray_tpu_torch._private.object_ref import ObjectRef
+
+    address, oid_hex, prompts_path = argv
+    with open(prompts_path) as f:
+        prompts = json.load(f)
+    marker = f"nodes client marker {os.getpid()}"
+    seen: dict = {}
+    pushed = threading.Event()
+    reprint = log_aggregation.print_batch_to_driver
+
+    def watch(batch, file=None):
+        reprint(batch, file)
+        if marker in batch["lines"]:
+            seen.update(pid=batch["pid"], node=batch["hostname"])
+            pushed.set()
+
+    log_aggregation.print_batch_to_driver = watch
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(address=address)
+    connect_s = time.perf_counter() - t0
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ray_tpu"))
+    actor = ray_tpu_torch.get_actor("nodes_gpt2")
+    tokens, launches, wall = _serve_prompts(actor, prompts, NODES_N_NEW)
+    shout = ray_tpu_torch.remote(_nodes_shout).options(resources={"nodeA": 0.1})
+    shout_pid = ray_tpu_torch.get(shout.remote(marker), timeout=NODES_TIMEOUT_S)
+    log_seen = pushed.wait(30.0)
+    ref = ObjectRef(ObjectID.from_hex(oid_hex))
+    t1 = time.perf_counter()
+    vec = ray_tpu_torch.get(ref, timeout=NODES_TIMEOUT_S)
+    read_s = time.perf_counter() - t1
+    out = {"connect_s": connect_s, "tokens": tokens, "launches": launches, "wall_s": wall,
+           "log_seen": log_seen, "log": {**seen, "shout_pid": shout_pid},
+           "read_s": read_s, "device": str(vec.device), "sha256": _sha256(vec),
+           "bytes": vec.numel() * vec.element_size(), "pid": os.getpid(),
+           "leaked_modules": leaked}
+    del vec, ref
+    ray_tpu_torch.shutdown()
+    print("NODES client " + json.dumps(out), flush=True)
+    return 0
+
+
+def _nodes_start(runtime, address: str, daemons: list, card: str) -> dict:
+    """nodeA and nodeB started together; each one's start (its `node daemon
+    up` line, printed once the head welcomed it) and registration (the head
+    lists it) seconds."""
+    for tag in ("nodeA", "nodeB"):
+        daemons.append(_nodes_daemon(address, tag))
+    out = {}
+    for d in daemons:
+        _, at = d["lines"].wait("node daemon up")
+        out[d["tag"]] = {"pid": d["proc"].pid, "up_s": at - d["t0"]}
+    t_reg = _until(lambda: len(runtime.controller.alive_nodes()) == 3,
+                   "both daemons registered", NODES_TIMEOUT_S, phase="nodes")
+    for d in daemons:
+        out[d["tag"]]["registered_s"] = time.perf_counter() - d["t0"]
+        d["node_id"] = next(n.node_id for n in runtime.controller.alive_nodes()
+                            if d["tag"] in n.total)
+    out["wait_after_start_s"] = t_reg
+    log("[nodes] daemons " + json.dumps({"card": card, **out}))
+    return out
+
+
+def _nodes_serve(prompts, want, daemons, pids: set, card: str) -> tuple:
+    """(a) A GPT-2 125M server actor at NODES_GPU on nodeA, named for (b)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    t0 = time.perf_counter()
+    actor = ray_tpu_torch.remote(_GPTServerActor).options(
+        name="nodes_gpt2", num_gpus=NODES_GPU, resources={"nodeA": 0.1}).remote(
+            gpt2_125m(), _engine_config(), "cuda")
+    info = ray_tpu_torch.get(actor.info.remote(), timeout=NODES_TIMEOUT_S)
+    up_s = time.perf_counter() - t0
+    pids.add(info["pid"])
+    if info["ppid"] != daemons[0]["proc"].pid:
+        fail(f"[nodes] (a) the server actor's parent is {info['ppid']}, not nodeA's "
+             f"daemon {daemons[0]['proc'].pid}")
+    tokens, launches, wall = _serve_prompts(actor, prompts, NODES_N_NEW)
+    _nodes_tokens_ok(tokens, want, launches, "(a) server on nodeA")
+    out = {"actor": info, "up_s": up_s, "wall_s": wall, "token_identical": True,
+           "tokens_per_s": NODES_N_NEW * len(prompts) / wall, "launches": launches}
+    log("[nodes] (a) serve " + json.dumps({"card": card, **out}))
+    return actor, out
+
+
+def _nodes_cross(runtime, daemons, procs: dict, stored: dict, base: str, pids: set,
+                 card: str, layers: int, on_card: bool) -> dict:
+    """(a) train on nodeB returns the flat vector (on the host or cuda:0);
+    evaluate on nodeA takes its ref, so nodeA's daemon pulls the bytes from
+    nodeB's object server into its store over loopback TCP; then the
+    driver's get pulls them to the head. Losses and evaluation bit for bit
+    phase 18's straight DAG, the vector bit for bit phase 19's."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    variant = "card" if on_card else "host"
+    names = (f"nodes_train_{variant}", f"nodes_evaluate_{variant}")
+    train = ray_tpu_torch.remote(_store_train).options(
+        num_gpus=NODES_GPU, resources={"nodeB": 0.1}, name=names[0])
+    evaluate = ray_tpu_torch.remote(_store_evaluate).options(
+        num_gpus=NODES_GPU, resources={"nodeA": 0.1}, name=names[1])
+    tokens = _procs_make_tokens(0, TRAIN_B, TRAIN_S + 1)
+    count = os.path.join(base, f"{variant}.count")
+    t0 = time.perf_counter()
+    ref = train.remote(tokens, gpt2_125m(), TRAIN_STEPS, "cuda", count, on_card)
+    ev = ray_tpu_torch.get(evaluate.remote(ref, gpt2_125m(attention_impl="auto"),
+                                           PROCS_EVAL_SEED, tokens.shape, "cuda"),
+                           timeout=NODES_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    with open(count + ".json") as f:
+        trained = json.load(f)
+    located = runtime.store.location_of(ref.id)
+    holders = runtime.store.locations_of(ref.id)
+    reads = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vec = ray_tpu_torch.get(ref, timeout=NODES_TIMEOUT_S)
+        torch.cuda.synchronize()
+        reads.append(time.perf_counter() - t1)
+    pids.update((trained["pid"], ev["pid"]))
+    parents = {"train": _ppid(trained["pid"]), "evaluate": _ppid(ev["pid"])}
+    run = {"train_launches": trained["launches"], "train_losses": trained["losses"],
+           "loss": ev["loss"], "launches": ev["launches"]}
+    _procs_run_checks(run, f"(a) {variant}", layers, phase="nodes")
+    _want_counts(ev["launches"], {"K2 flash_fwd": layers}, "nodes")
+    dag = procs["dag"]
+    same_dag = trained["losses"] == dag["train_losses"] and ev["loss"] == dag["eval_loss"]
+    want_device = "cuda:0" if on_card else "cpu"
+    same_vec = torch.equal(vec.cpu(), stored["vec"])
+    shm = stored["shm_host"]["crossing"]
+    out = {"variant": variant, "wall_s": wall, "pids": [trained["pid"], ev["pid"]],
+           "parents": parents, "bytes": ev["arrived"]["bytes"],
+           "arrived": ev["arrived"]["device"], "driver_device": str(vec.device),
+           "located_on_nodeB": located == daemons[1]["node_id"],
+           "holders": len(holders),
+           "crossing": {"to_nodeB_store_s": _mark(runtime, names[0], "FINISHED")
+                        - trained["returned_at"],
+                        "nodeB_to_nodeA_s": ev["entered_at"]
+                        - _mark(runtime, names[1], "RUNNING"),
+                        "to_head_s": reads[0], "head_read_again_s": reads[1]},
+           "phase19_same_node_s": {"to_driver_s": shm["to_driver_s"],
+                                   "to_worker_s": shm["to_worker_s"],
+                                   "driver_read_s": shm["driver_read_s"]},
+           "train_losses": trained["losses"], "loss": ev["loss"],
+           "bit_for_bit_with_procs_dag": same_dag, "vector_bit_for_bit_phase19": same_vec,
+           "train_launches": trained["launches"], "evaluate_launches": ev["launches"]}
+    log(f"[nodes] (a) cross {variant} " + json.dumps({"card": card, **out}))
+    if (parents["train"] != daemons[1]["proc"].pid
+            or parents["evaluate"] != daemons[0]["proc"].pid):
+        fail(f"[nodes] (a) {variant}: train under {parents['train']}, evaluate under "
+             f"{parents['evaluate']}, not nodeB's and nodeA's daemons")
+    if not (same_dag and same_vec and out["located_on_nodeB"]):
+        fail(f"[nodes] (a) {variant}: losses as phase 18's {same_dag}, vector as phase "
+             f"19's {same_vec}, located on nodeB {out['located_on_nodeB']}")
+    if out["arrived"] != want_device or out["driver_device"] != want_device:
+        fail(f"[nodes] (a) {variant}: the vector is on {out['arrived']} in evaluate and "
+             f"{out['driver_device']} in the driver, not {want_device}")
+    out["ref"] = ref
+    del vec
+    return out
+
+
+def _nodes_remote_driver(runtime, client: dict, address: str, prompts, want, ref,
+                         stored: dict, base: str, card: str) -> dict:
+    """(b) The child process (`_nodes_client`) connects with
+    init(address=...), serves the prompts through the named actor, sees a
+    daemon worker's line, reads the vector; after it exits the head holds
+    none of its borrows."""
+    prompts_path = os.path.join(base, "prompts.json")
+    with open(prompts_path, "w") as f:
+        json.dump([list(map(int, p)) for p in prompts], f)
+    before = runtime.refcount.counts(ref.id)
+    _nodes_go(client, address, ref.hex(), prompts_path)
+    got = json.loads(client["lines"].wait("NODES client ")[0].split(" ", 2)[2])
+    rc = client["proc"].wait(timeout=NODES_TIMEOUT_S)
+    wall = time.perf_counter() - client["t0"]
+    clients_gone_s = _until(lambda: not runtime._head_server._clients,
+                            "the client's connection dropped", 30.0, phase="nodes")
+    borrows_s = _until(lambda: runtime.refcount.counts(ref.id) == before,
+                       "the client's borrows released", 30.0, phase="nodes")
+    want_sha = _sha256(stored["vec"])
+    out = {k: got[k] for k in ("connect_s", "wall_s", "launches", "log_seen", "log",
+                               "read_s", "device", "bytes", "pid", "leaked_modules")}
+    out.update(rc=rc, process_wall_s=wall, token_identical=got["tokens"] == want,
+               vector_bit_for_bit_phase19=got["sha256"] == want_sha,
+               refcounts_before=list(before),
+               refcounts_after=list(runtime.refcount.counts(ref.id)),
+               clients_gone_s=clients_gone_s, borrows_released_s=borrows_s)
+    log("[nodes] (b) remote driver " + json.dumps({"card": card, **out}))
+    _nodes_tokens_ok(got["tokens"], want, got["launches"], "(b) remote driver")
+    if rc != 0 or not got["log_seen"] or got["sha256"] != want_sha or got["leaked_modules"]:
+        fail(f"[nodes] (b) exit {rc}, log line seen {got['log_seen']}, vector bit for "
+             f"bit {got['sha256'] == want_sha}, modules {got['leaked_modules']}")
+    if got["log"].get("pid") != got["log"].get("shout_pid"):
+        fail(f"[nodes] (b) the pushed line came from {got['log']}")
+    return out
+
+
+def _nodes_death(runtime, daemons, cross: dict, base: str, pids: set, card: str,
+                 layers: int, killed: list) -> dict:
+    """(c) train again on nodeB (soft affinity); once its result is sealed
+    there, SIGKILL nodeB's daemon before anything pulls it. The driver's get
+    re-runs train once, on nodeA, by lineage: K6 = K7 counted in that
+    re-run, the vector bit for bit (a)'s. nodeB's workers are gone and the
+    card's used memory falls."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models.gpt import gpt2_125m
+    from ray_tpu_torch.util.scheduling_strategies import NodeAffinitySchedulingStrategy
+
+    node_b = daemons[1]
+    count = os.path.join(base, "recovery.count")
+    train = ray_tpu_torch.remote(_store_train).options(
+        num_gpus=NODES_GPU, max_retries=1, name="nodes_recovery_train",
+        scheduling_strategy=NodeAffinitySchedulingStrategy(
+            node_id=node_b["node_id"].hex(), soft=True))
+    tokens = _procs_make_tokens(0, TRAIN_B, TRAIN_S + 1)
+    ref = train.remote(tokens, gpt2_125m(), TRAIN_STEPS, "cuda", count, False)
+    ready, _ = ray_tpu_torch.wait([ref], timeout=NODES_TIMEOUT_S)
+    if not ready or runtime.store.location_of(ref.id) != node_b["node_id"]:
+        fail("[nodes] (c) train's result is not sealed on nodeB")
+    with open(count + ".json") as f:
+        first_pid = json.load(f)["pid"]
+    b_pids = {first_pid} | {p for p in cross["b_pids"]}
+    pids.update(b_pids)
+    used_before = _device_used()
+    node_b["proc"].kill()
+    t0 = time.perf_counter()
+    node_b["proc"].wait(timeout=30)
+    killed.append(node_b["proc"].pid)
+    detect_s = _until(lambda: len(runtime.controller.alive_nodes()) == 2,
+                      "nodeB's death seen by the head", 60.0, phase="nodes")
+    gone_s = _until(lambda: not any(_pid_alive(p) for p in b_pids),
+                    "nodeB's workers gone", 60.0, phase="nodes")
+    mib = 2**20
+    back_s = _until(lambda: used_before - _device_used() > LEFT_LIMIT_MIB * mib,
+                    "nodeB's workers' card memory returning", 60.0, phase="nodes")
+    dropped = (used_before - _device_used()) / mib
+    t1 = time.perf_counter()
+    again = ray_tpu_torch.get(ref, timeout=NODES_TIMEOUT_S)
+    recover_s = time.perf_counter() - t1
+    runs = len(open(count).read())
+    with open(count + ".json") as f:
+        rerun = json.load(f)
+    pids.add(rerun["pid"])
+    same = torch.equal(again, cross["vec"])
+    out = {"runs": runs, "rerun_pid": rerun["pid"], "rerun_parent": _ppid(rerun["pid"]),
+           "killed_daemon": node_b["proc"].pid, "worker_pids": sorted(b_pids),
+           "death_seen_s": detect_s, "workers_gone_s": gone_s, "memory_back_s": back_s,
+           "device_used_drop_mib": dropped, "recover_s": recover_s,
+           "bit_for_bit": same, "launches": rerun["launches"],
+           "since_kill_s": time.perf_counter() - t0}
+    log("[nodes] (c) node death " + json.dumps({"card": card, **out}))
+    per = layers * TRAIN_STEPS
+    _want_counts(rerun["launches"], {"K6 flash_fwd_packed": per, "K7 flash_bwd_packed": per,
+                                     "K4 flash_bwd_dq": per, "K5 flash_bwd_dkv": per}, "nodes")
+    if runs != 2 or not same or out["rerun_parent"] != daemons[0]["proc"].pid:
+        fail(f"[nodes] (c) train ran {runs} times, bit for bit {same}, re-run under "
+             f"{out['rerun_parent']} (nodeA's daemon is {daemons[0]['proc'].pid})")
+    del again
+    return out
+
+
+def _nodes_restart(heads: list, port: int, gcs: str, want, pids: set, card: str,
+                   killed: list) -> dict:
+    """(d) Head 1 (a process of its own, GCS persistence on, a fixed port
+    and token, listening since the phase's start) and a daemon with a 90 s
+    reconnect window: a detached GPT-2 server serves the prompts, the
+    snapshot is saved, head 1 is SIGKILLed. The daemon kills and reaps its
+    workers: the card's used memory returns to its figure before the actor.
+    Head 2 on the same port, token and snapshot: the daemon rejoins,
+    get_actor("gpt2") gives a fresh actor on the same daemon that serves
+    identical tokens; the KV entry and the job counter survived."""
+    limit = LEFT_LIMIT_MIB * 2**20
+    daemon = None
+    try:
+        used0 = _device_used()
+        h1, h2 = heads[0]["lines"], heads[1]["lines"]
+        listening1 = h1.event("listening")
+        daemon = _nodes_daemon(f"127.0.0.1:{port}?token={NODES_TOKEN}", "nodeR",
+                               ("--reconnect-window", str(NODES_RECONNECT_S)))
+        daemon["lines"].wait("node daemon up")
+        served1 = h1.event("served")
+        _nodes_tokens_ok(served1["tokens"], want, served1["launches"], "(d) head 1")
+        saved = h1.event("saved")
+        old = served1["info"]
+        pids.add(old["pid"])
+        dpid = daemon["proc"].pid
+        if old["ppid"] != dpid or saved["detached"] != 1:
+            fail(f"[nodes] (d) the actor's parent {old['ppid']} (daemon {dpid}); "
+                 f"{saved['detached']} detached actors in the snapshot")
+        used_actor = _device_used()
+        heads[0]["proc"].kill()
+        t_kill = time.perf_counter()
+        heads[0]["proc"].wait(timeout=30)
+        killed.append(heads[0]["proc"].pid)
+        daemon["lines"].wait("daemon: head connection lost", 60.0)
+        exit_s = _until(lambda: not _pid_alive(old["pid"]),
+                        "the orphaned actor's exit", 60.0, phase="nodes")
+        back_s = _until(lambda: _device_used() <= used0 + limit,
+                        f"the card's used memory back within {LEFT_LIMIT_MIB} MiB of its "
+                        f"figure before the actor", 60.0, phase="nodes")
+        used_back = _device_used()
+        _nodes_go(heads[1], "second", port, NODES_TOKEN, gcs)
+        listening2 = h2.event("listening")
+        _, rejoined_at = daemon["lines"].wait("daemon: rejoined head", NODES_TIMEOUT_S)
+        joined2 = h2.event("joined")
+        served2 = h2.event("served")
+        _nodes_tokens_ok(served2["tokens"], want, served2["launches"], "(d) restored actor")
+        new = served2["info"]
+        pids.add(new["pid"])
+        h2.event("down")
+        rc2 = heads[1]["proc"].wait(timeout=NODES_TIMEOUT_S)
+        daemon_rc = daemon["proc"].wait(timeout=60)
+        mib = 2**20
+        out = {"port": port, "daemon_pid": dpid, "old_actor_pid": old["pid"],
+               "new_actor_pid": new["pid"], "new_actor_parent": new["ppid"],
+               "head1_init_s": listening1["init_s"],
+               "snapshot": {"bytes": saved["bytes"], "build_s": saved["build_s"],
+                            "flush_s": saved["save_s"]},
+               "orphan_exit_s": exit_s, "memory_back_s": back_s,
+               "device_used_mib": {"before_actor": used0 / mib, "with_actor": used_actor / mib,
+                                   "after_kill": used_back / mib},
+               "since_kill_to_head2_s": heads[1]["t0"] - t_kill,
+               "head2_init_s": listening2["init_s"],
+               "rejoin_s": rejoined_at - listening2["at"],
+               "head2_init_to_daemon_s": joined2["since_init_s"],
+               "head2_init_to_first_token_s": served2["init_to_first_token_s"],
+               "kv_survived": listening2["kv"] == NODES_KV[1].hex(),
+               "jobs": [listening1["job"], listening2["job"]],
+               "token_identical": True, "head1_launches": served1["launches"],
+               "launches": served2["launches"], "head2_rc": rc2, "daemon_rc": daemon_rc}
+        log("[nodes] (d) head restart " + json.dumps({"card": card, **out}))
+        if (new["ppid"] != dpid or new["pid"] == old["pid"] or not out["kv_survived"]
+                or not listening2["job"] > listening1["job"] or rc2 != 0):
+            fail(f"[nodes] (d) restored actor under {new['ppid']} (daemon {dpid}), pid "
+                 f"{new['pid']} (was {old['pid']}), KV survived {out['kv_survived']}, jobs "
+                 f"{out['jobs']}, head 2 exit {rc2}")
+        return out
+    finally:
+        if daemon is not None and daemon["proc"].poll() is None:
+            daemon["proc"].kill()
+            daemon["proc"].wait(timeout=30)
+
+
+def _nodes_first_head(client: dict, *, card: str, prompts, want, procs: dict,
+                      stored: dict, base: str, pids: set, killed: list, daemons: list,
+                      layers: int) -> dict:
+    """(a)-(c) under a head in this process (isolation="process", no GPU of
+    its own, serve_clients(port=0)) and the daemons nodeA and nodeB."""
+    import ray_tpu_torch
+
+    summary = {}
+    runtime = ray_tpu_torch.init(num_cpus=2, num_gpus=0,
+                                 _system_config={"isolation": "process"})
+    try:
+        address = runtime.serve_clients(port=0)
+        summary["daemons"] = _nodes_start(runtime, address, daemons, card)
+        # A task that imports torch on each node, beside the server actor's
+        # start: it leaves a worker in each node's pool, so the crossings
+        # below time the pulls and not a worker's start.
+        t0 = time.perf_counter()
+        warm = [ray_tpu_torch.remote(_nodes_warm).options(resources={tag: 0.1}).remote()
+                for tag in ("nodeA", "nodeB")]
+        actor, summary["serve"] = _nodes_serve(prompts, want, daemons, pids, card)
+        summary["pooled_workers"] = dict(zip(("nodeA", "nodeB"), ray_tpu_torch.get(
+            warm, timeout=NODES_TIMEOUT_S)))
+        summary["pooled_workers"]["since_submit_s"] = time.perf_counter() - t0
+        pids.update(w["pid"] for w in summary["pooled_workers"].values()
+                    if isinstance(w, dict))
+        log("[nodes] (a) pooled workers " + json.dumps(
+            {"card": card, **summary["pooled_workers"]}))
+        host = _nodes_cross(runtime, daemons, procs, stored, base, pids, card, layers,
+                            on_card=False)
+        on_card = _nodes_cross(runtime, daemons, procs, stored, base, pids, card, layers,
+                               on_card=True)
+        del on_card["ref"]
+        summary["cross_host"], summary["cross_card"] = host, on_card
+        summary["client"] = _nodes_remote_driver(runtime, client, address,
+                                                 prompts, want, host["ref"], stored,
+                                                 base, card)
+        host["vec"] = ray_tpu_torch.get(host.pop("ref"), timeout=NODES_TIMEOUT_S)
+        host["b_pids"] = [host["pids"][0], on_card["pids"][0]]
+        summary["death"] = _nodes_death(runtime, daemons, host, base, pids, card,
+                                        layers, killed)
+        del host["vec"]
+        ray_tpu_torch.kill(actor)
+        del actor
+    finally:
+        ray_tpu_torch.shutdown()
+        for d in daemons:
+            try:
+                d["proc"].wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                d["proc"].kill()
+                d["proc"].wait(timeout=30)
+    return summary
+
+
+def phase_nodes(device_info: dict, server: dict, procs: dict, stored: dict) -> dict:
+    """GCS persistence and remote nodes (phase 20): (a) a head with no GPU
+    and two daemons (nodeA, nodeB) with the card as their GPU: a GPT-2 125M
+    server actor on nodeA, train on nodeB and evaluate on nodeA across the
+    object plane, the driver's pull; (b) a remote driver; (c) nodeB's
+    death and lineage recovery on nodeA; (d) a head SIGKILLed and restarted
+    from its snapshot; (e) no daemon, worker or segment left, and the
+    card's memory back."""
+    import glob
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    t_phase = time.perf_counter()
+    card = device_info["smi"]
+    want = server["bf16_cold_tokens"]
+    prompts = _prompts(np.random.RandomState(0))
+    layers = gpt2_125m().num_layers
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    used0, mem0 = _device_used(), torch.cuda.memory_allocated()
+    pids: set = set()
+    killed: list = []  # SIGKILLed processes: their segments stay behind
+    daemons: list = []
+    summary = {}
+    base = tempfile.mkdtemp(prefix="nodes-phase-")
+    # (b)'s remote driver and (d)'s heads start now: each imports torch and
+    # the package while (a) runs. Head 1 binds (d)'s port at once and waits
+    # for its daemon; head 2 and the driver wait for their arguments.
+    port = _nodes_fixed_port()
+    gcs = os.path.join(base, "gcs.snap")
+    children = {"client": _nodes_child("client", "_nodes_client"),
+                "head1": _nodes_child("head first", "_nodes_head"),
+                "head2": _nodes_child("head second", "_nodes_head")}
+    try:
+        _nodes_go(children["head1"], "first", port, NODES_TOKEN, gcs)
+        summary.update(_nodes_first_head(children["client"], card=card, prompts=prompts,
+                                         want=want, procs=procs, stored=stored, base=base,
+                                         pids=pids, killed=killed, daemons=daemons,
+                                         layers=layers))
+        summary["restart"] = _nodes_restart([children["head1"], children["head2"]], port,
+                                            gcs, want, pids, card, killed)
+    finally:
+        for child in children.values():
+            if child["proc"].poll() is None:
+                child["proc"].kill()
+                child["proc"].wait(timeout=30)
+        shutil.rmtree(base, ignore_errors=True)
+    exits = {d["tag"]: d["proc"].returncode for d in daemons}
+    # (e) A SIGKILLed process cannot remove its own shm segment: each
+    # killed daemon's and head's is named by its pid, listed and removed
+    # here; no other may be left.
+    removed = []
+    for pid in killed:
+        for path in glob.glob(f"/dev/shm/ray_tpu_torch_{pid}") + glob.glob(
+                f"/dev/shm/ray_tpu_torch_node_{pid}"):
+            os.remove(path)
+            removed.append(os.path.basename(path))
+    alive = sorted(p for p in pids | {d["proc"].pid for d in daemons}
+                   | {c["proc"].pid for c in children.values()} if _pid_alive(p))
+    left = {"segments": sorted(glob.glob("/dev/shm/ray_tpu_torch_*")),
+            "killed_processes_segments_removed": removed, "alive": alive,
+            "worker_pids": len(pids), "daemon_exit_codes": exits}
+    if left["segments"] or alive:
+        fail(f"[nodes] after shutdown(): {left}")
+    left["left_allocated_mib"] = _settle(mem0, "nodes")
+    limit = LEFT_LIMIT_MIB * 2**20
+    left["settle_s"] = _until(lambda: _device_used() <= used0 + limit,
+                              f"the card's used memory back within {LEFT_LIMIT_MIB} MiB of "
+                              f"{used0 / 2**20:.0f} MiB", 30.0, phase="nodes")
+    left.update(device_used_start_mib=used0 / 2**20, device_used_end_mib=_device_used() / 2**20)
+    summary["teardown"] = left
+    log("[nodes] (e) teardown " + json.dumps({"card": card, **left}))
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[nodes] phase wall {summary['wall_s']:.1f}s")
+    summary["paths"] = {
+        "nodes serve": summary["serve"]["launches"],
+        "nodes train": _sum_counts([summary[v]["train_launches"]
+                                    for v in ("cross_host", "cross_card")]),
+        "nodes recovery": summary["death"]["launches"],
+        "nodes client serve": summary["client"]["launches"],
+        "nodes restored serve": summary["restart"]["launches"],
     }
     return summary
 
@@ -6283,6 +7044,7 @@ def main() -> int:
     data = _timed(walls, phase_data, device, trainer, resnet)
     procs = _timed(walls, phase_procs, device, server, trainer, data)
     stored = _timed(walls, phase_store, device, server, procs)
+    nodes = _timed(walls, phase_nodes, device, server, procs, stored)
     launches.update(profile["launches"])
     paths = {"server": server["launches"]}
     for line in loadgen["cells"]:
@@ -6307,6 +7069,7 @@ def main() -> int:
     paths["data resnet"] = data["resnet"]["launches"]
     paths.update(procs["paths"])
     paths.update(stored["paths"])
+    paths.update(nodes["paths"])
     log("[phases] " + json.dumps(walls))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches, paths)))

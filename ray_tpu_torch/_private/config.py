@@ -29,8 +29,6 @@ def _env_override(name: str, default):
 # construct: each is accepted at its default and refused otherwise, naming
 # the later slice that would port it where there is one.
 _UNPORTED = {
-    "gcs_storage_path": ("", "GCS persistence (gcs_storage) is not ported "
-                             "(ROADMAP.md §B10)"),
     "include_dashboard": (False, "the dashboard is not ported (ROADMAP.md §B10)"),
     # The reference declares this flag and no engine of it reads it: the
     # process engine starts workers on demand, in both packages.
@@ -99,6 +97,14 @@ class Config:
     # forces its workers onto the CPU instead, because its TPU chip admits
     # one process (worker_jax_platform; ROADMAP.md §D22).
     worker_device: str = ""
+    # Control-plane persistence: when set, KV/job-counter/detached-actor/PG
+    # tables are snapshotted here and restored by the next session
+    # (reference: gcs_table_storage.h + the Redis `gcs_storage` backend).
+    gcs_storage_path: str = ""
+    # After restoring a snapshot, infeasible restored actors/PGs PARK this
+    # many seconds (daemons re-registering after a head restart) before the
+    # scheduler reverts to failing them fast.
+    head_restart_grace_s: float = 60.0
     # Worker pool: an idle task worker is killed after this long
     idle_worker_killing_time_s: float = 60.0
     # Logging: worker stdout/stderr reprinted on the driver with a prefix

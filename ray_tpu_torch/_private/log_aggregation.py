@@ -1,17 +1,19 @@
-"""Worker log aggregation.
+"""Cross-node worker log aggregation.
 
 The reference runs a per-node log_monitor process that tails worker log
 files and publishes lines over GCS pubsub; the driver subscribes and
 reprints them with `(name pid=..., ip=...)` prefixes
-(python/ray/_private/log_monitor.py:102, worker.py print_logs). In the port
-the worker processes are the driver's children, so their stdout/stderr
-pipes are tailed on the driver itself:
+(python/ray/_private/log_monitor.py:102, worker.py print_logs). Here the
+worker stdout/stderr are pipes already owned by the daemon/engine process,
+so lines ride the existing control connections:
 
-  worker pipe → PipeTailer thread → LogBuffer ring (`Runtime.logs`)
-      → driver stdout/stderr with a `(worker pid=…)` prefix
+  worker pipe → PipeTailer thread (node daemon or head) → "wl" frame → head
+      → LogBuffer ring (`Runtime.logs`)
+      → driver stdout/stderr with a `(worker pid=…, node=…)` prefix
+      → connected remote drivers (client mode reprints them)
 
-Node daemons, the dashboard, client mode and the CLI, which the reference
-also feeds from here, are not ported yet (ROADMAP.md §B10, §B13).
+The dashboard and the CLI, which the reference also feeds from here, are
+not ported yet (ROADMAP.md §B10, §B13).
 """
 
 from __future__ import annotations
@@ -30,36 +32,69 @@ _RESET = "\033[0m"
 
 
 class LogBuffer:
-    """Driver-side ring buffer of worker log lines, queryable by worker pid.
-    Each appended batch also goes to `sink` when one is given (the driver
-    reprint of log_to_driver)."""
+    """Head-side ring buffer of worker log lines, by node and worker.
+    Each appended batch also goes to every sink: the driver's reprint
+    (log_to_driver) and the head server's fan-out to remote drivers. The
+    reference's cursor (`seq`, `tail(after_seq=)`) and node and worker
+    filters serve its dashboard and CLI, which are not ported (ROADMAP.md
+    §B10, §B13)."""
 
-    def __init__(
-        self,
-        capacity: int = 50_000,
-        sink: Optional[Callable[[dict], None]] = None,
-    ):
+    def __init__(self, capacity: int = 50_000):
         self._lock = threading.Lock()
         self._lines: deque = deque(maxlen=capacity)
-        self._sink = sink
+        self._sinks: list[Callable[[dict], None]] = []
 
-    def append(self, *, pid: int, stream: str, lines: Iterable[str]) -> None:
+    def add_sink(self, sink: Callable[[dict], None]) -> None:
+        """Register a callback invoked once per appended batch (driver
+        printing, client fanout)."""
+        with self._lock:
+            self._sinks.append(sink)
+
+    def remove_sink(self, sink: Callable[[dict], None]) -> None:
+        with self._lock:
+            try:
+                self._sinks.remove(sink)
+            except ValueError:
+                pass
+
+    def append(
+        self,
+        *,
+        node_id: str,
+        hostname: str,
+        wid: int,
+        pid: int,
+        stream: str,
+        lines: Iterable[str],
+    ) -> None:
         batch = {
+            "node_id": node_id,
+            "hostname": hostname,
+            "wid": wid,
             "pid": pid,
             "stream": stream,
             "lines": [line.rstrip("\n") for line in lines],
+            "ts": time.time(),
         }
         if not batch["lines"]:
             return
-        ts = time.time()
         with self._lock:
             for line in batch["lines"]:
                 self._lines.append(
-                    {"pid": pid, "stream": stream, "line": line, "ts": ts}
+                    {
+                        "node_id": node_id,
+                        "hostname": hostname,
+                        "wid": wid,
+                        "pid": pid,
+                        "stream": stream,
+                        "line": line,
+                        "ts": batch["ts"],
+                    }
                 )
-        if self._sink is not None:
+            sinks = list(self._sinks)
+        for sink in sinks:
             try:
-                self._sink(batch)
+                sink(batch)
             except Exception:
                 pass
 
@@ -78,7 +113,10 @@ class LogBuffer:
 
 
 def format_prefix(batch: dict) -> str:
-    return f"{_PREFIX_COLOR}(worker pid={batch['pid']}){_RESET}"
+    return (
+        f"{_PREFIX_COLOR}(worker pid={batch['pid']}, "
+        f"node={batch['hostname']}){_RESET}"
+    )
 
 
 def print_batch_to_driver(batch: dict, file=None) -> None:

@@ -318,7 +318,9 @@ def decode_envelope(view) -> Any:
     for blen in buf_lens:
         bufs.append(view[pos : pos + blen])
         pos += _pad(blen)
-    return cloudpickle.loads(pickled, buffers=bufs)
+    from ray_tpu_torch._private.wire import loads_value
+
+    return loads_value(pickled, buffers=bufs)
 
 
 class NativeStore:

@@ -6,7 +6,8 @@ objects / error signals) and the node-wide plasma shared-memory store
 same interface against a single in-process table — the engine of the threaded
 runtime — with large values in the native shared-memory store
 (native_store.py) and spilling to external storage (external_storage.py) as
-in the reference. Remote-node locations are not ported (ROADMAP.md §B10).
+in the reference, and the locations of values whose bytes live in a remote
+node's store (`seal_remote`), pulled through the runtime's remote fetch.
 
 Semantics preserved from plasma (object_store.h / object_lifecycle_manager.h):
   * objects are create-once, sealed, then immutable;
@@ -75,6 +76,8 @@ class _Entry:
         "in_native",
         "spilled_uri",
         "nested_refs",
+        "remote_node",
+        "extra_locations",
     )
 
     def __init__(self):
@@ -90,6 +93,14 @@ class _Entry:
         # ObjectRef handles serialized inside this value (borrows): held for
         # the entry's lifetime so the inner objects can't be collected.
         self.nested_refs: list | None = None
+        # Bytes live in a remote node's local store (reference: the object
+        # directory, ownership_based_object_directory.h — the owner records
+        # locations, readers pull). None = bytes are local (or not sealed).
+        self.remote_node = None
+        # Nodes holding CACHED copies (completed pulls): later pullers
+        # spread across these, making a 1-to-N broadcast scale like the
+        # reference's chunked push tree (object_manager/push_manager.h).
+        self.extra_locations: set | None = None
 
 
 class InProcessStore:
@@ -119,9 +130,17 @@ class InProcessStore:
         # Objects the reference counter still holds references to may not be
         # evicted; the runtime installs this callback.
         self._pinned_check: Callable[[ObjectID], bool] = lambda oid: True
+        self._remote_fetch = None  # installed via set_remote_fetch
 
     def set_pinned_check(self, fn: Callable[[ObjectID], bool]) -> None:
         self._pinned_check = fn
+
+    def set_remote_fetch(self, fn) -> None:
+        """Install the cross-node pull: fn(object_id, node_id) returns the
+        materialized value after (optionally) caching bytes locally, or
+        raises ObjectLostError. Installed by the runtime when remote nodes
+        exist (reference: PullManager, object_manager/pull_manager.h)."""
+        self._remote_fetch = fn
 
     # -- write path ---------------------------------------------------------
 
@@ -280,6 +299,124 @@ class InProcessStore:
                 cb()
         return True
 
+    def seal_remote(
+        self,
+        object_id: ObjectID,
+        node_id,
+        size: int,
+        nested_refs: list | None = None,
+    ) -> None:
+        """Record that a worker on a remote node produced+sealed this object
+        into that node's local store: the owner keeps the location, not the
+        bytes. Reads pull through the remote-fetch hook on demand."""
+        fire = False
+        with self._lock:
+            entry = self._entries.get(object_id)
+            if entry is None:
+                entry = _Entry()
+                self._entries[object_id] = entry
+            if entry.sealed:
+                return  # idempotent reseal on retry: keep the first copy
+            entry.value = None
+            entry.size = 0  # bytes accounted by the remote node's store
+            entry.sealed = True
+            entry.freed = False
+            entry.in_native = False
+            entry.remote_node = node_id
+            entry.nested_refs = nested_refs
+            entry.last_access = time.monotonic()
+            entry.event.set()
+            callbacks, entry.callbacks = entry.callbacks, []
+            fire = True
+        if fire:
+            for cb in callbacks:
+                cb()
+
+    def location_of(self, object_id: ObjectID):
+        """The remote node holding this sealed object's bytes, or None when
+        the bytes are local/unsealed (the owner-directed location lookup)."""
+        with self._lock:
+            entry = self._entries.get(object_id)
+            if entry is None or not entry.sealed or entry.freed:
+                return None
+            return entry.remote_node
+
+    def add_location(self, object_id: ObjectID, node_id) -> None:
+        """Record a node now holding a cached copy of this object."""
+        with self._lock:
+            entry = self._entries.get(object_id)
+            if entry is None or not entry.sealed or entry.freed:
+                return
+            if entry.extra_locations is None:
+                entry.extra_locations = set()
+            entry.extra_locations.add(node_id)
+
+    def locations_of(self, object_id: ObjectID) -> list:
+        """All nodes known to hold this object's bytes: the producer first,
+        then cached copies."""
+        with self._lock:
+            entry = self._entries.get(object_id)
+            if entry is None or not entry.sealed or entry.freed:
+                return []
+            out = []
+            if entry.remote_node is not None:
+                out.append(entry.remote_node)
+            if entry.extra_locations:
+                out.extend(
+                    n for n in entry.extra_locations if n != entry.remote_node
+                )
+            return out
+
+    def drop_node_locations(self, node_id) -> None:
+        """Forget every cached copy on a dead node (primary copies are
+        handled by the lost-object path)."""
+        with self._lock:
+            for entry in self._entries.values():
+                if entry.extra_locations:
+                    entry.extra_locations.discard(node_id)
+
+    def adopt_fetched(
+        self, object_id: ObjectID, value: Any, pickled: bytes | None = None
+    ) -> None:
+        """Cache a remotely-fetched object's bytes locally so later reads
+        skip the network: converts a remote-located entry in place. Subject
+        to the same budget/eviction as seal — pulls must not grow memory
+        past the budget."""
+        dropped: list = []
+        with self._lock:
+            entry = self._entries.get(object_id)
+            if entry is None or not entry.sealed or entry.remote_node is None:
+                return
+            if pickled is not None:
+                size = len(pickled)
+                new_value: Any = _Pickled(pickled)
+            else:
+                size = _sizeof(value)
+                new_value = value
+            if self._budget is not None and self._used + size > self._budget:
+                self._evict_locked(self._used + size - self._budget, dropped)
+            entry.value = new_value
+            entry.size = size
+            entry.last_access = time.monotonic()
+            self._used += size
+            entry.remote_node = None
+        del dropped  # nested_refs GC outside the lock
+
+    def adopt_fetched_native(self, object_id: ObjectID) -> bool:
+        """Flip a remote-located entry to shm-resident after its envelope
+        bytes were written into the local native store. Returns False if the
+        pin failed (raced an eviction)."""
+        if self._native is None or not self._native.pin(object_id):
+            return False
+        with self._lock:
+            entry = self._entries.get(object_id)
+            if entry is None or not entry.sealed or entry.remote_node is None:
+                self._native.release(object_id)
+                return True
+            entry.in_native = True
+            entry.remote_node = None
+        return True
+
     def invalidate(self, object_id: ObjectID) -> None:
         """Reset a lost object's entry to the unsealed state so the lineage
         re-execution's reseal can land and readers re-block on the event
@@ -302,6 +439,7 @@ class InProcessStore:
             entry.in_native = False
             entry.spilled_uri = None
             entry.nested_refs = None
+            entry.remote_node = None
             entry.event.clear()
         if was_native and self._native is not None:
             # Drop the owner pin so the shm payload doesn't leak; with reader
@@ -377,7 +515,19 @@ class InProcessStore:
                 spilled_uri = entry.spilled_uri
                 in_native = entry.in_native
                 value = entry.value
+                remote_node = entry.remote_node
                 break
+        if remote_node is not None:
+            # Pull through the cross-node hook (which caches locally and may
+            # flip the entry to in_native/_Pickled; raises ObjectLostError on
+            # a dead node / evicted copy, triggering lineage recovery).
+            if self._remote_fetch is None:
+                raise ObjectLostError(
+                    object_id,
+                    f"Object {object_id} lives on node {remote_node} but no "
+                    "remote fetch path is installed",
+                )
+            return self._remote_fetch(object_id, remote_node)
         if spilled_uri is None and not in_native:
             if not isinstance(value, _Pickled):
                 return value
@@ -508,6 +658,7 @@ class InProcessStore:
                     entry.value = None
                     entry.freed = True
                     entry.nested_refs = None
+                    entry.remote_node = None
                     entry.event.set()
                     fired.extend(entry.callbacks)
                     entry.callbacks = []
@@ -554,6 +705,7 @@ class InProcessStore:
                 and not entry.freed
                 and entry.spilled_uri is None  # spilled: no resident bytes
                 and not entry.in_native  # shm bytes: governed by shm's own LRU
+                and entry.remote_node is None  # bytes live on a remote node
                 and not self._pinned_check(oid)
             ),
             key=lambda item: item[0],
@@ -588,6 +740,7 @@ class InProcessStore:
                     if entry.sealed
                     and not entry.freed
                     and not entry.in_native
+                    and entry.remote_node is None
                     and entry.spilled_uri is None
                 ),
                 key=lambda item: item[0],

@@ -17,10 +17,17 @@ Failure semantics this buys over the threaded engine:
 
 Selected with config flag `isolation="process"` (env RAY_TPU_TORCH_ISOLATION),
 or per actor with `.options(isolation="process")`.
+
+Three classes share the work, as in the reference: `WirePeer` serves the
+runtime's API over one connection (a remote driver's `ClientHandle` is
+one), `WorkerChannel` adds task dispatch and frame handling, and
+`ProcessWorkerHandle` the local subprocess (remote_node.RemoteWorkerHandle
+the daemon-hosted one).
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import socket
 import subprocess
@@ -52,99 +59,27 @@ _PACKAGE_ROOT = os.path.dirname(
 )
 
 
-class ProcessWorkerHandle:
-    """One worker process: socket, reader thread, in-flight tasks, borrows.
+class WirePeer:
+    """Shared driver-side state + RPC service for one wire connection.
 
-    Also serves the worker's calls into the runtime's ownership-bearing API
-    (put/get/wait/submit/actors/streams), with the borrows taken on the
-    worker's behalf released when it disconnects: the reference's
-    CoreWorkerService + GCS RPC handlers collapsed onto one framed socket."""
+    Serves the runtime's ownership-bearing API (put/get/wait/submit/actors/
+    streams) to a connected peer — a local worker process
+    (ProcessWorkerHandle), a worker hosted by a node daemon
+    (remote_node.RemoteWorkerHandle) or a remote driver client
+    (head_server.ClientHandle) — with per-peer borrow accounting released on
+    disconnect: the reference's CoreWorkerService + GCS RPC handlers
+    collapsed onto one framed socket."""
 
-    def __init__(self, engine: "ProcessNodeEngine"):
-        self.engine = engine
-        self.runtime = engine.runtime
+    def __init__(self, runtime):
+        self.runtime = runtime
         self._lock = threading.Lock()
-        # oid bytes -> borrow count held on behalf of this worker
+        # oid bytes -> borrow count held on behalf of this peer
         self.borrows: dict[bytes, int] = {}
-        # task_id bytes -> driver-side ObjectRefGenerator (worker-submitted
+        # task_id bytes -> driver-side ObjectRefGenerator (peer-submitted
         # streaming tasks pulled via next_stream_item)
         self.streams: dict[bytes, Any] = {}
-        self.actor_id: Optional[ActorID] = None
-        self.expected_death = False
-        # Set by the memory monitor before an OOM kill: the in-flight tasks
-        # fail with OutOfMemoryError instead of a generic crash.
-        self.death_note: Optional[str] = None
-        self.last_pong = time.monotonic()
-        # task_id bytes -> (spec, grant)
-        self.in_flight: dict[bytes, tuple[TaskSpec, dict]] = {}
-        # When the most recent task was dispatched here — the memory
-        # monitor's retriable-FIFO policy kills the NEWEST victim first
-        # (least progress lost).
-        self.last_dispatch = 0.0
-        parent_sock, child_sock = socket.socketpair()
-        env = os.environ.copy()
-        env["RAY_TPU_TORCH_WORKER_FD"] = str(child_sock.fileno())
-        env["RAY_TPU_TORCH_IS_WORKER"] = "1"
-        # The worker imports the package the driver imported, wherever the
-        # driver was started from.
-        env["PYTHONPATH"] = os.pathsep.join(
-            p for p in (_PACKAGE_ROOT, env.get("PYTHONPATH")) if p
-        )
-        # A CUDA device admits contexts from many processes, so by default
-        # a worker sees the driver's devices; worker_device="cpu" hides them
-        # (ROADMAP.md §D22).
-        if self.runtime.config.worker_device == "cpu":
-            env["CUDA_VISIBLE_DEVICES"] = ""
-        self.proc = subprocess.Popen(
-            [sys.executable, "-m", "ray_tpu_torch._private.worker_main"],
-            pass_fds=[child_sock.fileno()],
-            env=env,
-            stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE,
-        )
-        child_sock.close()
-        # Worker output goes through the log plane, so driver output carries
-        # (worker pid=...) prefixes and `Runtime.logs` holds the lines.
-        from ray_tpu_torch._private.log_aggregation import PipeTailer
-
-        self._tailers = [
-            PipeTailer(pipe.fileno(), stream, self._emit_log)
-            for stream, pipe in (("stdout", self.proc.stdout),
-                                 ("stderr", self.proc.stderr))
-        ]
-        for tailer in self._tailers:
-            tailer.start()
-        self.conn = wire.Connection(parent_sock)
-        native = self.runtime._native_store
-        self.conn.send(
-            "hello",
-            {
-                "store_name": native.name.decode() if native is not None else None,
-                "native_threshold": self.runtime.config.native_store_threshold
-                if native is not None
-                else 0,
-                "node_id": engine.node.node_id,
-                "job_id": self.runtime.job_id.binary(),
-                "driver_task_id": self.runtime.driver_task_id.binary(),
-                "namespace": self.runtime.namespace,
-                "sys_path": [p for p in sys.path if p],
-            },
-        )
-        self._reader = threading.Thread(
-            target=self._read_loop, name=f"pworker-{self.proc.pid}", daemon=True
-        )
-        self._reader.start()
-
-    def _emit_log(self, stream: str, lines: list) -> None:
-        try:
-            self.runtime.logs.append(
-                pid=self.proc.pid,
-                stream=stream,
-                lines=lines,
-            )
-        except Exception:
-            pass
-
+        self.conn: wire.Connection  # set by subclass before use
+        self.rpc_pool: ThreadPoolExecutor  # set by subclass before use
 
     # -- borrows -----------------------------------------------------------
 
@@ -357,13 +292,138 @@ class ProcessWorkerHandle:
         return {"refs": [self.preborrow(ref.id) for ref in out]}
 
 
+class WorkerChannel(WirePeer):
+    """Protocol half of a worker handle: task dispatch + frame handling +
+    in-flight bookkeeping, independent of WHERE the worker process runs.
+
+    Subclasses provide the transport: ProcessWorkerHandle (local subprocess
+    over a socketpair) and remote_node.RemoteWorkerHandle (a worker hosted
+    by a node daemon, frames muxed over the node's TCP connection)."""
+
+    def __init__(self, engine):
+        super().__init__(engine.runtime)
+        self.engine = engine
+        self.rpc_pool = engine.rpc_pool
+        self.actor_id: Optional[ActorID] = None
+        self.expected_death = False
+        # Set by the memory monitor before an OOM kill: the in-flight tasks
+        # fail with OutOfMemoryError instead of a generic crash.
+        self.death_note: Optional[str] = None
+        self.last_pong = time.monotonic()
+        # task_id bytes -> (spec, grant)
+        self.in_flight: dict[bytes, tuple[TaskSpec, dict]] = {}
+        # When the most recent task was dispatched here — the memory
+        # monitor's retriable-FIFO policy kills the NEWEST victim first
+        # (least progress lost).
+        self.last_dispatch = 0.0
+
+    # Transport hooks -------------------------------------------------------
+
+    def describe(self) -> str:
+        """Human-readable worker identity for error messages."""
+        return "worker"
+
+    def _ref_in_native(self, oid) -> bool:
+        """Whether THIS worker can read the arg from the shm store it is
+        attached to (the head's for local workers, its node's for remote
+        ones)."""
+        return False
+
+    def kill_process(self) -> None:
+        raise NotImplementedError
+
+    def _post_disconnect(self) -> None:
+        """Transport-specific cleanup after in-flight failure handling."""
+
+    def _seal_native_return(self, spec: TaskSpec, body: dict) -> "TaskResult":
+        """Adopt an in_native return (bytes already sealed into a store)."""
+        raise NotImplementedError
+
+
+_LOCAL_WID = itertools.count(1)
+
+
+class ProcessWorkerHandle(WorkerChannel):
+    """One worker process: socket, reader thread, in-flight tasks, borrows."""
+
+    def __init__(self, engine: "ProcessNodeEngine"):
+        super().__init__(engine)
+        # Small stable worker id for the log plane (daemon workers get wids
+        # from their node; pids are recorded separately).
+        self.wid = next(_LOCAL_WID)
+        parent_sock, child_sock = socket.socketpair()
+        env = os.environ.copy()
+        env["RAY_TPU_TORCH_WORKER_FD"] = str(child_sock.fileno())
+        env["RAY_TPU_TORCH_IS_WORKER"] = "1"
+        # The worker imports the package the driver imported, wherever the
+        # driver was started from.
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (_PACKAGE_ROOT, env.get("PYTHONPATH")) if p
+        )
+        # A CUDA device admits contexts from many processes, so by default
+        # a worker sees the driver's devices; worker_device="cpu" hides them
+        # (ROADMAP.md §D22).
+        if self.runtime.config.worker_device == "cpu":
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch._private.worker_main"],
+            pass_fds=[child_sock.fileno()],
+            env=env,
+            stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE,
+        )
+        child_sock.close()
+        # Worker output goes through the log plane, so driver output carries
+        # (worker pid=...) prefixes and `Runtime.logs` holds the lines.
+        from ray_tpu_torch._private.log_aggregation import PipeTailer
+
+        self._tailers = [
+            PipeTailer(pipe.fileno(), stream, self._emit_log)
+            for stream, pipe in (("stdout", self.proc.stdout),
+                                 ("stderr", self.proc.stderr))
+        ]
+        for tailer in self._tailers:
+            tailer.start()
+        self.conn = wire.Connection(parent_sock)
+        native = self.runtime._native_store
+        self.conn.send(
+            "hello",
+            {
+                "store_name": native.name.decode() if native is not None else None,
+                "native_threshold": self.runtime.config.native_store_threshold
+                if native is not None
+                else 0,
+                "node_id": engine.node.node_id,
+                "job_id": self.runtime.job_id.binary(),
+                "driver_task_id": self.runtime.driver_task_id.binary(),
+                "namespace": self.runtime.namespace,
+                "sys_path": [p for p in sys.path if p],
+            },
+        )
+        self._reader = threading.Thread(
+            target=self._read_loop, name=f"pworker-{self.proc.pid}", daemon=True
+        )
+        self._reader.start()
+
+    def _emit_log(self, stream: str, lines: list) -> None:
+        try:
+            self.runtime.logs.append(
+                node_id=self.engine.node.node_id.hex(),
+                hostname="local",
+                wid=self.wid,
+                pid=self.proc.pid,
+                stream=stream,
+                lines=lines,
+            )
+        except Exception:
+            pass
+
     # -- sending tasks -----------------------------------------------------
 
     def _wire_body(self, spec: TaskSpec, grant: dict) -> dict:
         def wrap(value):
             if isinstance(value, ObjectRef):
-                return wire.WireRef(value.id.binary(),
-                                    self.runtime.store.is_native(value.id))
+                return wire.WireRef(value.id.binary(), self._ref_in_native(value.id))
             return value
 
         body = {
@@ -514,14 +574,16 @@ class ProcessWorkerHandle:
                     error=body.get("error"),
                     traceback_str=body.get("tb", ""),
                 )
-        elif kind == "rpc":
-            self.engine.rpc_pool.submit(self._handle_rpc, body)
+        elif kind in ("rpc", "rpc_get"):
+            self.rpc_pool.submit(self._handle_rpc, body)
         elif kind == "incref":
             self._handle_incref(body)
         elif kind == "decref":
             self._handle_decref(body)
         elif kind == "refs":
             self._handle_ref_deltas(body)
+        elif kind == "prefetch":
+            pass  # daemon-level pull hint: meaningless for a head-hosted worker
         elif kind == "pong":
             self.last_pong = time.monotonic()
         elif kind == "ready":
@@ -615,11 +677,7 @@ class ProcessWorkerHandle:
                 spec, self.engine.node, grant, TaskResult(exc=exc)
             )
         self._drop_all_borrows()
-        try:
-            self.proc.kill()
-        except Exception:
-            pass
-        self.reap()
+        self._post_disconnect()
 
     def _seal_native_return(self, spec: TaskSpec, body: dict) -> TaskResult:
         """Adopt a return the worker wrote and sealed into the shm store.
@@ -639,6 +697,16 @@ class ProcessWorkerHandle:
 
     def describe(self) -> str:
         return f"worker process (pid {self.proc.pid})"
+
+    def _ref_in_native(self, oid) -> bool:
+        return self.runtime.store.is_native(oid)
+
+    def _post_disconnect(self) -> None:
+        try:
+            self.proc.kill()
+        except Exception:
+            pass
+        self.reap()
 
     def reap(self, timeout: float = 10.0) -> None:
         """Wait for the killed process to be gone, so its pid and what it

@@ -9,9 +9,12 @@ processes (`isolation="process"`, process_engine.py, watched by the memory
 monitor); the object table stays in this process either way, with large
 values in the native shared-memory store that worker processes map, and
 spill files under memory pressure. A lost value (a missing spill file, shm
-eviction) is rebuilt by re-executing its producing task (lineage). Remote
-nodes, GCS persistence and the dashboard are refused at init (config.py
-`_UNPORTED`).
+eviction) is rebuilt by re-executing its producing task (lineage). Node
+daemons join over TCP (`serve_clients`, remote_node.py), each with its own
+store whose values the head pulls through the object plane, and remote
+drivers connect through the same listener. The control-plane tables persist
+to `gcs_storage_path` (gcs_storage.py). The dashboard is refused at init
+(config.py `_UNPORTED`).
 
 Key invariants preserved from the reference:
   * return ObjectIDs are computed at submission (ownership without coordination);
@@ -148,6 +151,23 @@ class Runtime:
         self.shutting_down = False
         self.namespace = namespace
         self.controller = Controller()
+        # Control-plane persistence: KV + job counter must be restored BEFORE
+        # this session mints its job id; actors/PGs are restored at the end
+        # of init once the scheduler and head node exist.
+        self._gcs_storage = None
+        self._pending_snapshot = None
+        if self.config.gcs_storage_path:
+            from ray_tpu_torch._private.gcs_storage import GcsStorage
+
+            self._gcs_storage = GcsStorage(self.config.gcs_storage_path)
+            self._pending_snapshot = self._gcs_storage.load()
+            if self._pending_snapshot:
+                with self.controller._lock:
+                    self.controller._kv.update(self._pending_snapshot.get("kv", {}))
+                    self.controller._job_counter = max(
+                        self.controller._job_counter,
+                        self._pending_snapshot.get("job_counter", 0),
+                    )
         budget = self.config.object_store_memory or _default_store_budget(self.config)
         # The native store raises here when its library cannot be built or
         # loaded: no runtime starts without the store it was asked for.
@@ -172,6 +192,13 @@ class Runtime:
             spill_storage=self._spill_storage,
             serialize=self.config.serialize_objects,
         )
+        # Multi-machine plane: registered node daemons + the head's half of
+        # the object plane (created lazily when the first node joins).
+        self._node_handles: dict[NodeID, Any] = {}
+        self._object_server = None
+        self._object_fetcher = None
+        self._head_server = None
+        self.store.set_remote_fetch(self._fetch_remote_object)
         # Deferred-deletion reaper (see _on_object_out_of_scope for why the
         # callback itself must never touch the store).
         self._reap_queue: deque = deque()
@@ -209,17 +236,17 @@ class Runtime:
         from ray_tpu_torch._private.task_events import TaskEventBuffer
 
         self.task_events = TaskEventBuffer()
-        # Worker log plane: process workers' pipe tails feed this ring, and
-        # a sink reprints them on the driver (reference: log_monitor.py →
-        # pubsub → worker.py print_logs).
+        # Cross-node worker log plane: engine and daemon pipe tails feed
+        # this ring; sinks reprint on the driver and fan out to remote
+        # clients (reference: log_monitor.py → pubsub → worker.py print_logs).
         from ray_tpu_torch._private.log_aggregation import (
             LogBuffer,
             print_batch_to_driver,
         )
 
-        self.logs = LogBuffer(
-            sink=print_batch_to_driver if self.config.log_to_driver else None
-        )
+        self.logs = LogBuffer()
+        if self.config.log_to_driver:
+            self.logs.add_sink(print_batch_to_driver)
         # User spans shipped home by workers (util/tracing.py traces()).
         self.user_spans: deque = deque(maxlen=10_000)
         from ray_tpu_torch._private.runtime_env import RuntimeEnvManager
@@ -259,6 +286,29 @@ class Runtime:
         from ray_tpu_torch.util.runtime_metrics import RuntimeMetricsSampler
 
         self._metrics_sampler = RuntimeMetricsSampler(self)
+        if self._gcs_storage is not None:
+            from ray_tpu_torch._private.gcs_storage import restore_snapshot
+
+            if self._pending_snapshot:
+                restore_snapshot(self, self._pending_snapshot)
+                self._pending_snapshot = None
+            self._persist_stop = threading.Event()
+            self._persist_thread = threading.Thread(
+                target=self._persist_loop, name="gcs-persist", daemon=True
+            )
+            self._persist_thread.start()
+
+    def _persist_loop(self) -> None:
+        """Debounced control-plane flush (the reference writes GCS tables to
+        Redis asynchronously; a crash loses at most one interval)."""
+        from ray_tpu_torch._private.gcs_storage import build_snapshot
+
+        interval = max(0.5, self.config.health_check_period_s)
+        while not self._persist_stop.wait(interval):
+            try:
+                self._gcs_storage.save(build_snapshot(self))
+            except Exception:
+                pass  # disk hiccup: retry next interval
 
     # ------------------------------------------------------------------ nodes
 
@@ -281,6 +331,126 @@ class Runtime:
         self.controller.retry_pending_placement_groups()
         return node.node_id
 
+    # --------------------------------------------------------- remote nodes
+
+    def register_remote_node(self, handle, reg: dict) -> NodeID:
+        """A node daemon registered over TCP: build its NodeState + engine
+        (GcsNodeManager::HandleRegisterNode; the daemon is the raylet)."""
+        from ray_tpu_torch._private.remote_node import RemoteNodeEngine
+
+        self._ensure_object_plane()
+        resources = {
+            k: float(v) for k, v in (reg.get("resources") or {}).items() if v
+        }
+        node = NodeState(handle.node_id, resources, reg.get("labels"))
+        engine = RemoteNodeEngine(node, self, handle)
+        with self._lock:
+            self.engines[node.node_id] = engine
+            self._node_handles[node.node_id] = handle
+        self.controller.register_node(node)
+        self.controller.retry_pending_placement_groups()
+        self.scheduler.notify()
+        return handle.node_id
+
+    def on_node_disconnected(self, node_id: NodeID) -> None:
+        """Node daemon connection dropped: treat as node death — objects
+        whose only copy lived there become lost (lineage recovery), actors
+        restart elsewhere, dispatched tasks retry."""
+        self.remove_node(node_id)
+
+    def _ensure_object_plane(self) -> None:
+        from ray_tpu_torch._private.object_plane import ObjectFetcher, ObjectServer
+
+        if self._object_fetcher is not None:
+            return
+        head = self._head_server
+        token = head.token if head else ""
+        # Bind where the control plane binds: a loopback-only (or
+        # auth-disabled, trusted-local) head must not silently widen its
+        # exposure through the object plane.
+        host = head.host if head else "127.0.0.1"
+        self._object_fetcher = ObjectFetcher(token)
+        try:
+            self._object_server = ObjectServer(
+                self._object_bytes_provider, token, host=host
+            )
+        except OSError:
+            self._object_server = None
+
+    def _object_bytes_provider(self, oid_bytes: bytes):
+        """Serve this process's copy of an object to a pulling peer."""
+        from ray_tpu_torch._private.object_plane import TAG_ENVELOPE, TAG_PICKLE
+
+        oid = ObjectID(oid_bytes)
+        ns = self._native_store
+        if ns is not None:
+            view = ns.get_raw(oid)
+            if view is not None:
+                # Serve straight from shm: the object server sendall()s the
+                # live view and releases the pin afterwards — no heap copy,
+                # memory bounded regardless of object size.
+                return (TAG_ENVELOPE, view, lambda: ns.release(oid))
+        data = self.store.get_serialized(oid)
+        if data is not None:
+            return (TAG_PICKLE, data)
+        try:
+            if self.store.contains(oid) and self.store.location_of(oid) is None:
+                value = self.store.get(oid, timeout=0)
+                return (TAG_PICKLE, cloudpickle.dumps(value, protocol=5))
+        except Exception:
+            return None
+        return None
+
+    def _fetch_remote_object(self, oid: ObjectID, node_id: NodeID):
+        """Pull a remotely-located object's bytes from the holding node's
+        object server and cache them locally (the head-side PullManager)."""
+        from ray_tpu_torch._private import native_store as native_mod
+        from ray_tpu_torch._private.object_plane import TAG_ENVELOPE
+
+        # Try every known holder (producer first, then cached copies): a
+        # dead producer doesn't lose the object while any node still holds
+        # a pulled copy.
+        candidates = [node_id] + [
+            n for n in self.store.locations_of(oid) if n != node_id
+        ]
+        fetched = None
+        last_exc: Exception | None = None
+        for candidate in candidates:
+            handle = self._node_handles.get(candidate)
+            if handle is None or not handle.alive or not handle.object_addr:
+                continue
+            try:
+                fetched = self._object_fetcher.fetch(
+                    handle.object_addr, oid.binary()
+                )
+            except (ConnectionError, OSError) as exc:
+                last_exc = exc
+                continue
+            if fetched is not None:
+                break
+        if fetched is None:
+            raise ObjectLostError(
+                oid,
+                f"Object {oid} could not be pulled from any holder "
+                f"{[str(c) for c in candidates]}"
+                + (f" (last error: {last_exc})" if last_exc else ""),
+            )
+        tag, data = fetched
+        if tag == TAG_ENVELOPE:
+            ns = self._native_store
+            if ns is not None:
+                try:
+                    ns.put_raw(oid, data)
+                    self.store.adopt_fetched_native(oid)
+                except Exception:
+                    pass  # shm full: serve this read, stay remote-located
+            return native_mod.decode_envelope(data)
+        from ray_tpu_torch._private.wire import loads_value
+
+        value = loads_value(data)
+        self.store.adopt_fetched(oid, None, pickled=data)
+        return value
+
     def _on_object_out_of_scope(self, oid: ObjectID) -> None:
         """Out-of-scope callback fires from ObjectRef.__del__, which the
         cyclic GC can run at ANY allocation — including on a thread that
@@ -291,7 +461,8 @@ class Runtime:
         self._reap_event.set()
 
     def _reaper_loop(self) -> None:
-        """Processes deferred object deletions."""
+        """Processes deferred object deletions: notifies the holding node
+        daemon (if the bytes live remotely) and drops the local entry."""
         while True:
             self._reap_event.wait()
             if self.shutting_down:
@@ -303,9 +474,65 @@ class Runtime:
                 except IndexError:
                     break
                 try:
+                    location = self.store.location_of(oid)
+                    if location is not None:
+                        handle = self._node_handles.get(location)
+                        if handle is not None and handle.alive:
+                            try:
+                                handle.conn.send(
+                                    "delete_objects", {"oids": [oid.binary()]}
+                                )
+                            except Exception:
+                                pass
                     self.store.delete([oid])
                 except Exception:
                     pass  # a single bad entry must not stop the reaper
+
+    def remove_node(self, node_id: NodeID) -> None:
+        """Simulate node failure: actors die (and maybe restart elsewhere);
+        dispatched tasks are treated as system failures (retry or lost)."""
+        node = self.controller.remove_node(node_id)
+        with self._lock:
+            engine = self.engines.pop(node_id, None)
+            companion = self._companions.pop(node_id, None)
+            node_handle = self._node_handles.pop(node_id, None)
+        if companion is not None:
+            companion.shutdown()
+        if node_handle is not None:
+            # Objects whose only bytes lived on that node are lost — but
+            # leave their entries sealed+located: the next read's fetch
+            # raises ObjectLostError (dead node), which is what triggers
+            # lineage recovery. Unsealing here would block readers forever.
+            node_handle.alive = False
+            # Cached copies on the dead node must stop being advertised.
+            self.store.drop_node_locations(node_id)
+        if engine is None:
+            return
+        # Collect this node's actors before shutdown kills them. Snapshot
+        # under the lock: other threads add/remove executors under it, and
+        # items() over a resizing dict raises (found by lint RTL201).
+        with self._lock:
+            doomed_actors = [
+                (aid, ex) for aid, ex in self.actor_executors.items()
+                if ex.node.node is node
+            ]
+        engine.shutdown()
+        for actor_id, executor in doomed_actors:
+            with self._lock:
+                self.actor_executors.pop(actor_id, None)
+                self._actor_grants.pop(actor_id, None)
+            self._handle_actor_death(actor_id, "node died", allow_restart=True)
+        # Fail or retry dispatched-but-unfinished normal tasks.
+        with self._lock:
+            records = [
+                r
+                for r in self._task_records.values()
+                if r.node_id == node_id and r.dispatched and not r.finalized
+                and r.spec.kind == TaskKind.NORMAL
+            ]
+        for record in records:
+            self._system_failure(record, ObjectLostError(reason="node died"))
+        self.scheduler.notify()
 
     # ------------------------------------------------------------------ utils
 
@@ -1227,6 +1454,22 @@ class Runtime:
         for oid, item in zip(spec.return_ids, value):
             self.store.seal(oid, item)
 
+    def serve_clients(
+        self, host: str = "127.0.0.1", port: int = 0, token: Optional[str] = None
+    ) -> str:
+        """Expose the control plane over TCP for node daemons and remote
+        drivers (ray_tpu_torch.init(address=...)). Returns the bound address,
+        which carries the auth token ("host:port?token=<hex>"). token=None
+        generates one unless RAY_TPU_TORCH_CLIENT_TOKEN is set (the
+        cross-machine deployment path: export the same value on every host);
+        token="" disables auth."""
+        from ray_tpu_torch._private.head_server import HeadServer
+
+        if token is None:
+            token = os.environ.get("RAY_TPU_TORCH_CLIENT_TOKEN") or None
+        self._head_server = HeadServer(self, host, port, token=token)
+        return self._head_server.address
+
     # ------------------------------------------------------------- shutdown
 
     def shutdown(self) -> None:
@@ -1234,6 +1477,24 @@ class Runtime:
         if self._metrics_sampler is not None:
             self._metrics_sampler.stop()
             self._metrics_sampler = None
+        if self._head_server is not None:
+            try:
+                self._head_server.stop()
+            except Exception:
+                pass
+            self._head_server = None
+        if self._gcs_storage is not None:
+            from ray_tpu_torch._private.gcs_storage import build_snapshot
+
+            # Stop + join the persist thread BEFORE the final save, so a
+            # racing tick can't overwrite the good snapshot with one taken
+            # mid-teardown (detached actors would read as DEAD and be lost).
+            self._persist_stop.set()
+            self._persist_thread.join(timeout=5.0)
+            try:
+                self._gcs_storage.save(build_snapshot(self))
+            except Exception:
+                pass
         self.shutting_down = True
         self._reap_event.set()  # release the reaper thread
         if self.memory_monitor is not None:
@@ -1243,8 +1504,16 @@ class Runtime:
             engines = list(self.engines.values()) + list(self._companions.values())
             self.engines.clear()
             self._companions.clear()
+            self._node_handles.clear()
         for engine in engines:
             engine.shutdown()
+        if self._object_server is not None:
+            try:
+                self._object_server.stop()
+            except Exception:
+                pass
+        if self._object_fetcher is not None:
+            self._object_fetcher.close()
         self._background.shutdown(wait=False, cancel_futures=True)
         if self._native_store is not None:
             try:

@@ -10,6 +10,11 @@ socket (ordering is load-bearing: incref frames must land before the task's
 
 Frame = [u32 little-endian length][u8 kind_len][kind utf-8][pickled body].
 
+The kind rides OUTSIDE the pickle so intermediaries can route frames
+without deserializing them: a node daemon muxing worker frames to the head
+peeks the kind (`recv_raw`) and forwards the body bytes verbatim, so the
+body is pickled once (worker) and unpickled once (head).
+
 Values of at least `native_store_threshold` returned by a task, and
 arguments passed by reference to such values, cross through the native
 shared-memory store (native_store.py); everything else crosses as frame
@@ -65,19 +70,21 @@ def encode_frame_from_bytes(kind: str, body_bytes: bytes) -> bytes:
 
 # Driver -> worker kinds: hello, run_task, create_actor, actor_call, kill,
 #                         rpc_reply
-# Worker -> driver kinds: ready, done, stream_item, rpc, incref, decref
+# Worker -> driver kinds: ready, done, stream_item, rpc, rpc_get, prefetch,
+#                         incref, decref, refs
 
 
 class CUDAUnavailableError(RuntimeError):
     """A pickled CUDA tensor reached a process that sees no CUDA device."""
 
 
-def loads_value(data: bytes) -> Any:
-    """Unpickle a value that crossed the boundary. Torch pickles a CUDA
-    tensor through host bytes tagged with its device index and rebuilds it
-    there; a process whose CUDA devices are hidden cannot, and says so."""
+def loads_value(data: bytes, buffers=None) -> Any:
+    """Unpickle a value that crossed the boundary (with the out-of-band
+    `buffers` of a store envelope, when given). Torch pickles a CUDA tensor
+    through host bytes tagged with its device index and rebuilds it there; a
+    process whose CUDA devices are hidden cannot, and says so."""
     try:
-        return cloudpickle.loads(data)
+        return cloudpickle.loads(data, buffers=buffers)
     except RuntimeError as exc:
         if "deserialize object on a CUDA device" not in str(exc):
             raise
@@ -117,6 +124,37 @@ class Connection:
         to skip the frame or declare the peer dead — user data never rides
         raw in frames (func/args/values are nested pre-pickled bytes), so a
         decode error here means genuine protocol corruption."""
+        frame = self._recv_frame()
+        if frame is None:
+            return None
+        kind, body = frame
+        if body is None:
+            return ("__decode_error__", {"error": "malformed frame envelope"})
+        try:
+            return kind, cloudpickle.loads(body)
+        except Exception as exc:  # noqa: BLE001 — undecodable payload
+            return ("__decode_error__", {"error": repr(exc), "kind": kind})
+
+    def recv_raw(self) -> Optional[tuple[str, bytes]]:
+        """Blocking read of one frame WITHOUT deserializing the body:
+        (kind, body_bytes), or None on EOF. Relays (a node daemon muxing its
+        workers' frames to the head) route on the kind and forward the bytes
+        untouched."""
+        frame = self._recv_frame()
+        if frame is None:
+            return None
+        kind, body = frame
+        if body is None:
+            # Unparseable envelope: an unloadable body, so recv() on the
+            # far side of a relay reports it as a decode error too.
+            return ("__decode_error__", cloudpickle.dumps({
+                "error": "malformed frame envelope"
+            }))
+        return kind, bytes(body)
+
+    def _recv_frame(self) -> Optional[tuple[str, Optional[memoryview]]]:
+        """(kind, view of the body) of one frame; body None for a malformed
+        envelope; None on EOF."""
         header = self._recv_exact(_LEN.size)
         if header is None:
             return None
@@ -128,11 +166,8 @@ class Connection:
             (klen,) = _KLEN.unpack_from(payload, 0)
             kind = bytes(payload[1:1 + klen]).decode("utf-8")
         except Exception:
-            return ("__decode_error__", {"error": "malformed frame envelope"})
-        try:
-            return kind, cloudpickle.loads(memoryview(payload)[1 + klen:])
-        except Exception as exc:  # noqa: BLE001 — undecodable payload
-            return ("__decode_error__", {"error": repr(exc), "kind": kind})
+            return ("__decode_error__", None)
+        return kind, memoryview(payload)[1 + klen:]
 
     def _recv_exact(self, n: int) -> Optional[bytearray]:
         """Exactly n bytes, read into one buffer of that size (a frame may

@@ -22,7 +22,8 @@ Start-up imports neither torch nor numpy: a task pays for torch when it uses
 it, so a worker that runs plain Python starts in a fraction of a second.
 
 Run as `python -m ray_tpu_torch._private.worker_main` with the socket's fd
-in RAY_TPU_TORCH_WORKER_FD (process_engine does this).
+in RAY_TPU_TORCH_WORKER_FD (process_engine does this, and so does a node
+daemon, node_daemon.py, for the workers it hosts).
 """
 
 from __future__ import annotations
@@ -265,6 +266,16 @@ class WorkerProxyRuntime:
         return self._refs_from_reply([reply["oid"]])[0]
 
     def get(self, refs: list, timeout: Optional[float]) -> list[Any]:
+        if len(refs) > 1:
+            # Multi-ref get: hint the node daemon (fire-and-forget) so all
+            # cross-node pulls start NOW and their location lookups coalesce
+            # into one batched loc_sub frame; the serial reads below then hit
+            # the local store. Head-hosted workers and the head's client
+            # handles ignore the frame.
+            self._send_quiet(
+                "prefetch",
+                {"oids": [r.id.binary() for r in refs], "timeout": timeout},
+            )
         return [self._get_one(ref.id, timeout) for ref in refs]
 
     def _get_one(self, oid: ObjectID, timeout: Optional[float]) -> Any:
@@ -285,7 +296,16 @@ class WorkerProxyRuntime:
             reply = self.rpc(
                 "get_by_id", {"oid": oid.binary(), "timeout": timeout, "force_value": True}
             )
-        return self._raise_if_error(wire.loads_value(reply["value_pickled"]))
+        if "envelope" in reply:
+            # Raw store-envelope bytes served by the local node daemon (a
+            # worker without a shm attach still reads node-local objects
+            # without a head round trip).
+            from ray_tpu_torch._private.native_store import decode_envelope
+
+            value = decode_envelope(reply["envelope"])
+        else:
+            value = wire.loads_value(reply["value_pickled"])
+        return self._raise_if_error(value)
 
     @staticmethod
     def _raise_if_error(value: Any) -> Any:
@@ -458,7 +478,13 @@ class Worker:
             event = threading.Event()
             slot: dict = {}
             self._rpc_waiters[msg_id] = (event, slot)
-        self.conn.send("rpc", {"id": msg_id, "method": method, "payload": payload})
+        # get_by_id rides its own frame KIND: node daemons intercept it for
+        # the local-store fast path by looking at the envelope alone — every
+        # other rpc body (put values, task args) relays undecoded.
+        frame_kind = "rpc_get" if method == "get_by_id" else "rpc"
+        self.conn.send(
+            frame_kind, {"id": msg_id, "method": method, "payload": payload}
+        )
         event.wait()
         if slot.get("dead"):
             raise ConnectionError("driver connection lost")

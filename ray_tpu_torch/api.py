@@ -31,36 +31,65 @@ def init(
     resources: Optional[dict[str, float]] = None,
     namespace: str = "default",
     ignore_reinit_error: bool = False,
+    client_server_port: Optional[int] = None,
     _system_config: Optional[dict] = None,
 ) -> Runtime:
-    """Start the runtime with one (head) node.
+    """Start the runtime with one (head) node, or connect to a remote one.
 
     The control plane lives in this process, and the workers too, as
     threads, unless ``_system_config={"isolation": "process"}`` makes them
     OS processes; ``GPU`` counts the visible CUDA devices unless
-    ``num_gpus`` says otherwise. Connecting to a remote head
-    (``address=``) is not ported.
+    ``num_gpus`` says otherwise. ``client_server_port=`` also listens on
+    TCP for node daemons (``python -m ray_tpu_torch._private.node_daemon``)
+    and remote drivers, and prints the connect string.
+
+    ``address="host:port?token=..."`` connects this process as a remote
+    driver to such a head (the ray-client analog, reference:
+    python/ray/util/client/): the returned proxy serves the full
+    task/actor/object API over the wire protocol, and the process runs no
+    runtime of its own.
     """
-    if address is not None:
-        raise NotImplementedError(
-            "init(address=...): remote drivers and the client server "
-            "(client, head_server, remote_node) are not ported "
-            "(ROADMAP.md §B10)"
-        )
     if runtime_mod._RUNTIME is not None:
         if ignore_reinit_error:
             return runtime_mod._RUNTIME
         raise RuntimeError(
             "ray_tpu_torch.init() called twice; pass ignore_reinit_error=True"
         )
+    if address is not None:
+        ignored = {
+            "num_cpus": num_cpus,
+            "num_gpus": num_gpus,
+            "resources": resources,
+            "client_server_port": client_server_port,
+            "_system_config": _system_config,
+        }
+        bad = [k for k, v in ignored.items() if v is not None]
+        if bad:
+            raise ValueError(
+                f"init(address=...) connects to an existing head; {bad} "
+                "only apply when starting a local runtime"
+            )
+        from ray_tpu_torch._private.client import connect
+
+        proxy = connect(address, namespace=namespace)
+        runtime_mod._RUNTIME = proxy
+        return proxy
     node_resources = dict(resources or {})
     node_resources["CPU"] = float(num_cpus if num_cpus is not None else (os.cpu_count() or 1))
     gpus = float(num_gpus if num_gpus is not None else _detect_num_gpus())
     if gpus:
         node_resources["GPU"] = gpus
-    return Runtime(
+    runtime = Runtime(
         resources=node_resources, system_config=_system_config, namespace=namespace
     )
+    if client_server_port is not None:
+        connect_address = runtime.serve_clients(port=client_server_port)
+        # Surface the credentialed connect string — the auto-generated auth
+        # token lives only in this address (or RAY_TPU_TORCH_CLIENT_TOKEN on
+        # both sides), so remote drivers have no other way to obtain it.
+        print(f"ray_tpu_torch client server listening; connect with "
+              f'ray_tpu_torch.init(address="{connect_address}")')
+    return runtime
 
 
 def is_initialized() -> bool:

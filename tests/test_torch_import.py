@@ -74,6 +74,9 @@ _GATE = textwrap.dedent(
         importlib.import_module(name)
     for name in ("store", "affinity", "disagg"):
         assert f"ray_tpu_torch.llm.kvfabric.{name}" in names, name
+    for name in ("gcs_storage", "object_plane", "head_server", "remote_node",
+                 "node_daemon", "client"):
+        assert f"ray_tpu_torch._private.{name}" in names, name
     importlib.import_module("chip_smoke")
     # The native store's library is the port's own build, from inside the
     # package, and the reference's libtpustore is never mapped.
@@ -182,3 +185,92 @@ def test_static_scan_sees_function_local_imports(tmp_path, source, want):
     path = tmp_path / "mod.py"
     path.write_text(source)
     assert blocked_imports(str(path)) == want
+
+
+# Every process the port starts sees this hook first (sitecustomize on
+# PYTHONPATH, which worker processes and node daemons inherit): an import of
+# a blocked name anywhere fails that process.
+_SITE_GATE = textwrap.dedent(
+    """
+    import importlib.abc, sys
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+
+    class Gate(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Gate())
+    """
+)
+
+_CLIENT = textwrap.dedent(
+    """
+    import sys
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(address=sys.argv[1])
+    f = ray_tpu_torch.remote(lambda: 7)
+    assert ray_tpu_torch.get(f.options(resources={"gated": 1}).remote(), timeout=60) == 7
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ray_tpu"))
+    assert not bad, bad
+    ray_tpu_torch.shutdown()
+    print("CLIENT_CLEAN")
+    """
+)
+
+_CLUSTER = textwrap.dedent(
+    """
+    import os, subprocess, sys, time
+    import ray_tpu_torch
+
+    def leaked():
+        import sys
+        return sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ray_tpu"))
+
+    rt = ray_tpu_torch.init(num_cpus=1, num_gpus=0, _system_config={
+        "isolation": "process", "worker_device": "cpu"})
+    address = rt.serve_clients(port=0)
+    daemon = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch._private.node_daemon",
+                               "--address", address, "--num-cpus", "1",
+                               "--resources", '{"gated": 1}',
+                               "--object-store-memory", str(64 << 20)])
+    try:
+        deadline = time.monotonic() + 60
+        while len(rt.controller.alive_nodes()) < 2:
+            assert time.monotonic() < deadline and daemon.poll() is None
+            time.sleep(0.05)
+        task = ray_tpu_torch.remote(lambda: (os.getppid(), leaked()))
+        ppid, names = ray_tpu_torch.get(
+            task.options(resources={"gated": 1}).remote(), timeout=60)
+        assert ppid == daemon.pid and names == [], (ppid, names)
+        out = subprocess.run([sys.executable, "-c", sys.argv[1], address],
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0 and "CLIENT_CLEAN" in out.stdout, out.stderr
+        assert leaked() == []
+    finally:
+        ray_tpu_torch.shutdown()
+        daemon.wait(timeout=30)
+    print("CLUSTER_CLEAN")
+    """
+)
+
+
+def test_daemon_and_client_processes_import_no_jax_or_ray_tpu(tmp_path):
+    """A head, a node daemon, a task in the daemon's worker and a remote
+    driver client, every process under the import hook: none imports jax or
+    anything of ray_tpu, and neither the worker nor the client has such a
+    module in sys.modules."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITE_GATE)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join((str(site), REPO)))
+    env.pop("RAY_TPU_TORCH_STORE_LIB", None)
+    proc = subprocess.run([sys.executable, "-c", _CLUSTER, _CLIENT], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "CLUSTER_CLEAN" in proc.stdout

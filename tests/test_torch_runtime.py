@@ -142,23 +142,42 @@ def test_placement_groups(both):
 
 def test_refused_features_name_their_slice():
     """What the port does not construct yet is refused, never run reduced:
-    remote drivers, GCS persistence, the dashboard. Worker processes, the
-    memory monitor, the native store and spilling are ported: an actor
-    asking for isolation="process" on this thread runtime runs in a process
-    of its own, a memory_usage_threshold is accepted, and so are both store
-    flags (on by default) with their threshold and directory."""
+    the dashboard, and worker prestart. GCS persistence and remote drivers
+    are ported: a gcs_storage_path is accepted (and written at shutdown),
+    and init(address=...) connects, failing as a connection does when no
+    head listens there. Worker processes, the memory monitor, the native
+    store and spilling are ported: an actor asking for isolation="process"
+    on this thread runtime runs in a process of its own, a
+    memory_usage_threshold is accepted, and so are both store flags (on by
+    default) with their threshold and directory."""
     import os
+    import socket
+    import tempfile
 
     for config, match in (
-        ({"gcs_storage_path": "/nonexistent"}, "GCS persistence"),
         ({"include_dashboard": True}, "dashboard"),
         ({"prestart_workers": False}, "prestart"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             ray_tpu_torch.init(num_cpus=1, _system_config=config)
         assert not ray_tpu_torch.is_initialized()
-    with pytest.raises(NotImplementedError, match="remote drivers"):
-        ray_tpu_torch.init(address="127.0.0.1:1")
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "gcs.snap")
+        rt = ray_tpu_torch.init(num_cpus=1, num_gpus=0,
+                                _system_config={"gcs_storage_path": snap})
+        try:
+            assert rt.config.gcs_storage_path == snap
+            assert rt.config.head_restart_grace_s == 60.0
+        finally:
+            ray_tpu_torch.shutdown()
+        assert os.path.exists(snap)
+    free = socket.socket()
+    free.bind(("127.0.0.1", 0))
+    port = free.getsockname()[1]
+    free.close()  # nothing listens on it now
+    with pytest.raises(ConnectionError):
+        ray_tpu_torch.init(address=f"127.0.0.1:{port}")
+    assert not ray_tpu_torch.is_initialized()
     for config in ({}, {"native_store_enabled": True, "object_spilling_enabled": True,
                         "native_store_threshold": 1 << 20, "object_spill_directory": ""},
                    {"native_store_enabled": False, "object_spilling_enabled": False}):
@@ -203,3 +222,33 @@ def test_import_and_init_create_no_cuda_context():
                           text=True, timeout=120, cwd=repo,
                           env=dict(os.environ, PYTHONPATH=repo))
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_node_daemon_refuses_to_run_without_its_store(tmp_path):
+    """No hidden fallback in the daemon (ROADMAP.md §D27): a node daemon
+    whose store library cannot be loaded exits non-zero before it joins,
+    naming the failure, as init() does (§D25); the reference's daemon
+    quietly runs without a store and then without an object server
+    (ray_tpu/_private/node_daemon.py:246-265)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    runtime = ray_tpu_torch.init(num_cpus=1, num_gpus=0)
+    try:
+        address = runtime.serve_clients(port=0)
+        env = dict(os.environ, RAY_TPU_TORCH_STORE_LIB=str(tmp_path / "missing.so"),
+                   PYTHONPATH=os.pathsep.join(
+                       p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+        proc = subprocess.run(
+            [sys.executable, "-m", "ray_tpu_torch._private.node_daemon",
+             "--address", address, "--num-cpus", "1"],
+            env=env, capture_output=True, text=True, timeout=60)
+        out = proc.stdout + proc.stderr
+        assert proc.returncode != 0, out
+        assert "loading the native store" in out and "missing.so" in out
+        assert "node daemon up" not in out
+        assert len(runtime.controller.alive_nodes()) == 1  # never joined
+    finally:
+        ray_tpu_torch.shutdown()
