@@ -292,15 +292,42 @@ Phases, each fatal on failure:
      SIGKILLed processes' own segments listed and removed), and the card's
      memory back within LEFT_LIMIT_MIB of the phase's start. `[nodes]`
      lines.
+ 21. cluster — the dashboard and cluster tooling (dashboard/,
+     autoscaler/, util/state/, job_submission.py, scripts/cli.py): a head
+     in this process with isolation="process", no GPU, include_dashboard
+     on a free port, serve_clients(port=0) and an autoscaler Monitor over
+     a SubprocessNodeProvider whose one node type is {"CPU": 4, "GPU": 1};
+     (a) a GPT-2 125M server actor at 0.5 GPU, infeasible on the head,
+     makes the monitor launch one node daemon, and comes up under it
+     (demand to launch, launch to the daemon's welcome, welcome to the
+     first token); a task that imports torch leaves a worker in the
+     node's pool; the 8 prompts, each alone from an empty prefix cache,
+     token-identical to phase 20's, with phase 20's launches (K1, K2
+     counted in the daemon's worker); (b) every dashboard route answers
+     200 (its latency printed): two alive nodes, one with GPU 1; the
+     server on the daemon's node; /api/llm's live engine, its decode
+     tokens what (a) generated; a marker the server's worker printed in
+     /api/logs; two history samples; the ray_tpu_* gauges in /metrics;
+     (c) a job submitted with JobSubmissionClient, whose entrypoint
+     connects with init(address=...) and runs phase 20's train (0.5 GPU,
+     on the daemon): SUCCEEDED, its loss line in its log, losses bit for
+     bit and launches (K4-K7) equal to phase 20's; meanwhile the CLI
+     (`job status`, `logs --address`, `top --url`) as processes, each
+     exit 0; (d) the server killed, the idle daemon terminated within the
+     idle timeout plus two update intervals, its workers gone, the node
+     DEAD in /api/nodes, the card's used memory back within
+     LEFT_LIMIT_MIB of the phase's start; (e) no daemon, worker, job
+     process or /dev/shm/ray_tpu_torch_* segment left. `[cluster]` lines.
 After each teardown (serve, every loadgen cell, loadgen, fabric, moe, each
-tune fit(), each rllib and rllib_algos part, each data fit(), store, nodes) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
+tune fit(), each rllib and rllib_algos part, each data fit(), store, nodes,
+cluster) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
 its figure before the run; beyond it the script prints what holds the
 memory (`_card_holders`) and fails.
 Before the last two lines, a `[phases]` line gives each phase's wall
 seconds. The last two lines are the kernels JSON (K1's, K2's, K3's, K6's and K7's
 entries also carry their launches on every later path, `launches_by_path`, the
-rllib and data resnet paths' zeros among them, and the procs and nodes paths
-counted in the worker processes) and the
+rllib and data resnet paths' zeros among them, and the procs, nodes and
+cluster paths counted in the worker processes) and the
 {"ok": true, ...} contract.
 """
 
@@ -6216,8 +6243,8 @@ class _Lines:
     its arrival time on this host's clock (perf_counter), echoed with the
     child's tag."""
 
-    def __init__(self, proc, tag: str):
-        self.proc, self.tag = proc, tag
+    def __init__(self, proc, tag: str, phase: str = "nodes"):
+        self.proc, self.tag, self.phase = proc, tag, phase
         self.lines: list = []
         self._cond = threading.Condition()
         threading.Thread(target=self._pump, daemon=True).start()
@@ -6225,7 +6252,7 @@ class _Lines:
     def _pump(self) -> None:
         for line in self.proc.stdout:
             line = line.rstrip("\n")
-            log(f"[nodes] ({self.tag}) {line}")
+            log(f"[{self.phase}] ({self.tag}) {line}")
             with self._cond:
                 self.lines.append((line, time.perf_counter()))
                 self._cond.notify_all()
@@ -6242,7 +6269,7 @@ class _Lines:
                         return line, at
                 left = deadline - time.perf_counter()
                 if left <= 0 or (self.proc.poll() is not None and left < timeout - 2):
-                    fail(f"[nodes] ({self.tag}) no {prefix!r} line (exit code "
+                    fail(f"[{self.phase}] ({self.tag}) no {prefix!r} line (exit code "
                          f"{self.proc.poll()})")
                 self._cond.wait(timeout=min(left, 0.5))
 
@@ -6335,13 +6362,13 @@ def _serve_prompts(actor, prompts, n_new) -> tuple:
     return tokens, ray_tpu_torch.get(actor.counts.remote(), timeout=NODES_TIMEOUT_S), wall
 
 
-def _nodes_tokens_ok(tokens, want, launches, tag: str) -> None:
+def _nodes_tokens_ok(tokens, want, launches, tag: str, phase: str = "nodes") -> None:
     if tokens != want:
         bad = [i for i, (g, w) in enumerate(zip(tokens, want)) if g != w]
-        fail(f"[nodes] {tag}: prompts {bad} differ from the server phase's tokens")
+        fail(f"[{phase}] {tag}: prompts {bad} differ from the server phase's tokens")
     for name in ("K1 paged_attention", "K2 flash_fwd"):
         if launches[name] <= 0:
-            fail(f"[nodes] {tag}: {name} was not launched in the actor: {launches}")
+            fail(f"[{phase}] {tag}: {name} was not launched in the actor: {launches}")
 
 
 def _nodes_head(argv) -> int:
@@ -6918,6 +6945,402 @@ def phase_nodes(device_info: dict, server: dict, procs: dict, stored: dict) -> d
     return summary
 
 
+# The cluster phase (21): the dashboard, the autoscaler over node daemons,
+# a submitted job and the CLI, around a GPT-2 125M server on an autoscaled
+# GPU node.
+CLUSTER_GPU = 0.5
+CLUSTER_ENGINE = "llm_engine:cluster_gpt2"
+CLUSTER_NODE_TYPE = {"resources": {"CPU": 4, "GPU": 1}, "min_workers": 0, "max_workers": 1,
+                     "object_store_memory": NODES_STORE_BYTES}
+CLUSTER_IDLE_S = 3.0
+CLUSTER_UPDATE_S = 1.0
+CLUSTER_TIMEOUT_S = 300.0
+CLUSTER_ROUTES = ("/", "/api/cluster", "/api/nodes", "/api/tasks", "/api/actors",
+                  "/api/objects", "/api/placement_groups", "/api/task_summary", "/api/logs",
+                  "/api/timeline", "/api/traces", "/api/metrics_history", "/api/llm",
+                  "/api/fleet", "/api/serve", "/api/train", "/metrics")
+
+
+class _ClusterServer(_GPTServerActor):
+    """Phase 20's server actor as a named LLM engine actor
+    (`llm_engine:<name>`), which the dashboard's /api/llm and /api/fleet
+    panels read; `shout` prints a line on its worker's stdout."""
+
+    def metrics(self) -> dict:
+        return self.server.metrics()
+
+    def observability_snapshot(self, steps_limit=None) -> dict:
+        return self.server.observability_snapshot(steps_limit)
+
+    def shout(self, marker: str) -> int:
+        print(marker, flush=True)
+        return os.getpid()
+
+
+def _cluster_provider(runtime):
+    """A SubprocessNodeProvider whose daemons' output is read (the `node
+    daemon up` line marks the head's welcome) and whose launches and
+    terminations are stamped on this host's clock."""
+    from ray_tpu_torch.autoscaler import SubprocessNodeProvider
+    from ray_tpu_torch.autoscaler.node_provider import daemon_argv
+
+    class Provider(SubprocessNodeProvider):
+        def __init__(self, rt):
+            super().__init__(rt)
+            self.launched, self.terminated = [], []
+
+        def _launch(self, address, resources, labels, type_config):
+            cmd = [sys.executable, "-m", "ray_tpu_torch._private.node_daemon",
+                   *daemon_argv(address, resources, labels, type_config)]
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, cwd=_ROOT, env=_nodes_env(), text=True,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            self.launched.append({"t0": t0, "proc": proc, "cmd": cmd[3:],
+                                  "lines": _Lines(proc, "node", "cluster")})
+            return {"proc": proc}
+
+        def terminate_node(self, node_id):
+            self.terminated.append(time.perf_counter())
+            super().terminate_node(node_id)
+
+    return Provider(runtime)
+
+
+def _cluster_train(tokens, cfg, steps: int, device: str) -> dict:
+    """Phase 20's train step, in a task of the job: its losses and this
+    worker's launches, without the parameters."""
+    out = _procs_train(tokens, cfg, steps, device, os.devnull)
+    del out["params"]
+    out["ppid"] = os.getppid()
+    return out
+
+
+def _cluster_job(argv) -> int:
+    """(c)'s job entrypoint, which the job's supervisor runs as `python -c
+    'import chip_smoke; ...' ADDRESS` from the repository root: a remote
+    driver of the head that submitted it (init(address=...)), which runs
+    phase 20's train at CLUSTER_GPU (so on the autoscaled node: the head
+    has no GPU) and prints `CLUSTER job {json}`."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(address=argv[0])
+    connect_s = time.perf_counter() - t0
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ray_tpu"))
+    train = ray_tpu_torch.remote(_cluster_train).options(num_gpus=CLUSTER_GPU,
+                                                        name="cluster_job_train")
+    tokens = _procs_make_tokens(0, TRAIN_B, TRAIN_S + 1)
+    t1 = time.perf_counter()
+    out = ray_tpu_torch.get(train.remote(tokens, gpt2_125m(), TRAIN_STEPS, "cuda"),
+                            timeout=CLUSTER_TIMEOUT_S)
+    out.update(connect_s=connect_s, train_call_s=time.perf_counter() - t1,
+               job_pid=os.getpid(), job_id=os.environ.get("RAY_TPU_TORCH_JOB_ID"),
+               leaked_modules=leaked)
+    ray_tpu_torch.shutdown()
+    print("CLUSTER job " + json.dumps(out), flush=True)
+    return 0
+
+
+def _cluster_scale_up(runtime, provider, monitor, prompts, want, want_launches,
+                      pids: set, card: str) -> tuple:
+    """(a) The server actor at CLUSTER_GPU, infeasible on the GPU-less
+    head: the monitor launches one daemon, the actor comes up under it. A
+    task that imports torch leaves a worker in the node's pool. The first
+    token, then the 8 prompts with the actor's counters set to 0 just
+    before and read just after."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    t0 = time.perf_counter()
+    actor = ray_tpu_torch.remote(_ClusterServer).options(
+        name=CLUSTER_ENGINE, num_gpus=CLUSTER_GPU).remote(gpt2_125m(), _engine_config(), "cuda")
+    warm = ray_tpu_torch.remote(_nodes_warm).options(num_gpus=0.01).remote()
+    _until(lambda: provider.launched, "a node launched", 60.0, phase="cluster")
+    launch = provider.launched[0]
+    _, welcome_at = launch["lines"].wait("node daemon up", CLUSTER_TIMEOUT_S)
+    info = ray_tpu_torch.get(actor.info.remote(), timeout=CLUSTER_TIMEOUT_S)
+    up_at = time.perf_counter()
+    base = ray_tpu_torch.get(actor.metrics.remote(), timeout=CLUSTER_TIMEOUT_S)["decode_tokens"]
+    first = ray_tpu_torch.get(actor.generate.remote(0, prompts[0], 1), timeout=CLUSTER_TIMEOUT_S)
+    first_at = time.perf_counter()
+    pooled = ray_tpu_torch.get(warm, timeout=CLUSTER_TIMEOUT_S)
+    marker = f"cluster server marker {info['pid']}"
+    ray_tpu_torch.get(actor.shout.remote(marker), timeout=CLUSTER_TIMEOUT_S)
+    tokens, launches, wall = _serve_prompts(actor, prompts, NODES_N_NEW)
+    node = next(n for n in runtime.controller.alive_nodes() if n.total.get("GPU"))
+    pids.update((info["pid"], pooled["pid"]))
+    out = {"demand_to_launch_s": launch["t0"] - t0, "launch_to_welcome_s": welcome_at - launch["t0"],
+           "welcome_to_first_token_s": first_at - welcome_at, "actor_up_s": up_at - t0,
+           "daemon": {"pid": launch["proc"].pid, "argv": launch["cmd"]},
+           "node": {"id": node.node_id.hex(), "total": dict(node.total)},
+           "actor": info, "pooled_worker": pooled, "launches_by_monitor": monitor.autoscaler.num_launches,
+           "first_token": first[1], "wall_s": wall,
+           "tokens_per_s": NODES_N_NEW * len(prompts) / wall, "token_identical": tokens == want,
+           "launches": launches, "phase20_launches": want_launches,
+           "generated": [1 + NODES_N_NEW * len(prompts), 1 + len(prompts)],
+           "decode_tokens_before": base, "marker": marker}
+    log("[cluster] (a) scale-up " + json.dumps({"card": card, **out}))
+    _nodes_tokens_ok(tokens, want, launches, "(a) server on the autoscaled node", "cluster")
+    if launches != want_launches:
+        fail(f"[cluster] (a) launches {launches}, not phase 20's {want_launches}")
+    if (info["ppid"] != launch["proc"].pid or pooled["pid"] == info["pid"]
+            or len(provider.launched) != 1 or monitor.autoscaler.num_launches != 1
+            or node.total != {"CPU": 4.0, "GPU": 1.0}):
+        fail(f"[cluster] (a) the actor under {info['ppid']} (daemon {launch['proc'].pid}), "
+             f"{len(provider.launched)} launched, node {dict(node.total)}")
+    return actor, out
+
+
+def _cluster_dashboard(runtime, url: str, up: dict, card: str) -> dict:
+    """(b) Every route of the head's dashboard: 200 with JSON (the page:
+    HTML), its latency; what the routes say of the cluster (a) made."""
+    import urllib.request
+
+    from ray_tpu_torch.util.runtime_metrics import _gauges
+
+    history = runtime._metrics_sampler.history
+    samples_s = _until(lambda: len(history.snapshot()) >= 2, "two history samples",
+                       15.0, phase="cluster")
+    got, ms = {}, {}
+    for route in CLUSTER_ROUTES:
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(url + route, timeout=60) as resp:
+            status, body = resp.status, resp.read()
+            ctype = resp.headers.get("Content-Type", "")
+        ms[route] = (time.perf_counter() - t0) * 1e3
+        want_type = {"/": "text/html", "/metrics": "text/plain"}.get(route, "application/json")
+        if status != 200 or ctype != want_type:
+            fail(f"[cluster] (b) {route}: {status} {ctype}")
+        got[route] = body.decode() if route in ("/", "/metrics") else json.loads(body)
+    node = up["node"]["id"]
+    alive = [n for n in got["/api/nodes"] if n["state"] == "ALIVE"]
+    gpu = [n["node_id"] for n in alive if n["resources_total"].get("GPU") == 1.0]
+    server = [a for a in got["/api/actors"] if a["name"] == CLUSTER_ENGINE]
+    llm = [r for r in got["/api/llm"] if r["name"] == CLUSTER_ENGINE]
+    decode = llm[0]["metrics"]["decode_tokens"] if llm and "metrics" in llm[0] else None
+    tokens, requests = up["generated"]
+    gauges = sorted(g.name for g in _gauges().values())
+    checks = {
+        "two_alive_nodes_one_gpu": len(alive) == 2 and gpu == [node],
+        "server_on_the_node": len(server) == 1 and server[0]["node_id"] == node
+        and server[0]["state"] == "ALIVE",
+        "llm_decode_tokens": decode is not None
+        and decode - up["decode_tokens_before"] == tokens - requests,
+        "marker_in_logs": any(up["marker"] in r["line"] and r["node_id"] == node
+                              for r in got["/api/logs"]),
+        "history_samples": len(got["/api/metrics_history"]) >= 2,
+        "gauges_in_metrics": all(f"# TYPE {g} gauge" in got["/metrics"] for g in gauges),
+        "fleet_has_the_engine": CLUSTER_ENGINE in got["/api/fleet"].get("replicas", {}),
+        "page": "ray-tpu-torch dashboard" in got["/"],
+        "cluster_alive_nodes": got["/api/cluster"]["alive_nodes"] == 2,
+    }
+    out = {"url": url, "route_ms": ms, "checks": checks, "history_wait_s": samples_s,
+           "history_samples": len(got["/api/metrics_history"]),
+           "llm_decode_tokens": decode, "llm_steps": llm[0]["metrics"]["steps"] if llm else None,
+           "gauges": len(gauges), "tasks": len(got["/api/tasks"]),
+           "timeline_events": len(got["/api/timeline"])}
+    log("[cluster] (b) dashboard " + json.dumps({"card": card, **out}))
+    if not all(checks.values()):
+        fail(f"[cluster] (b) dashboard checks {checks}; nodes {got['/api/nodes']}, "
+             f"llm {[{k: v for k, v in r.items() if k != 'flight_record'} for r in llm]}")
+    return out
+
+
+def _cluster_job_run(runtime, address: str, url: str, want_train: dict, up: dict,
+                     pids: set, card: str) -> dict:
+    """(c) The job (`_cluster_job`) submitted through JobSubmissionClient;
+    meanwhile `job status`, `logs --address` and `top --url` run as
+    processes against this head."""
+    import shlex
+
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    client = JobSubmissionClient()
+    code = "import sys, chip_smoke; sys.exit(chip_smoke._cluster_job(sys.argv[1:]))"
+    t0 = time.perf_counter()
+    job_id = client.submit_job(
+        entrypoint=shlex.join([sys.executable, "-c", code, address]),
+        runtime_env={"working_dir": _ROOT,
+                     "env_vars": {"PYTHONPATH": _nodes_env()["PYTHONPATH"]}},
+        metadata={"phase": "cluster"})
+    cli = [sys.executable, "-m", "ray_tpu_torch.scripts.cli"]
+    commands = {"job status": [*cli, "job", "status", job_id, "--address", address],
+                "logs": [*cli, "logs", "--address", address],
+                "top": [*cli, "top", "--url", url]}
+    cli_out = {}
+
+    def run_cli(name: str, cmd: list) -> None:
+        t1 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=_ROOT, env=_nodes_env(), text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        text, _ = proc.communicate(timeout=CLUSTER_TIMEOUT_S)
+        cli_out[name] = {"rc": proc.returncode, "wall_s": time.perf_counter() - t1,
+                         "pid": proc.pid, "lines": len(text.splitlines()),
+                         "tail": text.splitlines()[-2:], "text": text}
+
+    running = [threading.Thread(target=run_cli, args=item) for item in commands.items()]
+    for thread in running:
+        thread.start()
+    status = client.wait_until_finish(job_id, timeout=CLUSTER_TIMEOUT_S, poll_s=0.05)
+    job_s = time.perf_counter() - t0
+    logs = client.get_job_logs(job_id)
+    for thread in running:
+        thread.join(CLUSTER_TIMEOUT_S)
+    if sorted(cli_out) != sorted(commands):
+        fail(f"[cluster] (c) the CLI processes {sorted(commands)} did not all end: {cli_out}")
+    pids.update(c["pid"] for c in cli_out.values())
+    line = next((ln for ln in logs.splitlines() if ln.startswith("CLUSTER job ")), None)
+    if status != "SUCCEEDED" or line is None:
+        fail(f"[cluster] (c) job {job_id} {status}: {logs[-3000:]}")
+    job = json.loads(line.split(" ", 2)[2])
+    pids.update((job["pid"], job["job_pid"]))
+    checks = {
+        "losses_bit_for_bit_phase20": job["losses"] == want_train["train_losses"],
+        "launches_phase20": job["launches"] == want_train["train_launches"],
+        "on_the_autoscaled_node": job["ppid"] == up["daemon"]["pid"],
+        "job_id_in_env": job["job_id"] == job_id,
+        "no_jax_or_ray_tpu": job["leaked_modules"] == [],
+        "cli_exit_0": all(c["rc"] == 0 for c in cli_out.values()),
+        "cli_job_status": job_id in cli_out["job status"]["text"],
+        "cli_logs": up["marker"] in cli_out["logs"]["text"],
+        "cli_top": CLUSTER_ENGINE in cli_out["top"]["text"],
+    }
+    for c in cli_out.values():
+        del c["text"]
+    out = {"job_id": job_id, "status": status, "submit_to_succeeded_s": job_s,
+           "connect_s": job["connect_s"], "train_call_s": job["train_call_s"],
+           "train_wall_s": job["wall_s"], "losses": job["losses"], "launches": job["launches"],
+           "train_pid": job["pid"], "job_pid": job["job_pid"], "cli": cli_out,
+           "checks": checks}
+    log("[cluster] (c) job " + json.dumps({"card": card, **out}))
+    if not all(checks.values()):
+        fail(f"[cluster] (c) job checks {checks}: losses {job['losses']} against "
+             f"{want_train['train_losses']}, launches {job['launches']} against "
+             f"{want_train['train_launches']}, cli {cli_out}")
+    return out
+
+
+def _cluster_scale_down(runtime, url: str, provider, actor, up: dict, pids: set,
+                        used0: int, card: str) -> dict:
+    """(d) The server killed: the idle daemon terminated by the monitor
+    within CLUSTER_IDLE_S plus two update intervals; it exits 0 having
+    reaped its workers; /api/nodes lists the node DEAD; the card's used
+    memory back within LEFT_LIMIT_MIB of the phase's start."""
+    import urllib.request
+
+    import ray_tpu_torch
+
+    daemon = provider.launched[0]["proc"]
+    node = up["node"]["id"]
+    mib = 2**20
+    used_before = _device_used()
+    t0 = time.perf_counter()
+    ray_tpu_torch.kill(actor)
+    _until(lambda: provider.terminated, "the idle node's termination",
+           CLUSTER_IDLE_S + 60.0, phase="cluster")
+    terminate_s = provider.terminated[0] - t0
+    rc = daemon.wait(timeout=60)
+    exit_s = time.perf_counter() - t0
+    gone_s = _until(lambda: not any(_pid_alive(p) for p in pids), "the node's workers gone",
+                    60.0, phase="cluster")
+
+    def listed_dead() -> bool:
+        with urllib.request.urlopen(url + "/api/nodes", timeout=30) as resp:
+            return any(n["node_id"] == node and n["state"] == "DEAD"
+                       for n in json.loads(resp.read()))
+
+    dead_s = _until(listed_dead, "the node listed DEAD", 30.0, phase="cluster")
+    limit = LEFT_LIMIT_MIB * mib
+    back_s = _until(lambda: _device_used() <= used0 + limit,
+                    f"the card's used memory back within {LEFT_LIMIT_MIB} MiB of "
+                    f"{used0 / mib:.0f} MiB", 60.0, phase="cluster")
+    bound = CLUSTER_IDLE_S + 2 * CLUSTER_UPDATE_S
+    out = {"kill_to_terminate_s": terminate_s, "bound_s": bound, "kill_to_daemon_exit_s": exit_s,
+           "daemon_rc": rc, "workers_gone_s": gone_s, "listed_dead_s": dead_s,
+           "memory_back_s": back_s, "device_used_mib": {
+               "phase_start": used0 / mib, "before_kill": used_before / mib,
+               "after": _device_used() / mib},
+           "segment_left": os.path.exists(f"/dev/shm/ray_tpu_torch_node_{daemon.pid}"),
+           "provider_nodes": provider.non_terminated_nodes()}
+    log("[cluster] (d) scale-down " + json.dumps({"card": card, **out}))
+    if terminate_s > bound or rc != 0 or out["segment_left"] or out["provider_nodes"]:
+        fail(f"[cluster] (d) terminated {terminate_s:.2f}s after the kill (bound {bound}s), "
+             f"daemon exit {rc}, segment left {out['segment_left']}")
+    return out
+
+
+def phase_cluster(device_info: dict, server: dict, nodes: dict) -> dict:
+    """The dashboard and cluster tooling (phase 21): (a) scale-up, (b) the
+    dashboard, (c) a job and the CLI, (d) scale-down, (e) nothing left."""
+    import glob
+
+    import ray_tpu_torch
+    from ray_tpu_torch.autoscaler import Monitor
+
+    t_phase = time.perf_counter()
+    card = device_info["smi"]
+    want = server["bf16_cold_tokens"]
+    prompts = _prompts(np.random.RandomState(0))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    used0, mem0 = _device_used(), torch.cuda.memory_allocated()
+    pids: set = set()
+    summary = {}
+    runtime = ray_tpu_torch.init(num_cpus=2, num_gpus=0, _system_config={
+        "isolation": "process", "include_dashboard": True, "dashboard_port": 0})
+    provider = _cluster_provider(runtime)
+    monitor = None
+    try:
+        address = runtime.serve_clients(port=0)
+        config = {"max_workers": 1, "idle_timeout_s": CLUSTER_IDLE_S,
+                  "available_node_types": {"gpu": CLUSTER_NODE_TYPE}}
+        monitor = Monitor(runtime, config, provider=provider,
+                          update_interval_s=CLUSTER_UPDATE_S).start()
+        actor, summary["scale_up"] = _cluster_scale_up(
+            runtime, provider, monitor, prompts, want, nodes["serve"]["launches"], pids, card)
+        summary["dashboard"] = _cluster_dashboard(runtime, runtime.dashboard.url,
+                                                  summary["scale_up"], card)
+        summary["job"] = _cluster_job_run(runtime, address, runtime.dashboard.url,
+                                          nodes["cross_host"], summary["scale_up"], pids, card)
+        summary["scale_down"] = _cluster_scale_down(runtime, runtime.dashboard.url, provider,
+                                                    actor, summary["scale_up"], pids, used0,
+                                                    card)
+        del actor
+    finally:
+        if monitor is not None:
+            monitor.stop()
+        ray_tpu_torch.shutdown()  # a live daemon gets the head's shutdown frame
+        for launch in provider.launched:
+            try:
+                launch["proc"].wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                launch["proc"].kill()
+                launch["proc"].wait(timeout=30)
+    # (e) Nothing left: daemons, workers, job and CLI processes, segments.
+    alive = sorted(p for p in pids | {x["proc"].pid for x in provider.launched}
+                   if _pid_alive(p))
+    left = {"segments": sorted(glob.glob("/dev/shm/ray_tpu_torch_*")), "alive": alive,
+            "processes": len(pids) + len(provider.launched),
+            "daemon_exit_codes": [x["proc"].returncode for x in provider.launched]}
+    if left["segments"] or alive:
+        fail(f"[cluster] after shutdown(): {left}")
+    left["left_allocated_mib"] = _settle(mem0, "cluster")
+    limit = LEFT_LIMIT_MIB * 2**20
+    left["settle_s"] = _until(lambda: _device_used() <= used0 + limit,
+                              f"the card's used memory back within {LEFT_LIMIT_MIB} MiB of "
+                              f"{used0 / 2**20:.0f} MiB", 30.0, phase="cluster")
+    left.update(device_used_start_mib=used0 / 2**20, device_used_end_mib=_device_used() / 2**20)
+    summary["teardown"] = left
+    log("[cluster] (e) teardown " + json.dumps({"card": card, **left}))
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[cluster] phase wall {summary['wall_s']:.1f}s")
+    summary["paths"] = {"cluster serve": summary["scale_up"]["launches"],
+                        "cluster job train": summary["job"]["launches"]}
+    return summary
+
+
 def _replace_attn():
     import dataclasses
 
@@ -7045,6 +7468,7 @@ def main() -> int:
     procs = _timed(walls, phase_procs, device, server, trainer, data)
     stored = _timed(walls, phase_store, device, server, procs)
     nodes = _timed(walls, phase_nodes, device, server, procs, stored)
+    cluster = _timed(walls, phase_cluster, device, server, nodes)
     launches.update(profile["launches"])
     paths = {"server": server["launches"]}
     for line in loadgen["cells"]:
@@ -7070,6 +7494,7 @@ def main() -> int:
     paths.update(procs["paths"])
     paths.update(stored["paths"])
     paths.update(nodes["paths"])
+    paths.update(cluster["paths"])
     log("[phases] " + json.dumps(walls))
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels_line(rows, launches, paths)))

@@ -29,7 +29,6 @@ def _env_override(name: str, default):
 # construct: each is accepted at its default and refused otherwise, naming
 # the later slice that would port it where there is one.
 _UNPORTED = {
-    "include_dashboard": (False, "the dashboard is not ported (ROADMAP.md §B10)"),
     # The reference declares this flag and no engine of it reads it: the
     # process engine starts workers on demand, in both packages.
     "prestart_workers": (True, "worker prestart is not ported: process "
@@ -109,6 +108,11 @@ class Config:
     idle_worker_killing_time_s: float = 60.0
     # Logging: worker stdout/stderr reprinted on the driver with a prefix
     log_to_driver: bool = True
+    # Web dashboard (dashboard/head.py): started by init() when enabled;
+    # port 0 takes a free port (`Runtime.dashboard.url` names it).
+    include_dashboard: bool = False
+    dashboard_host: str = "127.0.0.1"
+    dashboard_port: int = 8265
 
     def __post_init__(self):
         for f in fields(self):

@@ -170,10 +170,16 @@ def pg_resource_name(base: str, pg_id: PlacementGroupID, index: int | None) -> s
 # ---------------------------------------------------------------------------
 
 
+DEAD_NODES_KEPT = 1000
+
+
 class Controller:
     def __init__(self):
         self._lock = threading.RLock()
         self.nodes: dict[NodeID, NodeState] = {}
+        # Nodes that left, newest last (at most DEAD_NODES_KEPT): the state
+        # API and the dashboard list them DEAD (ROADMAP.md §D31).
+        self.dead_nodes: dict[NodeID, NodeState] = {}
         self.head_node_id: Optional[NodeID] = None
         self.actors: dict[ActorID, ActorRecord] = {}
         self._named_actors: dict[tuple[str, str], ActorID] = {}
@@ -204,6 +210,9 @@ class Controller:
             node = self.nodes.pop(node_id, None)
             if node is not None:
                 node.alive = False
+                self.dead_nodes[node_id] = node
+                while len(self.dead_nodes) > DEAD_NODES_KEPT:
+                    self.dead_nodes.pop(next(iter(self.dead_nodes)))
         self._notify_resources()
         return node
 

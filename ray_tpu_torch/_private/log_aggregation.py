@@ -8,12 +8,10 @@ worker stdout/stderr are pipes already owned by the daemon/engine process,
 so lines ride the existing control connections:
 
   worker pipe → PipeTailer thread (node daemon or head) → "wl" frame → head
-      → LogBuffer ring (`Runtime.logs`)
+      → LogBuffer ring (`Runtime.logs`: the dashboard's /api/logs and
+        `ray-tpu-torch logs`, through the `get_logs` RPC)
       → driver stdout/stderr with a `(worker pid=…, node=…)` prefix
       → connected remote drivers (client mode reprints them)
-
-The dashboard and the CLI, which the reference also feeds from here, are
-not ported yet (ROADMAP.md §B10, §B13).
 """
 
 from __future__ import annotations
@@ -32,16 +30,16 @@ _RESET = "\033[0m"
 
 
 class LogBuffer:
-    """Head-side ring buffer of worker log lines, by node and worker.
-    Each appended batch also goes to every sink: the driver's reprint
-    (log_to_driver) and the head server's fan-out to remote drivers. The
-    reference's cursor (`seq`, `tail(after_seq=)`) and node and worker
-    filters serve its dashboard and CLI, which are not ported (ROADMAP.md
-    §B10, §B13)."""
+    """Head-side ring buffer of worker log lines, queryable by node and
+    worker, with a cursor (`seq`). Mirrors dashboard/modules/log's role:
+    the one place the dashboard and `logs` read from. Each appended batch
+    also goes to every sink: the driver's reprint (log_to_driver) and the
+    head server's fan-out to remote drivers."""
 
     def __init__(self, capacity: int = 50_000):
         self._lock = threading.Lock()
         self._lines: deque = deque(maxlen=capacity)
+        self._seq = 0
         self._sinks: list[Callable[[dict], None]] = []
 
     def add_sink(self, sink: Callable[[dict], None]) -> None:
@@ -80,8 +78,10 @@ class LogBuffer:
             return
         with self._lock:
             for line in batch["lines"]:
+                self._seq += 1
                 self._lines.append(
                     {
+                        "seq": self._seq,
                         "node_id": node_id,
                         "hostname": hostname,
                         "wid": wid,
@@ -98,14 +98,36 @@ class LogBuffer:
             except Exception:
                 pass
 
-    def tail(self, *, pid: Optional[int] = None, limit: int = 1000) -> list[dict]:
-        """The newest `limit` lines, oldest first; only worker `pid`'s when
-        given. Collected by reverse scan, so the lock is held for at most
-        `limit` copies."""
+    def tail(
+        self,
+        *,
+        node_id: Optional[str] = None,
+        wid: Optional[int] = None,
+        pid: Optional[int] = None,
+        after_seq: Optional[int] = None,
+        limit: int = 1000,
+    ) -> list[dict]:
+        """With after_seq (0 = from the start): the OLDEST `limit` rows
+        newer than it, so a cursor-advancing poller never skips buffered
+        lines. Without (None): the newest `limit` rows (dashboard view),
+        oldest first, collected by reverse scan so the lock is held for at
+        most `limit` copies, not a full-ring scan."""
+        match = lambda row: (
+            (node_id is None or row["node_id"] == node_id)
+            and (wid is None or row["wid"] == wid)
+            and (pid is None or row["pid"] == pid)
+        )
         rows = []
         with self._lock:
+            if after_seq is not None:
+                for row in self._lines:
+                    if row["seq"] > after_seq and match(row):
+                        rows.append(dict(row))
+                        if len(rows) >= limit:
+                            break
+                return rows
             for row in reversed(self._lines):
-                if pid is None or row["pid"] == pid:
+                if match(row):
                     rows.append(dict(row))
                     if len(rows) >= limit:
                         break

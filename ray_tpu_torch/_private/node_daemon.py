@@ -899,6 +899,18 @@ def main(argv: Optional[list] = None) -> None:
         object_store_memory=args.object_store_memory,
         reconnect_window_s=args.reconnect_window,
     )
+    # SIGTERM (an autoscaler's provider terminating the node) shuts down as
+    # a lost head does: the workers killed and reaped, so their CUDA contexts
+    # are gone, and the segment removed. The reference's daemon dies at once
+    # there, leaving its segment behind (ROADMAP.md §D32).
+    import signal
+
+    def on_sigterm(*_):
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)  # one shutdown
+        if not daemon._closed:  # else a shutdown (the head's) is running
+            sys.exit(0)
+
+    signal.signal(signal.SIGTERM, on_sigterm)
     print(
         f"node daemon up: node_id={daemon.node_id} pid={os.getpid()} "
         f"store={daemon.store.name.decode()} capacity={daemon.store.capacity()}",

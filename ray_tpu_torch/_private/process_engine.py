@@ -275,6 +275,23 @@ class WirePeer:
                 force=payload.get("force", False),
                 recursive=payload.get("recursive", False),
             )
+        if method == "get_logs":
+            return {
+                "rows": runtime.logs.tail(
+                    node_id=payload.get("node_id"),
+                    wid=payload.get("wid"),
+                    pid=payload.get("pid"),
+                    after_seq=payload.get("after_seq"),
+                    limit=payload.get("limit", 1000),
+                )
+            }
+        if method == "kv":
+            # The controller's KV for a worker or a remote driver: the job
+            # table (job_submission.py) lives there (ROADMAP.md §D30).
+            op = payload["op"]
+            if op not in ("kv_get", "kv_put", "kv_del", "kv_keys"):
+                raise ValueError(f"unknown KV op {op!r}")
+            return getattr(runtime.controller, op)(*payload["args"])
         raise ValueError(f"unknown RPC method {method!r}")
 
     def _reply_refs(self, out: list, options: dict) -> dict:

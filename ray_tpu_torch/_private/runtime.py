@@ -13,8 +13,8 @@ eviction) is rebuilt by re-executing its producing task (lineage). Node
 daemons join over TCP (`serve_clients`, remote_node.py), each with its own
 store whose values the head pulls through the object plane, and remote
 drivers connect through the same listener. The control-plane tables persist
-to `gcs_storage_path` (gcs_storage.py). The dashboard is refused at init
-(config.py `_UNPORTED`).
+to `gcs_storage_path` (gcs_storage.py). With `include_dashboard`, the
+dashboard (dashboard/head.py) serves this state over HTTP.
 
 Key invariants preserved from the reference:
   * return ObjectIDs are computed at submission (ownership without coordination);
@@ -286,6 +286,17 @@ class Runtime:
         from ray_tpu_torch.util.runtime_metrics import RuntimeMetricsSampler
 
         self._metrics_sampler = RuntimeMetricsSampler(self)
+        # Web dashboard (dashboard/head.py): read-only HTTP over the state
+        # sources above (reference: dashboard/head.py module autoload).
+        self.dashboard = None
+        if self.config.include_dashboard:
+            from ray_tpu_torch.dashboard import start_dashboard
+
+            self.dashboard = start_dashboard(
+                self,
+                host=self.config.dashboard_host,
+                port=self.config.dashboard_port,
+            )
         if self._gcs_storage is not None:
             from ray_tpu_torch._private.gcs_storage import restore_snapshot
 
@@ -1477,6 +1488,9 @@ class Runtime:
         if self._metrics_sampler is not None:
             self._metrics_sampler.stop()
             self._metrics_sampler = None
+        if self.dashboard is not None:
+            self.dashboard.stop()
+            self.dashboard = None
         if self._head_server is not None:
             try:
                 self._head_server.stop()

@@ -153,6 +153,20 @@ class _ProxyControllerShim:
             setattr(rec, k, v)
         return rec
 
+    # The head controller's KV, by RPC (the reference's proxy has none, so
+    # its JobSupervisor fails in a worker process; ROADMAP.md §D30).
+    def kv_get(self, key: bytes):
+        return self._proxy.rpc("kv", {"op": "kv_get", "args": [key]})
+
+    def kv_put(self, key: bytes, value: bytes, overwrite: bool = True) -> bool:
+        return self._proxy.rpc("kv", {"op": "kv_put", "args": [key, value, overwrite]})
+
+    def kv_del(self, key: bytes) -> bool:
+        return self._proxy.rpc("kv", {"op": "kv_del", "args": [key]})
+
+    def kv_keys(self, prefix: bytes = b"") -> list:
+        return self._proxy.rpc("kv", {"op": "kv_keys", "args": [prefix]})
+
 
 class _NoopTaskEvents:
     def record(self, *args, **kwargs) -> None:

@@ -38,8 +38,8 @@ What the port changes against the reference's sweep:
   that nothing of a cell outlives it (`_teardown`, ROADMAP §D8).
 * Where the record goes. `sweep` writes only to the `--out` it is given.
 
-Entry point: `python -m ray_tpu_torch.loadgen.sweep run|sweep|report`
-(the reference's `ray-tpu loadgen` command comes with ROADMAP §B13).
+Entry point: `python -m ray_tpu_torch.loadgen.sweep run|sweep|report`,
+or `python -m ray_tpu_torch.scripts.cli loadgen ...`, which forwards here.
 """
 
 from __future__ import annotations

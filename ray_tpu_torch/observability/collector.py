@@ -17,8 +17,7 @@ costs one timeout total, not one per replica), then:
 
 `fleet_snapshot()` is the pull API; `FleetCollector` is the optional
 background refresher that keeps the latest snapshot for cheap reads. The
-reference's dashboard route that serves it (`/api/fleet`) comes with
-ROADMAP §B10, and its `ray-tpu top` command with §B13.
+dashboard serves it at `/api/fleet`, and the CLI's `top` prints it.
 """
 
 from __future__ import annotations

@@ -163,17 +163,39 @@ def _same_calls(pkg, path):
         pkg.shutdown()
 
 
+def _same_calls_in_fresh_process(name: str, path: str) -> dict:
+    """`_same_calls` on package `name` in a new interpreter: a test process
+    may hold threads of an earlier test's runtime (a Serve router, say)
+    that would add a detached actor of their own to the snapshot."""
+    import base64
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import base64, importlib, pickle, sys; sys.path.insert(0, sys.argv[1]); "
+            "import test_torch_gcs_persistence as t; "
+            "snap = t._same_calls(importlib.import_module(sys.argv[2]), sys.argv[3]); "
+            "print('RESULT ' + base64.b64encode(pickle.dumps(snap)).decode())")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.dirname(here), os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-c", code, here, name, path],
+                          capture_output=True, text=True, timeout=240, env=env)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+    assert proc.returncode == 0 and lines, proc.stdout[-2000:] + proc.stderr[-4000:]
+    return pickle.loads(base64.b64decode(lines[-1][len("RESULT "):]))
+
+
 def test_snapshot_tables_match_the_reference(tmp_path):
-    """Both packages' build_snapshot after the same calls: the same KV, job
-    counter, placement group (bundles, strategy, name) and detached actor
-    (name, namespace, restarts, class, and its creation spec's name, kind,
-    resources and arguments), field by field."""
+    """Both packages' build_snapshot after the same calls, each in a fresh
+    process: the same KV, job counter, placement group (bundles, strategy,
+    name) and detached actor (name, namespace, restarts, class, and its
+    creation spec's name, kind, resources and arguments), field by field."""
     import cloudpickle
 
-    import ray_tpu
-
-    ours = _same_calls(ray_tpu_torch, str(tmp_path / "port.snap"))
-    ref = _same_calls(ray_tpu, str(tmp_path / "ref.snap"))
+    ours = _same_calls_in_fresh_process("ray_tpu_torch", str(tmp_path / "port.snap"))
+    ref = _same_calls_in_fresh_process("ray_tpu", str(tmp_path / "ref.snap"))
     assert sorted(ours) == sorted(ref) == sorted(
         ["version", "kv", "job_counter", "placement_groups", "detached_actors"])
     assert ours["version"] == ref["version"] == 1

@@ -77,6 +77,11 @@ _GATE = textwrap.dedent(
     for name in ("gcs_storage", "object_plane", "head_server", "remote_node",
                  "node_daemon", "client"):
         assert f"ray_tpu_torch._private.{name}" in names, name
+    for name in ("dashboard.head", "autoscaler.autoscaler", "autoscaler.monitor",
+                 "autoscaler.load_metrics", "autoscaler.node_provider",
+                 "autoscaler.resource_demand_scheduler", "util.state.api",
+                 "scripts.cli", "cluster_utils", "job_submission"):
+        assert f"ray_tpu_torch.{name}" in names, name
     importlib.import_module("chip_smoke")
     # The native store's library is the port's own build, from inside the
     # package, and the reference's libtpustore is never mapped.
@@ -222,6 +227,23 @@ _CLIENT = textwrap.dedent(
     """
 )
 
+# A job's entrypoint: a remote driver of the head that submitted it.
+_JOB = textwrap.dedent(
+    """
+    import sys
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(address=sys.argv[1])
+    f = ray_tpu_torch.remote(lambda: 8)
+    assert ray_tpu_torch.get(f.options(resources={"gated": 1}).remote(), timeout=60) == 8
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ray_tpu"))
+    assert not bad, bad
+    ray_tpu_torch.shutdown()
+    print("JOB_CLEAN")
+    """
+)
+
 _CLUSTER = textwrap.dedent(
     """
     import os, subprocess, sys, time
@@ -251,6 +273,13 @@ _CLUSTER = textwrap.dedent(
         out = subprocess.run([sys.executable, "-c", sys.argv[1], address],
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0 and "CLIENT_CLEAN" in out.stdout, out.stderr
+        # The CLI's process submits a job whose entrypoint, started by the
+        # supervisor in a head worker, connects back as a remote driver.
+        out = subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts.cli", "job",
+                              "submit", "--address", address, "--", sys.executable,
+                              "-c", sys.argv[2], address],
+                             capture_output=True, text=True, timeout=180)
+        assert out.returncode == 0 and "JOB_CLEAN" in out.stdout, out.stdout + out.stderr
         assert leaked() == []
     finally:
         ray_tpu_torch.shutdown()
@@ -261,16 +290,18 @@ _CLUSTER = textwrap.dedent(
 
 
 def test_daemon_and_client_processes_import_no_jax_or_ray_tpu(tmp_path):
-    """A head, a node daemon, a task in the daemon's worker and a remote
-    driver client, every process under the import hook: none imports jax or
-    anything of ray_tpu, and neither the worker nor the client has such a
+    """A head, a node daemon, a task in the daemon's worker, a remote
+    driver client, the CLI's process and a job's entrypoint it submits,
+    every process under the import hook: none imports jax or anything of
+    ray_tpu, and neither the worker, the client nor the job has such a
     module in sys.modules."""
     site = tmp_path / "site"
     site.mkdir()
     (site / "sitecustomize.py").write_text(_SITE_GATE)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join((str(site), REPO)))
     env.pop("RAY_TPU_TORCH_STORE_LIB", None)
-    proc = subprocess.run([sys.executable, "-c", _CLUSTER, _CLIENT], cwd=str(tmp_path),
-                          env=env, capture_output=True, text=True, timeout=240)
+    proc = subprocess.run([sys.executable, "-c", _CLUSTER, _CLIENT, _JOB],
+                          cwd=str(tmp_path), env=env, capture_output=True, text=True,
+                          timeout=360)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     assert "CLUSTER_CLEAN" in proc.stdout

@@ -141,9 +141,11 @@ def test_placement_groups(both):
 
 
 def test_refused_features_name_their_slice():
-    """What the port does not construct yet is refused, never run reduced:
-    the dashboard, and worker prestart. GCS persistence and remote drivers
-    are ported: a gcs_storage_path is accepted (and written at shutdown),
+    """What the port does not construct is refused, never run reduced:
+    worker prestart. The dashboard is ported: include_dashboard=True is
+    accepted and serves on the port given (0: a free one). GCS persistence
+    and remote drivers are ported: a gcs_storage_path is accepted (and
+    written at shutdown),
     and init(address=...) connects, failing as a connection does when no
     head listens there. Worker processes, the memory monitor, the native
     store and spilling are ported: an actor asking for isolation="process"
@@ -155,12 +157,17 @@ def test_refused_features_name_their_slice():
     import tempfile
 
     for config, match in (
-        ({"include_dashboard": True}, "dashboard"),
         ({"prestart_workers": False}, "prestart"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             ray_tpu_torch.init(num_cpus=1, _system_config=config)
         assert not ray_tpu_torch.is_initialized()
+    rt = ray_tpu_torch.init(num_cpus=1, num_gpus=0, _system_config={
+        "include_dashboard": True, "dashboard_port": 0})
+    try:
+        assert rt.dashboard is not None and rt.dashboard.port != 0
+    finally:
+        ray_tpu_torch.shutdown()
     with tempfile.TemporaryDirectory() as tmp:
         snap = os.path.join(tmp, "gcs.snap")
         rt = ray_tpu_torch.init(num_cpus=1, num_gpus=0,
