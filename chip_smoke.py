@@ -318,6 +318,15 @@ Phases, each fatal on failure:
      DEAD in /api/nodes, the card's used memory back within
      LEFT_LIMIT_MIB of the phase's start; (e) no daemon, worker, job
      process or /dev/shm/ray_tpu_torch_* segment left. `[cluster]` lines.
+ 22. lint    — the port's static analyzer (ray_tpu_torch/tools/lint) as a
+     subprocess from the repo root: `python3 -m ray_tpu_torch.tools.lint
+     ray_tpu_torch --json` exits 0 with no active finding, parse error,
+     stale or untriaged baseline entry, scans every .py file of the
+     package outside __pycache__ and _build (counted after the build
+     phase filled ops/_build/), in duration_s < 10; `python3 -m
+     ray_tpu_torch.scripts.cli lint --list-rules` exits 0 naming every
+     rule not ported. Every kernel's counter (K1-K10) set to 0 just before
+     and read just after: all 0. One `[lint]` line.
 After each teardown (serve, every loadgen cell, loadgen, fabric, moe, each
 tune fit(), each rllib and rllib_algos part, each data fit(), store, nodes,
 cluster) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
@@ -7341,6 +7350,79 @@ def phase_cluster(device_info: dict, server: dict, nodes: dict) -> dict:
     return summary
 
 
+def _all_counters() -> dict:
+    """Every kernel's launch counter, K1-K10."""
+    from ray_tpu_torch.ops import attn_profile as ap
+
+    return {**_attention_counters(), "K8 attn_dissect": ap.attn_dissect,
+            "K9 flash_fwd_slim": ap.flash_fwd_slim, "K10 attn_subtile": ap.attn_subtile}
+
+
+def _port_py_files() -> int:
+    """The .py files of ray_tpu_torch/ outside __pycache__ and _build (the
+    analyzer's scan set), counted now: after the build phase filled
+    ops/_build/."""
+    pkg = Path(_ROOT) / "ray_tpu_torch"
+    return sum(1 for p in pkg.rglob("*.py")
+               if not {"__pycache__", "_build"} & set(p.relative_to(pkg).parts))
+
+
+def phase_lint(device_info: dict) -> dict:
+    """The port's static analyzer (phase 22): `python3 -m
+    ray_tpu_torch.tools.lint ray_tpu_torch --json` from the repo root
+    exits 0 with nothing active, unparsed, stale or untriaged, scans
+    every .py file of the package outside __pycache__ and _build, and
+    reports duration_s < 10; `ray_tpu_torch.scripts.cli lint
+    --list-rules` exits 0 naming every rule not ported. No kernel runs."""
+    from ray_tpu_torch.tools.lint import NOT_PORTED
+
+    t_phase = time.perf_counter()
+    counters = _all_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    scan = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.tools.lint", "ray_tpu_torch", "--json"],
+        cwd=_ROOT, capture_output=True, text=True, timeout=120)
+    scan_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    listing = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "lint", "--list-rules"],
+        cwd=_ROOT, capture_output=True, text=True, timeout=60)
+    list_wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    if scan.returncode != 0:
+        fail(f"[lint] the scan exited {scan.returncode}: "
+             f"{scan.stdout[-2000:]} {scan.stderr[-2000:]}")
+    report = json.loads(scan.stdout)
+    counts = report["counts"]
+    files = _port_py_files()
+    summary = {
+        "card": device_info["smi"], "files_scanned": report["files_scanned"],
+        "py_files": files, "counts": counts, "duration_s": report["duration_s"],
+        "scan_wall_s": scan_wall, "list_rules_wall_s": list_wall, "launches": launches,
+    }
+    bad = {k: counts[k] for k in ("active", "parse_errors", "stale_baseline",
+                                  "untriaged_baseline") if counts[k]}
+    if bad or report["findings"] or report["parse_errors"]:
+        fail(f"[lint] not clean: {bad} {report['findings'][:5]}")
+    if report["files_scanned"] != files:
+        fail(f"[lint] scanned {report['files_scanned']} files, the package has {files}")
+    if not report["duration_s"] < 10:
+        fail(f"[lint] the scan took {report['duration_s']} s, over 10 s")
+    dropped = listing.stdout.partition("not ported")[2]
+    missing = [rid for rid, (_, reason) in NOT_PORTED.items()
+               if rid not in dropped or reason not in dropped]
+    if listing.returncode != 0 or missing:
+        fail(f"[lint] --list-rules exited {listing.returncode}, dropped rules "
+             f"missing: {missing}; {listing.stderr[-1000:]}")
+    if any(launches.values()):
+        fail(f"[lint] kernels launched: {launches}")
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log("[lint] " + json.dumps(summary))
+    return summary
+
+
 def _replace_attn():
     import dataclasses
 
@@ -7469,6 +7551,7 @@ def main() -> int:
     stored = _timed(walls, phase_store, device, server, procs)
     nodes = _timed(walls, phase_nodes, device, server, procs, stored)
     cluster = _timed(walls, phase_cluster, device, server, nodes)
+    _timed(walls, phase_lint, device)
     launches.update(profile["launches"])
     paths = {"server": server["launches"]}
     for line in loadgen["cells"]:

@@ -429,9 +429,11 @@ class EngineConfig:
         """The prefill buckets the chunked path can dispatch: every chunk
         feeds at most prefill_token_budget tokens, so only buckets up to
         bucket_for(budget) are reachable — warmup compiles exactly this
-        set (larger full-prefill programs can never run under a budget),
-        and lint RTL805 judges the table against the bucket table. With
-        chunking off this is the whole bucket table."""
+        set (larger full-prefill programs can never run under a budget).
+        The reference analyzer's RTL805 judges the table against the
+        bucket table; the port's analyzer does not port that rule (the
+        port compiles nothing per shape; ROADMAP §B15). With chunking off
+        this is the whole bucket table."""
         budget = self.prefill_token_budget
         if budget is None:
             return self.buckets()

@@ -181,6 +181,10 @@ class DraftModelProposer(Proposer):
             if extra <= 0:
                 return budget
             if self.allocator.can_allocate(extra):
+                # ray-tpu: lint-ignore[RTL404] allocate is pre-checked
+                # (cannot raise) and its result lands directly in
+                # st.block_table, which release() frees — there is no
+                # statement in between for an exception to leak through
                 st.block_table.extend(self.allocator.allocate(extra))
                 return budget
             budget -= 1

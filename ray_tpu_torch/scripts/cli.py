@@ -7,8 +7,8 @@ commands bootstrap a local runtime (configurable with --num-cpus), run the
 command, and shut down. The commands that take `--address` (`job status |
 logs | list | stop`, `job submit --address`, `logs`, `start`) reach a
 running head over the client protocol, and `top --url` / `train-stats
---url` poll its dashboard. `lint` is refused: the analyzer is not ported
-(ROADMAP.md §B15).
+--url` poll its dashboard. `lint` forwards to the port's static analyzer
+(ray_tpu_torch/tools/lint) and boots nothing.
 """
 
 from __future__ import annotations
@@ -354,17 +354,20 @@ def cmd_start(args) -> int:
     return 0
 
 
-LINT_REFUSAL = (
-    "lint: the static analyzer is not ported to ray_tpu_torch "
-    "(ROADMAP.md §B15)"
-)
+def _forward_lint(rest: list) -> int:
+    """Hand everything after `lint` to the analyzer's own parser. Pure
+    AST pass — never boots a runtime. See ray_tpu_torch/tools/lint and the
+    README "Static analysis" section."""
+    from ray_tpu_torch.tools.lint.cli import main as lint_main
+
+    rest = list(rest)
+    if rest and rest[0] == "--":
+        rest = rest[1:]
+    return lint_main(rest)
 
 
 def cmd_lint(args) -> int:
-    """Refused: the reference's analyzer (ray_tpu/tools/lint) reads JAX
-    programs, and its port is ROADMAP.md §B15."""
-    print(LINT_REFUSAL, file=sys.stderr)
-    return 2
+    return _forward_lint(args.lint_args)
 
 
 def _forward_loadgen(rest: list) -> int:
@@ -387,8 +390,11 @@ def cmd_loadgen(args) -> int:
 def main(argv: Optional[list] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "lint":
-        # Refused before argparse sees the analyzer's flags (`lint --json`).
-        return cmd_lint(None)
+        # Forward verbatim when `lint` leads: the analyzer owns its flags
+        # (`ray-tpu-torch lint --json` must not be eaten by this parser —
+        # argparse.REMAINDER only engages after a positional). With global
+        # flags before the subcommand, argparse dispatches to cmd_lint.
+        return _forward_lint(argv[1:])
     if argv and argv[0] == "loadgen":
         # Forward verbatim when `loadgen` leads: the harness owns its flags
         # (`loadgen sweep --quick` must reach its parser — argparse.REMAINDER
@@ -462,9 +468,17 @@ def main(argv: Optional[list] = None) -> int:
     sub.add_parser("metrics", help="prometheus exposition dump")
 
     p_lint = sub.add_parser(
-        "lint", help="refused: the analyzer is not ported (ROADMAP.md §B15)"
+        "lint",
+        help="static analysis: races, async deadlocks, actor call cycles, "
+        "int8 pool pairing",
     )
-    p_lint.add_argument("lint_args", nargs=argparse.REMAINDER)
+    p_lint.add_argument(
+        "lint_args",
+        nargs=argparse.REMAINDER,
+        help="paths and flags forwarded to the analyzer "
+        "(--rule ID, --json, --baseline FILE, --write-baseline, "
+        "--list-rules)",
+    )
 
     p_lg = sub.add_parser(
         "loadgen",

@@ -8,8 +8,9 @@ same seeded program, IDs masked; `train-stats`, `timeline`, `top` and
 `metrics` read this process's runtime, and `train-stats --url` and `top
 --url` a head's dashboard; `job submit | status | logs | list | stop
 --address` and `logs --address` reach a head in another process as a
-remote driver; `loadgen` forwards to the harness; `lint` is refused,
-naming ROADMAP.md §B15.
+remote driver; `loadgen` forwards to the harness; `lint` forwards to the
+port's analyzer (ray_tpu_torch/tools/lint), whose own cases are in
+tests/test_torch_lint.py.
 """
 
 import json
@@ -152,10 +153,27 @@ def test_status_subprocess():
 @pytest.mark.parametrize("argv", [["lint"], ["lint", "--json", "ray_tpu_torch"],
                                   ["--num-cpus", "2", "lint"]],
                          ids=["bare", "flags", "global-flag-first"])
-def test_lint_is_refused_naming_b15(argv, capsys):
-    assert cli.main(argv) != 0
-    err = capsys.readouterr().err
-    assert "§B15" in err and "not ported" in err
+def test_lint_is_refused_naming_b15(argv, capsys, monkeypatch):
+    """The name is kept from when `lint` was refused; the command now
+    forwards to the port's analyzer, which boots no runtime: bare, with
+    the analyzer's own flags, and behind a global flag (argparse's
+    dispatch), each scans ray_tpu_torch/ from the repo root and exits 0."""
+    monkeypatch.chdir(REPO)
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert not ray_tpu_torch.is_initialized()
+    if "--json" in argv:
+        report = json.loads(out)
+        assert report["version"] == 3 and report["paths"] == ["ray_tpu_torch"]
+        assert set(report["counts"]) == {
+            "active", "baselined", "suppressed", "parse_errors",
+            "stale_baseline", "untriaged_baseline",
+        }
+        assert report["counts"]["active"] == len(report["findings"]) == 0
+        assert report["files_scanned"] == report["files_checked"] >= 210
+    else:
+        assert re.search(r"^0 finding\(s\), \d+ baselined, \d+ suppressed, "
+                         r"0 parse error\(s\) in \d+ files", out, re.M), out
 
 
 def test_local_commands(tmp_path, capsys):

@@ -82,6 +82,10 @@ _GATE = textwrap.dedent(
                  "autoscaler.resource_demand_scheduler", "util.state.api",
                  "scripts.cli", "cluster_utils", "job_submission"):
         assert f"ray_tpu_torch.{name}" in names, name
+    for name in ("core", "baseline", "project", "cli", "shapes", "rules_async",
+                 "rules_locks", "rules_trace", "rules_resources", "rules_actors",
+                 "rules_shapes"):
+        assert f"ray_tpu_torch.tools.lint.{name}" in names, name
     importlib.import_module("chip_smoke")
     # The native store's library is the port's own build, from inside the
     # package, and the reference's libtpustore is never mapped.
@@ -112,6 +116,39 @@ def test_port_imports_nothing_of_jax_or_ray_tpu():
     assert proc.returncode == 0, proc.stderr
     # Every subpackage and module was walked (ops, models, llm, util, ...).
     assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+
+
+_LINT_ALONE = textwrap.dedent(
+    """
+    import importlib, pkgutil, sys
+
+    import ray_tpu_torch.tools.lint as lint
+
+    names = [m.name for m in pkgutil.walk_packages(
+        lint.__path__, prefix="ray_tpu_torch.tools.lint.")]
+    for name in names:
+        importlib.import_module(name)
+    from ray_tpu_torch.tools.lint.cli import main
+    assert main(["--list-rules"]) == 0
+    heavy = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "torch", "numpy", "jax", "jaxlib", "flax", "optax", "ray_tpu"))
+    assert not heavy, heavy
+    print(len(names))
+    """
+)
+
+
+def test_lint_tool_imports_no_torch_and_nothing_of_the_reference():
+    """The analyzer is a pure `ast` pass: importing every module of
+    ray_tpu_torch.tools.lint and listing its rules pulls in neither torch
+    (nor numpy) nor JAX nor the reference's package."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _GATE.split("import ray_tpu_torch")[0] + _LINT_ALONE],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 12
 
 
 def test_gate_refuses_the_reference_package():
@@ -158,6 +195,7 @@ def test_no_import_of_jax_or_ray_tpu_at_any_depth():
     assert len(files) >= 60
     assert any(f.endswith(os.path.join("serve", "handle.py")) for f in files)
     assert any(f.endswith(os.path.join("kvfabric", "disagg.py")) for f in files)
+    assert any(f.endswith(os.path.join("tools", "lint", "shapes.py")) for f in files)
     found = {
         os.path.relpath(f, REPO): hits
         for f in files
