@@ -333,7 +333,37 @@ cluster) the card memory must be back within LEFT_LIMIT_MIB (64 MiB) of
 its figure before the run; beyond it the script prints what holds the
 memory (`_card_holders`) and fails.
 Before the last two lines, a `[phases]` line gives each phase's wall
-seconds. The last two lines are the kernels JSON (K1's, K2's, K3's, K6's and K7's
+seconds.
+
+`python3 chip_smoke.py --phase tp` runs one other phase instead, on every
+card it sees (run it on a host with four cards); with fewer than two cards
+it fails and prints no result. tp — tensor parallelism over NCCL
+(ray_tpu_torch.parallel, llm.tp_worker): the server phase's GPT-2 125M
+(seed 0), engine config and 8 prompts at tensor_parallel_size 1, 2 and 4,
+in f32 and in bf16, each an LLMServer whose process is rank 0 and whose
+warmup ran every bucket on every rank. Per run: K1's and K2's counters set
+to 0 on every rank just before the 8 concurrent requests and read just
+after (each one non-zero on every rank), the decode steps' wall p50, the
+8 prompts again one at a time from an empty prefix cache, the first
+step's logits of each prompt (`prefill_logits`), each rank's allocated
+memory; after the teardown every worker gone and every card's memory back
+(rank 0's allocated memory within LEFT_LIMIT_MIB of its start; by
+nvidia-smi, cards 1.. within LEFT_LIMIT_MIB of the phase's start, and card
+0 within LEFT_LIMIT_MIB of its level after the phase's first tp > 1 run:
+the engine's process lives on, and what its first runs leave outside
+torch's allocator, kernels loaded into its context and NCCL's and the CUDA
+libraries' per-process state, no teardown releases). f32: the
+one-at-a-time tokens at tp=2 and tp=4 equal tp=1's. bf16: equal up to a
+step where tp=1's top-2 logit margin (a full forward of tp=1's model over
+its own tokens) is under TP_BF16_TOL, each such step printed with its
+margin; the first step's logits within TP_BF16_TOL of tp=1's. The first
+tp > 1 run, right after the f32 tp=1 run, is one request at tp=2 through
+serve.run(llm.serve.build_app(...)), equal to the bf16 tp=2 server's
+tokens. Last, a rank killed inside a step: rank 1 of a bf16 tp=2 engine
+stopped, then killed a second into the next step; the step raises
+TensorParallelError naming rank 1 within TP_TIMEOUT_S of the kill, and
+rank 0's stream drains. `[tp]` lines, one `{"tp": ...}` JSON line, and
+the {"ok": true, ...} line with the count of cards seen. The last two lines are the kernels JSON (K1's, K2's, K3's, K6's and K7's
 entries also carry their launches on every later path, `launches_by_path`, the
 rllib and data resnet paths' zeros among them, and the procs, nodes and
 cluster paths counted in the worker processes) and the
@@ -7520,6 +7550,349 @@ def _timed(walls: dict, fn, *args):
     return out
 
 
+TP_SIZES = (1, 2, 4)
+# bf16 logits of the random GPT-2 125M reach ~|4|, where one bf16 rounding
+# step is 2^-6: a tp engine sums its row-parallel partials in another order
+# than one card does, and the residual stream is rounded in bf16 at every
+# block. The rule holds tp's first-step logits to tp=1's within 4 such
+# steps, and lets greedy tokens part only where tp=1's top-2 margin is
+# under that.
+TP_BF16_TOL = 0.0625
+
+
+def _cards_used_mib() -> list:
+    """Every card's used memory (MiB) by nvidia-smi: all processes, and no
+    CUDA context made here on a card this process does not use."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    return [int(x) for x in smi.stdout.split()]
+
+
+def _tp_worker_pids() -> list:
+    """This process's tensor-parallel rank processes (llm.tp_worker)."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().split(b"\0")
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        if ppid == os.getpid() and b"ray_tpu_torch.llm.tp_worker" in cmd:
+            pids.append(int(entry))
+    return pids
+
+
+def _tp_counters():
+    from ray_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+
+    return {"paged_flash_attention": paged_flash_attention,
+            "flash_attention_fwd": flash_attention_fwd}
+
+
+def _tp_reset(server) -> None:
+    """K1's and K2's counters to 0 on every rank."""
+    for fn in _tp_counters().values():
+        fn.launches = 0
+    group = server.engine._tp_group
+    if group is not None:
+        group.reset_counters()
+
+
+def _tp_launches(server) -> list:
+    """Rank by rank: {"paged_flash_attention": n, "flash_attention_fwd": n}."""
+    out = [{k: fn.launches for k, fn in _tp_counters().items()}]
+    group = server.engine._tp_group
+    if group is not None:
+        out += [r["launches"] for r in group.report()]
+    return out
+
+
+def _margins(model, prompt, tokens) -> list:
+    """tp=1's top-2 logit margin at each generated step: a full forward of
+    its model over the prompt and its own greedy tokens."""
+    ids = torch.tensor([list(prompt) + list(tokens[:-1])], device=model.wte.weight.device)
+    with torch.no_grad():
+        logits = model(ids)[0, len(prompt) - 1:].float()
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).tolist()
+
+
+def _tp_run(dtype, tp: int, prompts, n_new: int) -> dict:
+    import dataclasses
+
+    from ray_tpu_torch.llm import LLMServer
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    mem0 = torch.cuda.memory_allocated()
+    label = f"{dtype_label(dtype)} tp={tp}"
+    t0 = time.perf_counter()
+    server = LLMServer(gpt2_125m(dtype=dtype),
+                       dataclasses.replace(_engine_config(), tensor_parallel_size=tp),
+                       seed=0)
+    up_s = time.perf_counter() - t0
+    group = server.engine._tp_group
+    procs = group.processes if group is not None else []
+    _tp_reset(server)
+    results, ttft, wall = _concurrent(server, prompts, n_new)
+    launches = _tp_launches(server)
+    if any(r is None or len(r) != n_new for r in results):
+        fail(f"[tp] {label}: not every request finished with {n_new} tokens")
+    for rank, counts in enumerate(launches):
+        for name, n in counts.items():
+            if n <= 0:
+                fail(f"[tp] {label}: {name} was not launched on rank {rank}")
+    steps = [r["duration_s"] for r in server.flight_record()["steps"]
+             if r["phase"] == "decode"]
+    seq = []
+    for p in prompts:
+        server.reset_prefix_cache()
+        seq.append(server.generate(p, max_new_tokens=n_new)["token_ids"])
+    runner = server.engine.runner
+    with server._lock:
+        first = [runner.prefill_logits(p) for p in prompts]
+        margins = ([_margins(runner.model, p, t) for p, t in zip(prompts, seq)]
+                   if tp == 1 else None)
+    ranks_alloc = [torch.cuda.memory_allocated()] + (
+        [r["allocated"] for r in group.report()] if group is not None else [])
+    out = {
+        "tp": tp, "dtype": dtype_label(dtype), "up_s": up_s, "wall_s": wall,
+        "tokens_per_s": n_new * len(prompts) / wall,
+        "ttft_p50_s": statistics.median(ttft),
+        "decode_step_p50_ms": 1e3 * statistics.median(steps),
+        "decode_steps": len(steps),
+        "launches_by_rank": launches,
+        "allocated_mib_by_rank": [b / 2**20 for b in ranks_alloc],
+        "pool_bytes_per_rank": server.metrics()["kv_pool_bytes_per_shard"],
+        "kv_pool_sharding": server.metrics()["kv_pool_sharding"],
+    }
+    _free(server)
+    del server, runner
+    _until(lambda: all(p.poll() is not None for p in procs),
+           f"{label}: every rank process gone after the server's shutdown", phase="tp")
+    out["left_mib"] = _settle(mem0, f"tp {label}")
+    # Every card's used memory (nvidia-smi) after this run's teardown.
+    out["used_mib_after"] = _cards_used_mib()
+    out["reserved_mib_after"] = torch.cuda.memory_reserved() / 2**20
+    log("[tp] " + json.dumps(out))
+    out.update(tokens=seq, first_logits=first, margins=margins)
+    return out
+
+
+def _tp_bf16_rule(base: dict, run: dict) -> dict:
+    """The bf16 rule (TP_BF16_TOL) of one tp run against tp=1's."""
+    worst = max(float(np.abs(a - b).max())
+                for a, b in zip(run["first_logits"], base["first_logits"]))
+    if worst > TP_BF16_TOL:
+        fail(f"[tp] bf16 tp={run['tp']}: first-step logits {worst} from tp=1's, "
+             f"past {TP_BF16_TOL}")
+    parted = []
+    for i, (got, want, margin) in enumerate(zip(run["tokens"], base["tokens"],
+                                                 base["margins"])):
+        at = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if at is None:
+            continue
+        parted.append({"prompt": i, "step": at, "tp1_margin": margin[at]})
+        if margin[at] >= TP_BF16_TOL:
+            fail(f"[tp] bf16 tp={run['tp']} prompt {i} parts from tp=1 at step {at}, "
+                 f"where tp=1's top-2 margin {margin[at]} is not under {TP_BF16_TOL}")
+    rule = {"tp": run["tp"], "first_logits_max_abs_diff": worst, "parted": parted,
+            "identical_prompts": len(run["tokens"]) - len(parted)}
+    log("[tp] bf16 rule: " + json.dumps(rule))
+    return rule
+
+
+def _tp_serve(prompt, n_new: int) -> dict:
+    """One request at tp=2 through serve.run(build_app(...))."""
+    import dataclasses
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm.serve import build_app
+    from ray_tpu_torch.models.gpt import gpt2_125m
+
+    mem0 = torch.cuda.memory_allocated()
+    ray_tpu_torch.init(num_cpus=8)
+    t0 = time.perf_counter()
+    try:
+        handle = serve.run(build_app(
+            gpt2_125m(), dataclasses.replace(_engine_config(), tensor_parallel_size=2),
+            engine_name="tp2", seed=0), name="tp2")
+        got = handle.remote({"prompt_ids": prompt, "max_new_tokens": n_new}).result(
+            timeout_s=600)
+        wall = time.perf_counter() - t0
+        engine = ray_tpu_torch.get_actor("llm_engine:tp2")
+        stats = ray_tpu_torch.get(engine.metrics.remote(), timeout=60)
+        pids = _tp_worker_pids()
+    finally:
+        # The app, then its shared engine (its shutdown stops rank 1), then
+        # the runtime: the sweep cells' order (ROADMAP §D8).
+        serve.shutdown()
+        try:
+            ray_tpu_torch.get(engine.shutdown.remote(), timeout=60)
+            ray_tpu_torch.kill(engine)
+        finally:
+            ray_tpu_torch.shutdown()
+    if len(pids) != 1:
+        fail(f"[tp] the tp=2 serve app runs {len(pids)} rank processes, not 1")
+    _until(lambda: not any(_pid_alive(p) for p in pids),
+           "the serve app's rank process gone after its engine's shutdown", phase="tp")
+    out = {"tokens": got["token_ids"], "wall_s": wall,
+           "tensor_parallel_size": stats["tensor_parallel_size"],
+           "kv_pool_sharding": stats["kv_pool_sharding"]}
+    out["left_mib"] = _settle(mem0, "tp serve")
+    out["used_mib_after"] = _cards_used_mib()
+    out["reserved_mib_after"] = torch.cuda.memory_reserved() / 2**20
+    log("[tp] serve: " + json.dumps({k: v for k, v in out.items() if k != "tokens"}))
+    return out
+
+
+def _tp_cards_back(used: list, used0: list, card0: int, label: str) -> None:
+    """The memory rule after a teardown (module doc): cards 1.. within
+    LEFT_LIMIT_MIB of the phase's start, card 0 within LEFT_LIMIT_MIB of
+    its level after the phase's first tp > 1 run."""
+    want = [card0] + list(used0[1:])
+    for i, (a, b) in enumerate(zip(want, used)):
+        if b > a + LEFT_LIMIT_MIB:
+            fail(f"[tp] {label}: card {i} holds {b} MiB after the teardown, "
+                 f"{a} MiB the bound's base (limit {LEFT_LIMIT_MIB} MiB)")
+
+
+def _tp_kill_inside_a_step(prompt) -> dict:
+    """A rank that dies inside a step on NCCL: rank 1 of a tp=2 engine
+    stopped (alive, so the step's header goes out and rank 0 enters the
+    step's collectives) and killed a second later. The step must raise
+    TensorParallelError naming rank 1 within TP_TIMEOUT_S of the kill (the
+    group's fence aborts the communicator, which ends rank 0's waiting
+    kernels), rank 0's stream must drain, and the engine's shutdown return."""
+    import dataclasses
+    import signal
+    import threading
+
+    from ray_tpu_torch.llm import LLMEngine
+    from ray_tpu_torch.models.gpt import gpt2_125m
+    from ray_tpu_torch.parallel import TP_TIMEOUT_S, TensorParallelError
+
+    engine = LLMEngine(gpt2_125m(), dataclasses.replace(
+        _engine_config(), tensor_parallel_size=2), seed=0)
+    try:
+        if len(engine.generate([prompt], max_new_tokens=4)[0]) != 4:
+            fail("[tp] kill: the tp=2 engine did not generate before the kill")
+        rank1 = engine._tp_group.processes[0]
+        os.kill(rank1.pid, signal.SIGSTOP)
+        killer = threading.Timer(1.0, os.kill, (rank1.pid, signal.SIGKILL))
+        t0 = time.perf_counter()
+        killer.start()
+        try:
+            engine.generate([prompt], max_new_tokens=4)
+            fail("[tp] kill: a step whose rank 1 was killed inside it raised nothing")
+        except TensorParallelError as exc:
+            error = str(exc)
+        finally:
+            killer.join()
+        raised_s = time.perf_counter() - t0 - 1.0
+    finally:
+        engine.shutdown()
+    if "rank 1" not in error or raised_s > TP_TIMEOUT_S:
+        fail(f"[tp] kill: raised {raised_s:.3f}s after the kill: {error}")
+    event = torch.cuda.Event()
+    event.record()
+    _until(event.query, "rank 0's stream drained after the abort", phase="tp")
+    if torch.ones(4, device="cuda").sum().item() != 4:
+        fail("[tp] kill: rank 0's card computes wrong after the abort")
+    _until(lambda: rank1.poll() is not None, "the killed rank reaped", phase="tp")
+    out = {"raised_s_after_kill": raised_s, "bound_s": TP_TIMEOUT_S, "error": error}
+    log("[tp] kill inside a step: " + json.dumps(out))
+    return out
+
+
+def phase_tp() -> dict:
+    """The tp phase (module doc): `python3 chip_smoke.py --phase tp`."""
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        fail(f"the tp phase needs at least 2 cards; {cards} visible")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    for line in smi.stdout.strip().splitlines():
+        log(line)
+    torch.zeros(1, device="cuda")  # rank 0's context, before the baseline
+    used0 = _cards_used_mib()
+    log(f"[tp] cards {cards}, used MiB before: {used0}")
+    sizes = [tp for tp in TP_SIZES if tp <= cards]
+    prompts = _prompts(np.random.RandomState(0))
+    n_new = 32
+    runs = {("f32", 1): _tp_run(torch.float32, 1, prompts, n_new)}
+    # The serve app is the phase's first tp > 1 run: card 0's level after
+    # it is the base of card 0's memory rule (module doc).
+    served = _tp_serve(prompts[0], n_new)
+    card0 = served["used_mib_after"][0]
+    _tp_cards_back(served["used_mib_after"], used0, card0, "serve")
+    for dtype in (torch.float32, torch.bfloat16):
+        for tp in sizes:
+            key = (dtype_label(dtype), tp)
+            if key not in runs:
+                runs[key] = _tp_run(dtype, tp, prompts, n_new)
+                _tp_cards_back(runs[key]["used_mib_after"], used0, card0,
+                               f"{key[0]} tp={tp}")
+    for tp in sizes[1:]:
+        got, want = runs[("f32", tp)]["tokens"], runs[("f32", 1)]["tokens"]
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            fail(f"[tp] f32 tp={tp} tokens differ from tp=1's on prompts {bad}")
+    log(f"[tp] f32 tokens at tp={sizes[1:]} equal tp=1's on all {len(prompts)} prompts")
+    rules = [_tp_bf16_rule(runs[("bf16", 1)], runs[("bf16", tp)]) for tp in sizes[1:]]
+    if served["tokens"] != runs[("bf16", 2)]["tokens"][0]:
+        fail("[tp] the tp=2 serve app's tokens differ from the tp=2 server's")
+    if served["tensor_parallel_size"] != 2:
+        fail(f"[tp] the serve app's engine reports tp={served['tensor_parallel_size']}")
+    used1 = _cards_used_mib()
+    log(f"[tp] cards' used MiB after every teardown: {used1} (before the phase: "
+        f"{used0}; card 0 after the tp=1 run {runs[('f32', 1)]['used_mib_after'][0]}, "
+        f"after the first tp > 1 run {card0})")
+    _tp_cards_back(used1, used0, card0, "the phase")
+    killed = _tp_kill_inside_a_step(prompts[0])
+    summary = {
+        "cards": cards, "sizes": sizes, "bf16_tol": TP_BF16_TOL,
+        "runs": [{k: v for k, v in r.items()
+                  if k not in ("tokens", "first_logits", "margins")}
+                 for r in runs.values()],
+        "bf16_rule": rules,
+        "serve": {k: v for k, v in served.items() if k != "tokens"},
+        "used_mib_before": used0, "used_mib_after": used1,
+        "card0_base_mib": card0, "kill_inside_a_step": killed,
+        "wall_s": time.perf_counter() - t0,
+    }
+    log(f"[tp] phase wall {summary['wall_s']:.1f}s")
+    return summary
+
+
+def main_tp() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = phase_device()
+    summary = phase_tp()
+    print(json.dumps({"tp": summary}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device["name"],
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7589,4 +7962,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--phase", "tp"]:
+        sys.exit(main_tp())
+    if sys.argv[1:]:
+        sys.exit(f"usage: {sys.argv[0]} [--phase tp]")
     sys.exit(main())

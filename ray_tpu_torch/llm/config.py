@@ -175,25 +175,25 @@ class EngineConfig:
     # GPTConfig of the draft model (required iff speculation="draft").
     # It must satisfy max_seq_len >= max_model_len, like the target.
     draft_model_config: Optional[Any] = None
-    # Intra-replica tensor parallelism: the number of chips one engine
-    # replica spans. 1 (the default) is the single-chip path, bit-for-bit
-    # unchanged. > 1 builds a `tp` mesh over the first N backend devices
-    # (the tensor-parallel slice) and runs every jitted
-    # program SPMD over it: GPT weights shard Megatron-style (qkv/mlp-in
-    # column-parallel, attn-out/mlp-out row-parallel — one psum per block
-    # after each row-parallel projection), and the paged KV pools, int8
-    # scale pools, and the draft-model mirror pool all shard on the HEAD
-    # axis, so each chip's paged_flash instance DMAs only its local heads'
-    # cache blocks while the allocator/prefix cache/scheduler stay
-    # host-global (block ids are shard-invariant). Requires num_heads of
-    # the target AND draft model to be divisible by this, and at least
-    # this many backend devices — both checked fail-fast at construction.
-    # Both attn_impl values are supported (the implementation runs
-    # head-sliced under shard_map either way). Greedy outputs are
-    # token-identical to tensor_parallel_size=1 in the acceptance tests
-    # (f32, CPU host-device mesh); on TPU in bf16 the partial-sum
-    # reduction order differs, so near-tie argmax flips are possible — the
-    # same contract as any kernel swap.
+    # Intra-replica tensor parallelism: the number of devices one engine
+    # spans. 1 (the default) is the single-device path, unchanged. > 1
+    # makes the engine's process rank 0 of a group of that many processes,
+    # one per device (ray_tpu_torch.parallel.tensor_parallel_group: NCCL on
+    # the card, gloo on the CPU), and runs every step program on all of
+    # them: GPT weights split Megatron-style (qkv/mlp-in column-parallel,
+    # attn-out/mlp-out row-parallel — one all-reduce per block after each
+    # row-parallel projection), and the paged KV pools, int8 scale pools,
+    # and the draft-model mirror pool all split on the HEAD axis, so each
+    # rank's paged-attention kernel reads only its own heads' cache blocks
+    # while the allocator/prefix cache/scheduler stay with rank 0 (block
+    # ids mean the same on every rank). Requires num_heads of the target
+    # AND draft model to be divisible by this, and at least this many
+    # visible devices — both checked before any rank starts. Both
+    # attn_impl values are supported. Greedy outputs are token-identical
+    # to tensor_parallel_size=1 in f32 (the CPU tests and the card's tp
+    # phase); in bf16 the partial-sum reduction order differs, so
+    # near-tie argmax flips are possible — the same contract as any
+    # kernel swap.
     tensor_parallel_size: int = 1
     # Fleet-wide KV fabric (ray_tpu_torch.llm.kvfabric): None (the default)
     # disables every fabric hook and leaves all existing paths bit-for-bit

@@ -33,6 +33,7 @@ from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 
+from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch._private.fault_injection import maybe_fail
 from ray_tpu_torch.exceptions import EngineOverloadedError, PoisonRequestError
 from ray_tpu_torch.llm.cache import BlockAllocator, blocks_for_tokens
@@ -57,6 +58,8 @@ from ray_tpu_torch.llm.scheduler import (
 )
 from ray_tpu_torch.llm.spec import build_proposer
 from ray_tpu_torch.models.gpt import GPTConfig
+from ray_tpu_torch.ops.attention import validate_tp_heads
+from ray_tpu_torch.parallel.mesh import TensorParallelError, tensor_parallel_group
 from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram, get_or_create
 
@@ -92,7 +95,12 @@ class LLMEngine:
     """Not thread-safe; callers serialize access (LLMServer holds a lock).
     ``device`` defaults to CUDA and raises without it; the draft model of
     ``speculation="draft"`` runs on the same device, its weights from
-    ``draft_params`` (a state dict) or seeded like the target's."""
+    ``draft_params`` (a state dict) or seeded like the target's.
+
+    With ``tensor_parallel_size > 1`` the engine's process is rank 0 of a
+    group of that many processes, one per device, spawned here once for
+    the target and the draft runner alike; `shutdown()` stops the ranks
+    and frees their devices."""
 
     def __init__(
         self,
@@ -105,17 +113,36 @@ class LLMEngine:
     ):
         self.model_config = model_config or GPTConfig()
         self.engine_config = engine_config or EngineConfig()
-        self.runner = GPTRunner(
-            self.model_config, self.engine_config, params=params, seed=seed,
-            device=device,
+        tp = self.engine_config.tensor_parallel_size
+        # Fail fast, before any rank is spawned or any pool built: both
+        # models' heads must split evenly over the ranks, and the error
+        # names the model at fault.
+        validate_tp_heads(self.model_config.num_heads, tp)
+        if self.engine_config.draft_model_config is not None:
+            validate_tp_heads(
+                self.engine_config.draft_model_config.num_heads, tp,
+                role="draft model",
+            )
+        self.runner = self._spec = None
+        self._tp_group = (
+            tensor_parallel_group(tp, resolve_device(device)) if tp > 1 else None
         )
-        # Speculative decoding (ray_tpu_torch.llm.spec): None when off. The
-        # proposer only produces guesses; _run_verify scores them against
-        # this engine's own model, so outputs never depend on it.
-        self._spec = build_proposer(
-            self.engine_config, seed=seed, draft_params=draft_params,
-            device=self.runner.device,
-        )
+        try:
+            self.runner = GPTRunner(
+                self.model_config, self.engine_config, params=params, seed=seed,
+                device=device, tp_group=self._tp_group,
+            )
+            # Speculative decoding (ray_tpu_torch.llm.spec): None when off.
+            # The proposer only produces guesses; _run_verify scores them
+            # against this engine's own model, so outputs never depend on
+            # it. The draft runner lives on the same ranks.
+            self._spec = build_proposer(
+                self.engine_config, seed=seed, draft_params=draft_params,
+                device=self.runner.device, tp_group=self._tp_group,
+            )
+        except BaseException:
+            self.shutdown()
+            raise
         self.allocator = BlockAllocator(
             self.engine_config.num_blocks,
             self.engine_config.block_size,
@@ -634,6 +661,16 @@ class LLMEngine:
         # it, so callers' step loops never strand a dispatched program.
         return self.scheduler.has_work() or bool(self._inflight)
 
+    def shutdown(self) -> None:
+        """Free the other ranks' shards of this engine's runners and stop
+        the ranks (their devices are freed as they exit). Idempotent;
+        nothing to do at tensor_parallel_size 1."""
+        for runner in (self.runner, getattr(self._spec, "runner", None)):
+            if runner is not None:
+                runner.close()
+        if self._tp_group is not None:
+            self._tp_group.close()
+
     # ---------------- poison-request isolation ----------------
 
     def culprit_for(self, exc: BaseException) -> Optional[str]:
@@ -641,6 +678,8 @@ class LLMEngine:
         exception's own request_id (PoisonRequestError and injected faults
         carry one) or the request whose per-sequence section of step() was
         running. None when the failure can't be pinned on one request."""
+        if isinstance(exc, TensorParallelError):
+            return None  # the engine's ranks, not one request
         rid = getattr(exc, "request_id", None) or self._current_rid
         if rid and self.scheduler.is_active(rid):
             return rid
@@ -1851,6 +1890,9 @@ class LLMEngine:
             "tensor_parallel_size": self._tp,
             "kv_pool_bytes": pool_bytes["aggregate"],
             "kv_pool_bytes_per_shard": pool_bytes["per_shard"],
+            # The live pools' layout (None at tp=1): head-split after
+            # whatever traffic ran.
+            "kv_pool_sharding": self.runner.pool_sharding_spec(),
             # Weight count for the MFU estimate (decode FLOPs ~= 2 *
             # model_params per generated token).
             "model_params": self.runner.num_params,
@@ -2031,6 +2073,13 @@ class LLMServer:
             model_config, engine_config, params=params, seed=seed,
             device=device, draft_params=draft_params,
         )
+        try:
+            self._start(warmup)
+        except BaseException:
+            self._engine.shutdown()
+            raise
+
+    def _start(self, warmup: bool) -> None:
         if warmup:
             # Touch every prefill bucket and the decode program now, before
             # any request: on the card this builds and loads the kernels
@@ -2245,7 +2294,10 @@ class LLMServer:
                             action="dead_letter",
                         )
                         continue
-                    if self._consecutive_step_failures < max_failures:
+                    if (
+                        self._consecutive_step_failures < max_failures
+                        and not isinstance(exc, TensorParallelError)
+                    ):
                         recorder.record_failure(
                             step_idx, repr(exc), action="retry"
                         )
@@ -2584,3 +2636,7 @@ class LLMServer:
                     state.done.set()
             self._work.notify_all()
         self._thread.join(timeout=10.0)
+        # Stops a tensor-parallel engine's ranks; under the lock, so no
+        # step is running on them.
+        with self._lock:
+            self._engine.shutdown()

@@ -373,8 +373,11 @@ def build_app(
 
     Scaling `num_replicas` adds HTTP ingress replicas, never weight
     copies: every replica forwards to the one shared engine actor, whose
-    warmup runs every bucket before the deployment reports healthy. The
-    engine refuses `tensor_parallel_size > 1` until ROADMAP §B6.
+    warmup runs every bucket before the deployment reports healthy.
+    `engine_config.tensor_parallel_size > 1` makes that one engine actor
+    span tp devices: its process is rank 0, and it spawns one process per
+    other rank (weights Megatron-split, KV pools head-split, see
+    LLMEngine); its warmup runs every bucket on every rank.
 
     `autoscaling_config` accepts serve.LLMAutoscalingPolicy (SLO-driven:
     the ingress feeds the engine's queue-time/TTFT histogram windows and

@@ -17,11 +17,13 @@ llm/config.py for the knobs and llm/engine.py for the verify phase.
 from ray_tpu_torch.llm.spec.proposer import NgramProposer, Proposer
 
 
-def build_proposer(engine_config, seed: int = 0, draft_params=None, device=None):
+def build_proposer(engine_config, seed: int = 0, draft_params=None, device=None,
+                   tp_group=None):
     """The proposer EngineConfig.speculation selects (None when "off").
     `draft_params` optionally supplies trained draft weights (a state dict
     of the draft GPT); without them the draft model initializes from
-    `seed` like the target. The draft runs on `device` (the engine's)."""
+    `seed` like the target. The draft runs on `device` (the engine's) and,
+    under tensor parallelism, on the engine's ranks (`tp_group`)."""
     if engine_config.speculation == "off":
         return None
     if engine_config.speculation == "ngram":
@@ -39,6 +41,7 @@ def build_proposer(engine_config, seed: int = 0, draft_params=None, device=None)
         params=draft_params,
         seed=seed,
         device=device,
+        tp_group=tp_group,
     )
 
 

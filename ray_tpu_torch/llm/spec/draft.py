@@ -2,7 +2,8 @@
 
 The draft shares everything with the target path except the weights: the
 same GPTRunner (prefill / partial-prefill / decode step programs over a
-paged cache, on the engine's device), its own block pool (same geometry as
+paged cache, on the engine's device and tensor-parallel ranks), its own
+block pool (same geometry as
 the target's, so the admission math is identical), and recompute-style
 state discipline — a released sequence simply re-prefills from its
 committed tokens.
@@ -51,15 +52,19 @@ class DraftModelProposer(Proposer):
         params=None,
         seed: int = 0,
         device=None,
+        tp_group=None,
     ):
         # Deferred import: model_runner pulls in the model stack, which the
         # host-only ngram path never needs.
         from ray_tpu_torch.llm.model_runner import GPTRunner
 
         self.engine_config = engine_config
+        # Under tensor parallelism the draft shares the target's ranks (the
+        # reference's draft shares its mesh): its mirror pool splits on its
+        # own head axis, over the same block ids.
         self.runner = GPTRunner(
             draft_model_config, engine_config, params=params, seed=seed,
-            device=device,
+            device=device, tp_group=tp_group,
         )
         # Prefix caching off: draft state is private per sequence and the
         # engine's own prefix cache already de-duplicates target compute;

@@ -98,6 +98,10 @@ class Dense(nn.Linear):
         dt = self.dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
+    @torch.no_grad()
+    def cast_for_inference(self) -> None:
+        self.to(self.dtype)
+
 
 class Embed(nn.Embedding):
     """flax nn.Embed(dtype=...): an f32 table, rows cast to the compute
@@ -117,14 +121,33 @@ class Embed(nn.Embedding):
 
 
 class Block(nn.Module):
-    def __init__(self, config: GPTConfig, use_moe: bool = False, device=None):
+    """One transformer block. With a tensor-parallel `group` (size tp > 1)
+    the block holds its rank's heads and MLP columns (Megatron's layout,
+    ``parallel.LLM_TP_RULES``): ``attn_qkv`` and ``mlp_in`` column-parallel,
+    ``attn_proj`` and ``mlp_out`` row-parallel, each of those two followed
+    by one all-reduce; attention runs on the rank's H / tp heads."""
+
+    def __init__(self, config: GPTConfig, use_moe: bool = False, device=None, group=None):
         super().__init__()
         cfg = config
         self.config = cfg
         e, dt = cfg.embed_dim, cfg.dtype
+        self.tp = group.size if group is not None else 1
+        self.num_heads = cfg.num_heads // self.tp  # this rank's heads
+        if self.tp > 1:
+            from ray_tpu_torch.parallel.tensor_parallel import (
+                ColumnParallelDense,
+                RowParallelDense,
+            )
+
+            column = lambda i, o: ColumnParallelDense(i, o, dt, device, self.tp)
+            row = lambda i, o: RowParallelDense(i, o, dt, device, group)
+        else:
+            column = row = lambda i, o: Dense(i, o, dt, device)
+        # Creation order is the parameter order the seeded init draws in.
         self.ln_1 = LayerNorm(e, dt, device)
-        self.attn_qkv = Dense(e, 3 * e, dt, device)
-        self.attn_proj = Dense(e, e, dt, device)
+        self.attn_qkv = column(e, 3 * e)
+        self.attn_proj = row(e, e)
         self.ln_2 = LayerNorm(e, dt, device)
         self.use_moe = use_moe
         if use_moe:
@@ -135,19 +158,20 @@ class Block(nn.Module):
                     num_experts_per_tok=cfg.num_experts_per_tok,
                     capacity_factor=cfg.moe_capacity_factor,
                 ),
-                dtype=dt, device=device,
+                dtype=dt, device=device, group=group,
             )
         else:
-            self.mlp_in = Dense(e, cfg.mlp_ratio * e, dt, device)
-            self.mlp_out = Dense(cfg.mlp_ratio * e, e, dt, device)
+            self.mlp_in = column(e, cfg.mlp_ratio * e)
+            self.mlp_out = row(cfg.mlp_ratio * e, e)
 
     def _heads(self, qkv: torch.Tensor):
-        """q, k, v [B, S, H, D] views of the packed projection."""
+        """q, k, v [B, S, H, D] views of the packed projection (this rank's
+        heads under tensor parallelism)."""
         b, s, _ = qkv.shape
-        cfg = self.config
+        d = self.config.head_dim
         return [
-            t.view(b, s, cfg.num_heads, cfg.head_dim)
-            for t in qkv.split(cfg.embed_dim, dim=-1)
+            t.view(b, s, self.num_heads, d)
+            for t in qkv.split(self.num_heads * d, dim=-1)
         ]
 
     def forward(
@@ -201,13 +225,13 @@ class Block(nn.Module):
         elif cfg.attention_impl == "flash" and s <= 2048:
             # The packed kernels (K6 forward, K7 backward) take the
             # projection output as it is; dqkv comes back packed.
-            attn = flash_attention_packed(qkv, cfg.num_heads, causal=True)
+            attn = flash_attention_packed(qkv, self.num_heads, causal=True)
         else:
             # Long context: the blockwise kernels (K2 forward; K4 / K5
             # backward), or the full-matrix reference.
             q, k, v = self._heads(qkv)
             attn = attention_op(q, k, v, causal=True, impl=cfg.attention_impl)
-        attn = self.attn_proj(attn.reshape(b, s, cfg.embed_dim))
+        attn = self.attn_proj(attn.reshape(b, s, self.num_heads * cfg.head_dim))
         x = x + attn
         h = self.ln_2(x)
         inter = {}
@@ -228,22 +252,39 @@ class GPT(nn.Module):
     tests pass ``device="cpu"``. Weights are seeded from a torch.Generator
     (normal(0.02) for dense kernels and wte, normal(0.01) for wpe, zeros
     for biases) — deterministic per seed, though not the reference's
-    jax.random numbers: parity tests load converted reference weights."""
+    jax.random numbers: parity tests load converted reference weights.
 
-    def __init__(self, config: GPTConfig, device=None, seed: int = 0):
+    With a tensor-parallel `group` (a ``parallel.RankGroup`` of size > 1)
+    the model is that rank's shard: its blocks hold their slices of the
+    split weights. A seeded shard is the seeded full model's slice (drawn
+    on the CPU at full size, then sliced), so every tp serves the same
+    weights; `init=False` skips that for a caller that loads weights next.
+    Only rank 0 computes the final layernorm and the LM head: the other
+    ranks' forward returns None for the logits."""
+
+    def __init__(self, config: GPTConfig, device=None, seed: int = 0,
+                 group=None, init: bool = True):
         super().__init__()
         device = resolve_device(device)
         self.config = cfg = config
+        tp = group.size if group is not None else 1
+        self.tp_rank = group.rank if tp > 1 else 0
         self.wte = Embed(cfg.vocab_size, cfg.embed_dim, cfg.dtype, device)
         self.wpe = Embed(cfg.max_seq_len, cfg.embed_dim, cfg.dtype, device)
         self.h = nn.ModuleList(
             Block(cfg, use_moe=bool(
                 cfg.num_experts and i % cfg.moe_every == cfg.moe_every - 1
-            ), device=device)
+            ), device=device, group=group if tp > 1 else None)
             for i in range(cfg.num_layers)
         )
         self.ln_f = LayerNorm(cfg.embed_dim, cfg.dtype, device)
-        self.reset_parameters(seed)
+        if tp == 1:
+            self.reset_parameters(seed)
+        elif init:
+            from ray_tpu_torch.parallel.sharding import llm_shard_params
+
+            full = GPT(cfg, device="cpu", seed=seed).state_dict()
+            self.load_state_dict(llm_shard_params(full, self.tp_rank, tp))
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
@@ -263,9 +304,12 @@ class GPT(nn.Module):
         for a model that serves and is never updated: the per-use casts
         become no-ops with the same values. LayerNorm parameters stay f32,
         as its statistics are f32; so does an MoE router (its experts are
-        in the compute dtype already)."""
+        in the compute dtype already). A row-parallel layer keeps f32
+        holding the compute dtype's values (``parallel.RowParallelDense``)."""
         for module in self.modules():
-            if isinstance(module, (Dense, Embed)):
+            if isinstance(module, Dense):
+                module.cast_for_inference()
+            elif isinstance(module, Embed):
                 module.to(self.config.dtype)
         return self
 
@@ -322,10 +366,14 @@ class GPT(nn.Module):
             kvs.append(kv)
             if inter:
                 intermediates[f"h_{i}"] = inter
-        x = self.ln_f(x)
-        # Tied LM head: logits through the embedding matrix in the model
-        # dtype (bf16 logits, as in the reference; argmax runs on these).
-        logits = self.wte.attend(x)
+        if self.tp_rank > 0:
+            logits = None  # only rank 0 samples
+        else:
+            x = self.ln_f(x)
+            # Tied LM head: logits through the embedding matrix in the
+            # model dtype (bf16 logits, as in the reference; argmax runs
+            # on these).
+            logits = self.wte.attend(x)
         out = (logits,) + ((kvs,) if return_kv else ()) + (
             (intermediates,) if return_aux else ())
         return out if len(out) > 1 else logits

@@ -89,16 +89,25 @@ def _aux_losses(logits, probs, expert_idx, cfg: MoEConfig) -> Dict[str, torch.Te
     }
 
 
-def _experts(expert_in, w_in, w_out):
-    """[E, C, d] → [E, C, d] through each expert's MLP (tanh GELU)."""
+def _experts(expert_in, w_in, w_out, group=None):
+    """[E, C, d] → [E, C, d] through each expert's MLP (tanh GELU). With a
+    tensor-parallel `group` the weights are this rank's slice of the MLP
+    dim (``w_in``'s columns, ``w_out``'s rows): the second product is a
+    partial sum, reduced over the ranks in f32 and cast once, as a single
+    device's product accumulates and rounds."""
     h = F.gelu(torch.bmm(expert_in, w_in), approximate="tanh")
-    return torch.bmm(h, w_out)
+    if group is None:
+        return torch.bmm(h, w_out)
+    partial = torch.bmm(h.float(), w_out.float())
+    return group.all_reduce(partial).to(expert_in.dtype)
 
 
-def moe_mlp(x, router, w_in, w_out, cfg: MoEConfig, dtype, with_stats=False):
+def moe_mlp(x, router, w_in, w_out, cfg: MoEConfig, dtype, with_stats=False, group=None):
     """The MoE MLP by index. x [b, s, d] → (out [b, s, d] in `dtype`, aux)
     and, with `with_stats`, a third dict of diagnostics (the share of
-    (token, choice) pairs dropped at capacity) that no loss reads."""
+    (token, choice) pairs dropped at capacity) that no loss reads. Under
+    tensor parallelism (`group`) every rank routes the same tokens (the
+    router is replicated) and runs its slice of every expert."""
     b, s, d = x.shape
     n_tokens = b * s
     E = cfg.num_experts
@@ -114,7 +123,7 @@ def moe_mlp(x, router, w_in, w_out, cfg: MoEConfig, dtype, with_stats=False):
     slot = torch.where(kept, expert_idx * cap + position, E * cap).reshape(-1)  # [T * k]
     pairs = tokens.to(dtype)[:, None, :].expand(n_tokens, k, d).reshape(-1, d)
     buf = pairs.new_zeros((E * cap + 1, d)).index_copy(0, slot, pairs)
-    expert_out = _experts(buf[: E * cap].view(E, cap, d), w_in, w_out).reshape(E * cap, d)
+    expert_out = _experts(buf[: E * cap].view(E, cap, d), w_in, w_out, group).reshape(E * cap, d)
     # Combine: each slot's token (n_tokens, a row dropped at the end, for an
     # empty slot) and gate (0 for an empty slot). A token sums at most k
     # products; the reference's einsum in the model dtype gives the same:
@@ -169,13 +178,18 @@ class MoEMlp(nn.Module):
     Parameters keep the reference's layouts and dtypes: ``router`` [d, E]
     in f32, ``w_in`` [E, d, m] and ``w_out`` [E, m, d] in the model dtype
     (bf16 experts in a bf16 model, not f32 masters: the reference creates
-    them in its compute dtype). Seeded init: normal(0.02) for all three."""
+    them in its compute dtype). Seeded init: normal(0.02) for all three.
+    With a tensor-parallel `group` the experts hold this rank's slice of
+    `mlp_dim` (``parallel.LLM_TP_RULES``)."""
 
     def __init__(self, embed_dim: int, mlp_dim: int, moe: MoEConfig = MoEConfig(),
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, group=None):
         super().__init__()
         self.moe = moe
         self.dtype = dtype
+        self.group = group if group is not None and group.size > 1 else None
+        if self.group is not None:
+            mlp_dim //= self.group.size
         E = moe.num_experts
         self.router = nn.Parameter(torch.empty(embed_dim, E, device=device))
         self.w_in = nn.Parameter(
@@ -190,4 +204,4 @@ class MoEMlp(nn.Module):
     def forward(self, x: torch.Tensor, with_stats: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         return moe_mlp(x, self.router, self.w_in, self.w_out, self.moe,
-                       self.dtype, with_stats=with_stats)
+                       self.dtype, with_stats=with_stats, group=self.group)

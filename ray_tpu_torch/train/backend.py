@@ -5,7 +5,7 @@ drives Backend.on_start/on_shutdown; torch impl at train/torch/config.py:155).
 The JAX reference forms a device mesh and a host collective group on every
 worker; the port's TorchBackend gives each worker its torch.device and the
 same host collective group. Gradient sync across workers over NCCL waits for
-the parallel layer (ROADMAP.md §B6/§B7).
+the parallel layer (ROADMAP.md §B7).
 """
 
 from __future__ import annotations
@@ -65,12 +65,12 @@ class TorchBackendConfig(BackendConfig):
         if self.mesh_spec is not None or self.mesh_strategy != "dp":
             raise NotImplementedError(
                 "TorchBackendConfig: device meshes (mesh_spec, mesh_strategy) "
-                "wait for the parallel layer (ROADMAP.md §B6/§B7)"
+                "wait for the parallel layer (ROADMAP.md §B7)"
             )
         if self.multihost:
             raise NotImplementedError(
                 "TorchBackendConfig(multihost=True): multi-host training over "
-                "NCCL waits for the parallel layer (ROADMAP.md §B6/§B7)"
+                "NCCL waits for the parallel layer (ROADMAP.md §B7)"
             )
 
     @property

@@ -368,10 +368,11 @@ def test_route_keys_match_the_reference():
     /metrics exposes the same ray_tpu_* gauge names."""
     got = {name: in_fresh_process("route_shapes", name) for name in PKGS}
     want, have = got["ray_tpu"]["shapes"], got["ray_tpu_torch"]["shapes"]
-    # The engines' stats differ by one key each (earlier slices): the
-    # reference reports its KV pool's JAX sharding spec, the port the
-    # engine's torch device.
-    assert want["/api/llm"][0]["metrics"].pop("kv_pool_sharding") == "NoneType"
+    # The engines' stats differ by one key: the port also reports the
+    # engine's torch device. Both report the KV pools' layout (None at
+    # tp=1).
+    assert want["/api/llm"][0]["metrics"]["kv_pool_sharding"] == "NoneType"
+    assert have["/api/llm"][0]["metrics"]["kv_pool_sharding"] == "NoneType"
     assert have["/api/llm"][0]["metrics"].pop("device") == "str"
     for route in ROUTES:
         assert have[route] == want[route], route

@@ -82,6 +82,9 @@ _GATE = textwrap.dedent(
                  "autoscaler.resource_demand_scheduler", "util.state.api",
                  "scripts.cli", "cluster_utils", "job_submission"):
         assert f"ray_tpu_torch.{name}" in names, name
+    for name in ("parallel", "parallel.mesh", "parallel.sharding",
+                 "parallel.tensor_parallel", "llm.tp_worker"):
+        assert f"ray_tpu_torch.{name}" in names, name
     for name in ("core", "baseline", "project", "cli", "shapes", "rules_async",
                  "rules_locks", "rules_trace", "rules_resources", "rules_actors",
                  "rules_shapes"):
@@ -343,3 +346,48 @@ def test_daemon_and_client_processes_import_no_jax_or_ray_tpu(tmp_path):
                           timeout=360)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     assert "CLUSTER_CLEAN" in proc.stdout
+
+
+# A tensor-parallel engine on the CPU: rank 0 here, rank 1 a process of its
+# own (python -m ray_tpu_torch.llm.tp_worker, which sees the hook too).
+_TP = textwrap.dedent(
+    """
+    import sys
+    import torch
+    from ray_tpu_torch.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.models import GPTConfig
+
+    cfg = GPTConfig(vocab_size=64, num_layers=1, num_heads=2, embed_dim=16,
+                    max_seq_len=64, dtype=torch.float32)
+    ecfg = EngineConfig(block_size=4, num_blocks=16, max_decode_slots=2,
+                        max_blocks_per_seq=8)
+    one = LLMEngine(cfg, ecfg, device="cpu").generate([[1, 2, 3]], max_new_tokens=4)
+    import dataclasses
+    eng = LLMEngine(cfg, dataclasses.replace(ecfg, tensor_parallel_size=2), device="cpu")
+    assert eng.generate([[1, 2, 3]], max_new_tokens=4) == one
+    (rank1,) = eng._tp_group.report()
+    assert rank1["collectives"]["all_reduce"] > 0, rank1
+    procs = eng._tp_group.processes
+    eng.shutdown()
+    assert all(p.wait(timeout=30) == 0 for p in procs)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "ray_tpu"))
+    assert not bad, bad
+    print("TP_CLEAN")
+    """
+)
+
+
+def test_tp_worker_process_imports_no_jax_or_ray_tpu(tmp_path):
+    """A tp=2 engine on the CPU under the import hook, in rank 0's process
+    and in the rank 1 process it starts: both serve (rank 1 joined the
+    group and ran the programs), and neither imports jax or anything of
+    ray_tpu; rank 1 exits cleanly at the engine's shutdown."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITE_GATE)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join((str(site), REPO)))
+    proc = subprocess.run([sys.executable, "-c", _TP], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "TP_CLEAN" in proc.stdout

@@ -253,12 +253,8 @@ def test_server_warmup_skips_only_inadmissible_buckets(weights, monkeypatch):
 def test_engine_refuses_unported_options(weights):
     _, state = weights
     base = dict(block_size=8, num_blocks=16, max_blocks_per_seq=4)
-    refused = [
-        (dict(tensor_parallel_size=2), "NCCL"),
-    ]
-    for extra, item in refused:
-        with pytest.raises(NotImplementedError, match=item):
-            LLMEngine(PORT_TINY, EngineConfig(**base, **extra), device="cpu")
+    # tensor_parallel_size > 1 is served since the tensor-parallel slice
+    # (tests/test_torch_llm_tp*.py); no engine option is refused now.
     with pytest.raises(ValueError, match="attn_impl"):
         EngineConfig(attn_impl="pallas")
     if not torch.cuda.is_available():

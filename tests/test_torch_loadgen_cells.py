@@ -7,10 +7,16 @@ reference on every clause of `_gate_collapse`, and pass every clause but
 one outright: typed sheds only, the burn pair (loose < 1 < impossible),
 the accepted requests within their SLO, no wedge, pools at boot size.
 The clause left to the comparison is "rejections fast" (shed p99 under
-the accepted TTFT p50). On the CPU both packages miss it: a shed crosses
+the accepted TTFT p50). On the CPU the port misses it: a shed crosses
 the same two actor hops as an accepted request's first token, under the
 burst's load, while the accepted median is set by the calm start of the
-ramp. The card run (chip_smoke.py) holds the whole gate.
+ramp. The reference mostly misses it too, but not always: under the
+tier-1 run's load its accepted median can climb past its shed p99 (0.357
+s over 0.321 s in one of 24 loaded runs, while the port's median was
+0.031 s), and it then meets the clause by accepting slowly. So where the
+reference meets it and the port does not, the port is held to the bar the
+reference cleared: its shed p99 under the reference's accepted TTFT p50
+(ROADMAP §D35). The card run (chip_smoke.py) holds the whole gate.
 
 Then the entry points: the sweep's cells default to the card and raise
 without CUDA, the kernel row refuses the CPU naming the card, and
@@ -141,7 +147,11 @@ def test_collapse_cell_does_as_well_as_the_reference(collapse_cells):
     shed = (port["report"]["shed_latency_s"]["p99"],
             port["report"]["percentiles"]["ttft_s"]["p50"])
     assert port_clauses <= {"shed_speed"}, (port_clauses, shed)
-    assert port_clauses <= ref_clauses, (port_clauses, ref_clauses, shed)
+    if "shed_speed" in port_clauses - ref_clauses:
+        # The reference met the clause: its shed p99 was under its accepted
+        # TTFT p50. The port's rejections must clear that same bar.
+        ref_bar = ref["report"]["percentiles"]["ttft_s"]["p50"]
+        assert shed[0] < ref_bar, (port_clauses, ref_clauses, shed, ref_bar)
 
 
 def test_collapse_cell_sheds_typed_and_burns(collapse_cells):
